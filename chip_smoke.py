@@ -1,0 +1,357 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one CUDA card at the paper's configuration.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+              (one nvcc per source, in parallel) and print the ptxas report;
+2. kernels  — each kernel against its plain PyTorch version on the card at
+              the main path's shapes (N = 765,625 Lamb-Oseen lattice, level
+              10, p = 17, 8 slots), with CUDA-event times and the bound;
+3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
+              to a float64 direct sum at 2048 sampled particles;
+4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
+              conserved particle count, per-step and per-stage times, peak
+              memory.
+
+The launch counters are zeroed right before phase 3 and read after phase 4:
+both kernels must have run on the main path.  Then come the card's name and
+power limit as nvidia-smi reports them, the kernels line and, last,
+``{"ok": true, "device": {...}}``.  Any failure ends the run with a nonzero
+exit code; without a CUDA device, or without the repository's sources beside
+this file, it exits nonzero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs.petfmm_vortex import CONFIG  # noqa: E402
+from repro_torch.core import expansions as ex  # noqa: E402
+from repro_torch.core import fmm, health as hw  # noqa: E402
+from repro_torch.core.equations import VORTEX  # noqa: E402
+from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noqa: E402
+                                       gather_particle_values, rebuild_tree)
+from repro_torch.core.stepper import rk2_step  # noqa: E402
+from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
+from repro_torch.kernels import _build, m2l, ops, p2p  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet) for the bound column.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# FP32 operations per live pair in csrc/p2p.cu (a division or an expf counts
+# as one): deltas 2, r2 3, 1/r2 1, two accumulated products 8, and the
+# mollifier 4 more (divide, exp, subtract, multiply) when sigma is finite.
+P2P_OPS_SINGULAR = 14
+P2P_OPS_REGULARIZED = 18
+
+SLOTS = 8
+DT = 1e-3
+STEPS = 3
+SAMPLES = 2048
+KERNEL_TOL = 1e-5
+FMM_TOL = 1e-3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_pairs(z_halo, mask_halo) -> int:
+    """Pairs (live target, live source, r2 > 0) over the 3x3 stencil."""
+    rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
+    zt, mt = z_halo[1:1 + rows, 1:1 + cols], mask_halo[1:1 + rows, 1:1 + cols]
+    total = 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            zs = z_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
+            ms = mask_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
+            d = zt[..., :, None] - zs[..., None, :]
+            r2 = d.real * d.real + d.imag * d.imag
+            total += int((mt[..., :, None] & ms[..., None, :] & (r2 > 0)).sum())
+    return total
+
+
+def check_p2p(tree, sigma):
+    pad = (0, 0, 1, 1, 1, 1)
+    zh, qh, mh = F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(tree.mask, pad)
+    got = p2p.p2p_cuda(zh, qh, mh, sigma)
+    want = p2p.p2p_plain(zh, qh, mh, sigma)
+    torch.cuda.synchronize()
+    m = tree.mask
+    err = rel_l2(got[m], want[m])
+    max_abs = float((got[m] - want[m]).abs().max())
+    require(bool(torch.isfinite(torch.view_as_real(got[m])).all()), "p2p: non-finite output")
+    require(err <= KERNEL_TOL, f"p2p sigma={sigma}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: p2p.p2p_cuda(zh, qh, mh, sigma), iters=20)
+    plain_ms = cuda_ms(lambda: p2p.p2p_plain(zh, qh, mh, sigma), iters=3, warmup=1)
+    nbytes = 2 * zh.numel() * 8 + mh.numel() + got.numel() * 8
+    pairs = live_pairs(zh, mh)
+    ops_ = pairs * (P2P_OPS_SINGULAR if sigma is None else P2P_OPS_REGULARIZED)
+    b_ms, b_by = bound_ms(nbytes, ops_)
+    return dict(name="p2p", sigma=sigma, shape=list(zh.shape), rel_l2=err,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, live_pairs=pairs, bytes=nbytes, ops=ops_,
+                library_ms=None)
+
+
+def check_m2l(me, level, p):
+    me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
+    stack, (PR, _), (PC, _) = ex.m2l_slab_stack(me_halo, p, 0, ex.M2L_HALO)
+    W = ops.folded_operator(VORTEX, p, level, stack.device)
+    got = m2l.m2l_cuda(stack, W)
+    want = m2l.m2l_plain(stack, W)
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    max_abs = float((got - want).abs().max())
+    require(bool(torch.isfinite(torch.view_as_real(got)).all()), "m2l: non-finite output")
+    require(err <= KERNEL_TOL, f"m2l level {level}: rel L2 {err} > {KERNEL_TOL}")
+    iters = 20 if level >= 8 else 200
+    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=iters)
+    plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=max(iters // 4, 5))
+    # yardstick: one complex matmul of the unfolded stack (built outside the
+    # timed region) against the stacked operator
+    K = 4 * p
+    unfolded = torch.cat([stack[1 + Dy:1 + Dy + PR, 1 + Dx:1 + Dx + PC]
+                          for (Dx, Dy) in ex.PARENT_NEIGH8], dim=-1).reshape(PR * PC, 8 * K)
+    w_cat = W.reshape(8 * K, K)
+    lib_err = rel_l2(torch.matmul(unfolded, w_cat).reshape(PR, PC, K), want)
+    library_ms = cuda_ms(lambda: torch.matmul(unfolded, w_cat), iters=iters)
+    nnz_blocks = int((W.reshape(8, 4, p, 4, p).abs().amax(dim=(2, 4)) > 0).sum())
+    ops_ = PR * PC * nnz_blocks * p * p * 8
+    nbytes = (stack.numel() + W.numel() + got.numel()) * 8
+    b_ms, b_by = bound_ms(nbytes, ops_)
+    return dict(name="m2l", level=level, p=p, shape=list(stack.shape),
+                rel_l2=err, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                library_rel_l2=lib_err, nonzero_blocks=nnz_blocks,
+                bytes=nbytes, ops=ops_)
+
+
+def direct_sum_f64(pos, gamma, targets, sigma, chunk=128):
+    """Float64 direct sum on the card at ``targets`` (indices into pos)."""
+    dev = torch.device("cuda")
+    z = torch.as_tensor(pos[:, 0] + 1j * pos[:, 1], dtype=torch.complex128, device=dev)
+    q = torch.as_tensor(gamma / (2j * np.pi), dtype=torch.complex128, device=dev)
+    tgt = torch.as_tensor(targets, device=dev)
+    out = []
+    for start in range(0, len(targets), chunk):
+        dz = z[tgt[start:start + chunk]][:, None] - z[None, :]
+        r2 = dz.real * dz.real + dz.imag * dz.imag
+        inv = torch.where(r2 > 0, 1.0 / torch.where(r2 > 0, dz, 1.0), 0.0)
+        if sigma is not None:
+            inv = inv * (1.0 - torch.exp(-r2 / (2.0 * sigma * sigma)))
+        out.append(inv @ q)
+    return torch.cat(out)
+
+
+def stage_ms(tree, p) -> dict:
+    """CUDA-event milliseconds per stage of one velocity evaluation plus one
+    rebin, through the port's stage functions."""
+    marks: dict[str, list] = {}
+
+    def timed(name, fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        marks.setdefault(name, []).append((a, b))
+        return out
+
+    L = tree.level
+    me = timed("upward_p2m_m2m", lambda: fmm.upward_sweep(tree, p))
+    m2l_fn = fmm.m2l_grid_fn(p)
+    le = [None] * (L + 1)
+    for lv in range(2, L + 1):
+        le[lv] = timed("m2l", lambda: m2l_fn(me[lv], lv))
+        if lv > 2:
+            le[lv] = le[lv] + timed("l2l", lambda: ex.l2l(le[lv - 1], p))
+    centers = torch.as_tensor(box_centers(L), dtype=torch.complex64, device=tree.device)
+    timed("l2p", lambda: ex.l2p_eval(le[L], tree.z, centers, box_size(L), p))
+    timed("p2p", lambda: fmm.near_field(tree))
+    timed("rebuild_tree", lambda: rebuild_tree(tree, tree.z))
+    torch.cuda.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+
+
+def device_profile(tree, p) -> dict:
+    """torch.profiler over one guarded RK2 step: device time by kernel name
+    and the share of the step's device span in which no kernel or copy ran."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rk2_step(tree, DT, p=p, guard=True)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"device_profile": "not measured: the profiler recorded no device events"}
+    by_name: dict[str, float] = {}
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span, "device_events": len(spans),
+            "top_ms": [[name[:100], us / 1e3] for name, us in top]}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
+                 "runs the port on a CUDA card only")
+    dev = torch.device("cuda")
+    p, level = CONFIG.p, CONFIG.level
+
+    # -- 1. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = _build.build()
+    build_s = time.perf_counter() - t0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in reports.items()}
+    emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # -- 2. each kernel against its plain version at main-path shapes ------
+    m_side = int(round(CONFIG.num_particles ** 0.5))
+    pos, gamma, sigma = lamb_oseen_particles(m_side, sigma=CONFIG.sigma,
+                                             spacing_ratio=CONFIG.spacing_ratio)
+    n_particles = len(gamma)
+    require(n_particles == CONFIG.num_particles, "lattice size mismatch")
+    tree0, _ = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
+    p2p_rows = [check_p2p(tree0, sigma), check_p2p(tree0, None)]
+    me0 = fmm.upward_sweep(tree0, p)
+    m2l_rows = [check_m2l(me0[level], level, p), check_m2l(me0[2], 2, p)]
+    del me0
+    for row in p2p_rows + m2l_rows:
+        emit({"phase": "kernel_vs_plain", **row})
+
+    # -- 3. main path: build_tree -> fmm on the card, vs float64 ----------
+    p2p.LAUNCHES = 0
+    m2l.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, index = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
+    torch.cuda.synchronize()
+    build_tree_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    w_sing = fmm.fmm_velocity_singular(tree, p)
+    torch.cuda.synchronize()
+    fmm_ms = (time.perf_counter() - t0) * 1e3
+    require(tuple(w_sing.shape) == (1 << level, 1 << level, SLOTS), "fmm output shape")
+    require(bool(torch.isfinite(torch.view_as_real(w_sing[tree.mask])).all()),
+            "fmm: non-finite velocity at a live slot")
+    sample = np.sort(np.random.default_rng(0).choice(n_particles, SAMPLES, replace=False))
+    w_at = gather_particle_values(w_sing, index)[torch.as_tensor(sample, device=dev)]
+    err_sing = rel_l2(w_at.to(torch.complex128), direct_sum_f64(pos, gamma, sample, None))
+    w_reg = fmm.fmm_velocity(tree, p)
+    w_at = gather_particle_values(w_reg, index)[torch.as_tensor(sample, device=dev)]
+    err_reg = rel_l2(w_at.to(torch.complex128), direct_sum_f64(pos, gamma, sample, sigma))
+    emit({"phase": "fmm", "n": n_particles, "level": level, "p": p, "slots": SLOTS,
+          "sigma": sigma, "leaf_box": box_size(level),
+          "max_occupancy": int(tree.mask.sum(dim=-1).max()),
+          "build_tree_ms": build_tree_ms, "fmm_singular_ms": fmm_ms,
+          "rel_l2_singular_vs_f64": err_sing, "gate": FMM_TOL,
+          "rel_l2_regularized_vs_f64_info": err_reg})
+    require(err_sing < FMM_TOL, f"singular FMM rel L2 {err_sing} >= {FMM_TOL}")
+
+    # -- 4. RK2 steps ------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, _, ok, occ, health = rk2_step(tree, DT, p=p, guard=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        live = int(tree.mask.sum())
+        steps.append({"step": i, "ms": ms, "ok": bool(ok), "occ": int(occ),
+                      "live": live, "health": hw.describe(health)})
+        require(bool(ok), f"step {i}: a leaf box overflowed")
+        require(hw.ok(health), f"step {i}: health {hw.describe(health)}")
+        require(live == n_particles, f"step {i}: {live} live of {n_particles}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"p2p": p2p.LAUNCHES, "m2l": m2l.LAUNCHES}
+    require(launches["p2p"] >= 2 * STEPS and launches["m2l"] >= 18 * STEPS,
+            f"main path launches {launches}")
+    stage_ms(tree, p)                      # warm
+    stages = stage_ms(tree, p)
+    emit({"phase": "steps", "dt": DT, "steps": steps, "peak_bytes": peak,
+          "stage_ms": stages, "launches": launches,
+          "profile": device_profile(tree, p)})
+
+    # -- 5. card, kernels line, result ---------------------------------------
+    def entry(rows, name, source, replaces):
+        r = rows[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in rows),
+                "rel_l2": max(x["rel_l2"] for x in rows),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    print(card, flush=True)
+    emit({"kernels": [
+        entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
+              "src/repro/kernels/p2p.py:46"),
+        entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
+              "src/repro/kernels/m2l.py:43"),
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,56 @@
+"""Guards of the port: it imports neither jax nor the reference package, and
+its entry points never drop to the CPU on their own."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.lineno, node.args[0].value
+
+
+def test_port_imports_no_jax_and_no_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
+           for f in files for line, mod in _imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, "\n".join(bad)
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core.fmm import fmm_velocity
+    from repro_torch.core.quadtree import build_tree, tree_from_numpy
+    from repro_torch.core.stepper import rk2_step
+    rng = np.random.default_rng(0)
+    pos, gamma = rng.uniform(size=(50, 2)), rng.normal(size=50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tree(pos, gamma, level=2, sigma=0.01)
+    tree, _ = build_tree(pos, gamma, level=2, sigma=0.01, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fmm_velocity(tree, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rk2_step(tree, 1e-3, p=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tree_from_numpy(tree.z.numpy(), tree.q.numpy(), tree.mask.numpy(), 2, 0.01)

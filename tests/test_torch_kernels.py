@@ -1,0 +1,215 @@
+"""The port's kernels: plain versions against the reference's jnp routes on
+the CPU, and the CUDA kernels against their plain versions on the card.
+
+The reference's Pallas kernels do not run on the installed jax, so the
+plain versions are held to ``fmm.p2p_slab_reference``/``ref.p2p_ref`` and
+``expansions.m2l_folded``/``ref.m2l_ref``: f32 sums in another order, so
+rel 1e-5.  The ``gpu`` cases decide inside the test whether a card exists;
+they import no jax, so ``pytest -m gpu`` runs them where jax is absent.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import expansions as ex
+from repro_torch.core.equations import VORTEX
+from repro_torch.kernels import m2l, ops, p2p, ref
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+def _particles(ny, nx, s, seed):
+    rng = np.random.default_rng(seed)
+    z = (rng.uniform(size=(ny, nx, s)) + 1j * rng.uniform(size=(ny, nx, s))).astype(np.complex64)
+    q = (rng.normal(size=(ny, nx, s)) + 1j * rng.normal(size=(ny, nx, s))).astype(np.complex64)
+    mask = rng.uniform(size=(ny, nx, s)) > 0.3
+    return z, q, mask
+
+
+def _halo(*arrays):
+    return [np.pad(a, ((1, 1), (1, 1), (0, 0))) for a in arrays]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The reference package's jnp routes (imported here, not at the top)."""
+    import jax.numpy as jnp
+    from repro.core import expansions, fmm
+    from repro.kernels import ref as jref
+    return SimpleNamespace(jnp=jnp, ex=expansions, fmm=fmm, ref=jref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# P2P
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ny,nx,s", [(4, 4, 3), (8, 8, 5), (8, 16, 1), (6, 6, 8)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_plain_matches_reference(jx, ny, nx, s, sigma):
+    jnp = jx.jnp
+    z, q, mask = _particles(ny, nx, s, ny * 100 + nx + s)
+    zh, qh, mh = _halo(z, q, mask)
+    out = p2p.p2p_plain(torch.as_tensor(zh), torch.as_tensor(qh),
+                        torch.as_tensor(mh), sigma).numpy()
+    slab = np.asarray(jx.fmm.p2p_slab_reference(jnp.asarray(zh), jnp.asarray(qh),
+                                              jnp.asarray(mh), sigma))
+    grid = np.asarray(jx.ref.p2p_ref(jnp.asarray(z), jnp.asarray(q),
+                                   jnp.asarray(mask), sigma=sigma))
+    assert _rel(np.where(mask, out, 0), np.where(mask, slab, 0)) < 1e-5
+    assert _rel(np.where(mask, out, 0), np.where(mask, grid, 0)) < 1e-5
+    # the port's own second routes agree too
+    tref = ref.p2p_ref(torch.as_tensor(z), torch.as_tensor(q),
+                       torch.as_tensor(mask), sigma).numpy()
+    assert _rel(np.where(mask, tref, 0), np.where(mask, grid, 0)) < 1e-5
+
+
+def test_p2p_dispatch_takes_plain_on_cpu():
+    z, q, mask = _particles(6, 6, 4, 3)
+    zh, qh, mh = (torch.as_tensor(a) for a in _halo(z, q, mask))
+    before = p2p.LAUNCHES
+    out = ops.p2p_apply_slab(zh, qh, mh, 0.05)
+    assert p2p.LAUNCHES == before
+    assert torch.equal(out, p2p.p2p_plain(zh, qh, mh, 0.05))
+
+
+def test_p2p_cuda_rejects_cpu_tensors():
+    z, q, mask = _particles(4, 4, 2, 0)
+    zh, qh, mh = (torch.as_tensor(a) for a in _halo(z, q, mask))
+    with pytest.raises(ValueError, match="CUDA"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ny,nx,s", [(4, 4, 3), (8, 8, 5), (13, 11, 5),
+                                     (8, 16, 1), (6, 6, 8), (33, 17, 8)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_kernel_matches_plain(cuda, ny, nx, s, sigma):
+    z, q, mask = _particles(ny, nx, s, ny * 100 + nx + s)
+    zh, qh, mh = (torch.as_tensor(a, device=cuda) for a in _halo(z, q, mask))
+    before = p2p.LAUNCHES
+    got = p2p.p2p_cuda(zh, qh, mh, sigma)
+    torch.cuda.synchronize()
+    assert p2p.LAUNCHES == before + 1
+    want = p2p.p2p_plain(zh, qh, mh, sigma)
+    m = torch.as_tensor(mask, device=cuda)
+    assert _rel(got[m].cpu(), want[m].cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_p2p_kernel_rejects_bad_inputs(cuda):
+    z, q, mask = _particles(4, 4, 2, 0)
+    zh, qh, mh = (torch.as_tensor(a, device=cuda) for a in _halo(z, q, mask))
+    with pytest.raises(ValueError, match="complex64"):
+        p2p.p2p_cuda(zh.to(torch.complex128), qh, mh, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        p2p.p2p_cuda(zh.transpose(0, 1), qh.transpose(0, 1), mh.transpose(0, 1), 0.05)
+    with pytest.raises(ValueError, match="match"):
+        p2p.p2p_cuda(zh, qh[:-1].contiguous(), mh, 0.05)
+
+
+# ---------------------------------------------------------------------------
+# M2L
+# ---------------------------------------------------------------------------
+
+
+def _me(n, p, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, n, p)) + 1j * rng.normal(size=(n, n, p))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("level", [2, 3, 4])
+@pytest.mark.parametrize("p", [8, 17])
+def test_m2l_plain_matches_reference(jx, level, p):
+    jnp = jx.jnp
+    me = _me(1 << level, p, level * 10 + p)
+    me_halo = np.pad(me, ((2, 2), (0, 0), (0, 0)))
+    stack, (PR, rs), (PC, cs) = ex.m2l_slab_stack(torch.as_tensor(me_halo), p, 0, 2)
+    W = torch.as_tensor(jx.ex.m2l_folded_operator(p), dtype=torch.complex64)
+    acc = m2l.m2l_plain(stack, W)
+    le = ex.from_parent_planes(acc, p)[rs:rs + (1 << level), cs:cs + (1 << level)]
+    le = (le * 2.0 ** level).numpy()
+    folded = np.asarray(jx.ex.m2l_folded(jnp.asarray(me_halo), level, p))
+    masked = np.asarray(jx.ref.m2l_ref(jnp.asarray(me), level, p))
+    assert _rel(le, folded) < 1e-5
+    assert _rel(le, masked) < 1e-5
+    # the dispatcher takes the same plain path on the CPU, uncounted
+    before = m2l.LAUNCHES
+    assert _rel(ops.m2l_apply(torch.as_tensor(me), level, p).numpy(), folded) < 1e-5
+    assert m2l.LAUNCHES == before
+
+
+def test_m2l_cuda_rejects_cpu_tensors():
+    stack = torch.zeros((4, 4, 32), dtype=torch.complex64)
+    W = torch.zeros((8, 32, 32), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="CUDA"):
+        m2l.m2l_cuda(stack, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("PR,PC", [(2, 2), (3, 3), (7, 9), (8, 8), (17, 5)])
+@pytest.mark.parametrize("p", [8, 17])
+def test_m2l_kernel_matches_plain(cuda, PR, PC, p):
+    rng = np.random.default_rng(PR * 31 + PC + p)
+    K = 4 * p
+    stack = torch.as_tensor(rng.normal(size=(PR + 2, PC + 2, K))
+                            + 1j * rng.normal(size=(PR + 2, PC + 2, K)),
+                            dtype=torch.complex64, device=cuda)
+    W = ops.folded_operator(VORTEX, p, 5, cuda)
+    before = m2l.LAUNCHES
+    got = m2l.m2l_cuda(stack, W)
+    torch.cuda.synchronize()
+    assert m2l.LAUNCHES == before + 1
+    assert _rel(got.cpu(), m2l.m2l_plain(stack, W).cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_m2l_kernel_on_slab_matches_plain_route(cuda):
+    """Odd anchors and column ghosts go through the kernel's route too."""
+    p, level = 8, 5
+    rng = np.random.default_rng(7)
+    me_halo = (rng.normal(size=(11 + 6, 9 + 6, p))
+               + 1j * rng.normal(size=(11 + 6, 9 + 6, p))).astype(np.complex64)
+    args = dict(row0=3, halo=3, col0=5, col_halo=3)
+    got = ops.m2l_apply_slab(torch.as_tensor(me_halo, device=cuda), level, p, **args)
+    want = ops.m2l_apply_slab(torch.as_tensor(me_halo), level, p, **args)
+    assert _rel(got.cpu(), want) < 1e-5
+
+
+@pytest.mark.gpu
+def test_m2l_kernel_rejects_bad_inputs(cuda):
+    stack = torch.zeros((4, 4, 32), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="W must be"):
+        m2l.m2l_cuda(stack, torch.zeros((8, 28, 28), dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="complex64"):
+        m2l.m2l_cuda(stack.to(torch.complex128),
+                     torch.zeros((8, 32, 32), dtype=torch.complex64, device=cuda))
+
+
+@pytest.mark.gpu
+def test_fmm_velocity_kernel_route_matches_plain_route(cuda):
+    from repro_torch.core.fmm import fmm_velocity
+    from repro_torch.core.quadtree import build_tree
+    rng = np.random.default_rng(1)
+    pos, gamma = rng.uniform(size=(3000, 2)), rng.normal(size=3000)
+    for sigma in (0.01, None):
+        t_gpu, _ = build_tree(pos, gamma, level=5, sigma=sigma, device=cuda)
+        t_cpu, _ = build_tree(pos, gamma, level=5, sigma=sigma, device="cpu")
+        b0, m0 = p2p.LAUNCHES, m2l.LAUNCHES
+        got = fmm_velocity(t_gpu, 17)
+        torch.cuda.synchronize()
+        assert (p2p.LAUNCHES - b0, m2l.LAUNCHES - m0) == (1, 4)
+        want = fmm_velocity(t_cpu, 17, device="cpu")
+        assert _rel(got.cpu(), want) < 1e-5
