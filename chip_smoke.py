@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one CUDA card at the paper's configuration.
+"""Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
+and Yi-6B serving at full width.
 
 Run from the repository root with no arguments:
 
@@ -9,21 +10,37 @@ Phases, each printing one JSON line:
 
 1. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, in parallel) and print the ptxas report;
-2. kernels  — each kernel against its plain PyTorch version on the card at
-              the main path's shapes (N = 765,625 Lamb-Oseen lattice, level
+2. kernels  — P2P and M2L against their plain PyTorch versions on the card
+              at the FMM path's shapes (N = 765,625 Lamb-Oseen lattice, level
               10, p = 17, 8 slots), with CUDA-event times and the bound;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
               conserved particle count, per-step and per-stage times, peak
-              memory.
+              memory;
+5. attn_vs_plain — the flash-attention kernel against its plain version at
+              Yi-6B's prefill shape (4, 32, 4, 2048, 128) bf16 causal, a
+              ragged (1, 8, 2, 1000, 64) f32 causal case, (2, 4, 4, 77, 128)
+              bf16 causal, and a non-causal T = 64, S = 192 f32 case; rel L2
+              gates 1e-5 (f32) and 5e-3 (bf16, whose output rounding alone is
+              2e-3); kernel, plain, bound and SDPA (yardstick) milliseconds;
+6. serve    — Yi-6B at full width (random weights from a seeded generator)
+              behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
+              greedy tokens each.  Gates: every logit finite; exactly 32
+              flash launches inside ``step_all`` (one per layer in prefill,
+              none in decode); the logits that chose the last token within
+              2e-2 rel L2 of a teacher-forced ``forward`` over prompt +
+              generated[:-1] on the card.  Prints prefill ms, decode ms per
+              step, tokens per second, the flash kernel's share of prefill
+              device time (torch.profiler) and peak device memory.
 
-The launch counters are zeroed right before phase 3 and read after phase 4:
-both kernels must have run on the main path.  Then come the card's name and
-power limit as nvidia-smi reports them, the kernels line and, last,
-``{"ok": true, "device": {...}}``.  Any failure ends the run with a nonzero
-exit code; without a CUDA device, or without the repository's sources beside
-this file, it exits nonzero before printing any result.
+The launch counters are zeroed right before each main path (phase 3 for
+the FMM kernels, ``step_all`` in phase 6 for flash attention) and read
+right after it: every kernel must have run there.  Then come the card's
+name and power limit as nvidia-smi reports them, the kernels line and,
+last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
+nonzero exit code; without a CUDA device, or without the repository's
+sources beside this file, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -47,11 +64,16 @@ from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noq
                                        gather_particle_values, rebuild_tree)
 from repro_torch.core.stepper import rk2_step  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
-from repro_torch.kernels import _build, m2l, ops, p2p  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p  # noqa: E402
+from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
+                                             param_tensors, unembed)
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound column.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # FP32 operations per live pair in csrc/p2p.cu (a division or an expf counts
 # as one): deltas 2, r2 3, 1/r2 1, two accumulated products 8, and the
 # mollifier 4 more (divide, exp, subtract, multiply) when sigma is finite.
@@ -64,6 +86,16 @@ STEPS = 3
 SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# (B, H, Hkv, T, S, d, causal, dtype); the first is Yi-6B's prefill shape
+ATTN_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
+              (1, 8, 2, 1000, 1000, 64, True, torch.float32),
+              (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
+              (1, 2, 2, 64, 192, 32, False, torch.float32)]
+SERVE_ARCH = "yi-6b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SERVE_MAX_LEN = 2088
+SERVE_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -93,8 +125,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, ops: float, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -215,12 +247,14 @@ def stage_ms(tree, p) -> dict:
     return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
 
 
-def device_profile(tree, p) -> dict:
-    """torch.profiler over one guarded RK2 step: device time by kernel name
-    and the share of the step's device span in which no kernel or copy ran."""
+def device_profile(fn, share_of: str | None = None) -> dict:
+    """torch.profiler over one call of ``fn``: device time by kernel name,
+    the share of the device span in which no kernel or copy ran and, with
+    ``share_of``, the share of device busy time in kernels whose name holds
+    that string."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rk2_step(tree, DT, p=p, guard=True)
+        fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -238,9 +272,156 @@ def device_profile(tree, p) -> dict:
     busy += cur_end - cur_start
     span = spans[-1][1] - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
-            "idle_share": 1.0 - busy / span, "device_events": len(spans),
-            "top_ms": [[name[:100], us / 1e3] for name, us in top]}
+    out = {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+           "idle_share": 1.0 - busy / span, "device_events": len(spans),
+           "top_ms": [[name[:100], us / 1e3] for name, us in top]}
+    if share_of is not None:
+        mine = sum(us for name, us in by_name.items() if share_of in name)
+        out[f"{share_of}_ms"] = mine / 1e3
+        out[f"{share_of}_share_of_busy"] = mine / busy
+    return out
+
+
+def causal_pairs(T: int, S: int, causal: bool) -> int:
+    """(query, key) pairs the top-left mask leaves visible."""
+    if not causal:
+        return T * S
+    n = min(T, S)
+    return n * (n + 1) // 2 + max(T - S, 0) * S
+
+
+def check_flash(B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
+    dev = torch.device("cuda")
+    q = torch.randn((B, H, T, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
+    got = flash_attn.flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = rel_l2(got.float(), want.float())
+    max_abs = float((got.float() - want.float()).abs().max())
+    require(bool(torch.isfinite(got).all()), "flash_attn: non-finite output")
+    tol = ATTN_TOL[dtype]
+    shape = [B, H, Hkv, T, S, d]
+    require(err <= tol, f"flash_attn {shape} {dtype}: rel L2 {err} > {tol}")
+    row = dict(name="flash_attn", shape=shape, causal=causal, dtype=str(dtype),
+               rel_l2=err, gate=tol, max_abs_err=max_abs)
+    if not timed:
+        return row
+    ops_ = 4 * d * B * H * causal_pairs(T, S, causal)       # QK^T and PV, 2 FLOP per FMA
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    b_ms, b_by = bound_ms(nbytes, ops_, peak)
+    ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
+    ve = v.repeat_interleave(H // Hkv, dim=1)
+    lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
+    row.update(
+        ms=cuda_ms(lambda: flash_attn.flash_attention_cuda(q, k, v, causal=causal), iters=20),
+        plain_ms=cuda_ms(lambda: flash_attn.flash_attention_plain(q, k, v, causal=causal),
+                         iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, ops=ops_, bytes=nbytes,
+        fp32_simt_bound_ms=ops_ / FP32_FLOP_PER_S * 1e3,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=causal), iters=20),
+        library_rel_l2=rel_l2(lib.float(), want.float()))
+    return row
+
+
+def serve_phase(dev) -> tuple[dict, int]:
+    """Yi-6B at full width behind ServeEngine.step_all; returns the phase's
+    record and the flash launches counted inside step_all."""
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in param_tensors(params))
+    require(n_params == cfg.param_count, f"{n_params} parameters, config says "
+            f"{cfg.param_count}")
+    engine = ServeEngine(params, cfg, batch_slots=SERVE_BATCH,
+                         max_len=SERVE_MAX_LEN, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+
+    # time each prefill/decode call with CUDA events and keep its logits
+    marks: dict[str, list] = {"prefill": [], "decode": []}
+    logits_seen: list[torch.Tensor] = []
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            marks[name].append((a, b))
+            logits_seen.append(out[0])
+            return out
+        return call
+
+    prefill_fn, decode_fn = engine.prefill_fn, engine.decode_fn
+    engine.prefill_fn = timed("prefill", prefill_fn)
+    engine.decode_fn = timed("decode", decode_fn)
+    engine.step_all(prompts, 2)                      # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    for v in marks.values():
+        v.clear()
+    logits_seen.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.step_all(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_attn.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    engine.prefill_fn, engine.decode_fn = prefill_fn, decode_fn
+
+    require(out.shape == (SERVE_BATCH, SERVE_NEW), f"step_all returned {out.shape}")
+    require(bool((out >= 0).all() and (out < cfg.vocab).all()), "token id out of range")
+    require(all(bool(torch.isfinite(x).all()) for x in logits_seen), "non-finite logits")
+    require(launches == cfg.num_layers,
+            f"{launches} flash launches in step_all, expected {cfg.num_layers}")
+    prefill_ms = sum(a.elapsed_time(b) for a, b in marks["prefill"])
+    decode_ms = [a.elapsed_time(b) for a, b in marks["decode"]]
+    decode_step_ms = sum(decode_ms) / len(decode_ms)
+
+    # the logits that chose the last token against a teacher-forced forward
+    chose_last = logits_seen[-2]            # decode step that produced out[:, -1]
+    full = torch.cat([torch.as_tensor(prompts, device=dev),
+                      torch.as_tensor(out[:, :-1], device=dev)], dim=1).long()
+    with torch.inference_mode():
+        h, _ = forward(params, full, cfg)
+        forced = unembed(params, h[:, -1:], cfg)[:, 0]
+    torch.cuda.synchronize()
+    err = rel_l2(chose_last, forced)
+    agree = float((forced.argmax(-1).cpu().numpy() == out[:, -1]).mean())
+    require(err <= SERVE_TOL, f"decode vs teacher-forced logits rel L2 {err} > {SERVE_TOL}")
+
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    caches = init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
+    profile = device_profile(lambda: engine.prefill_fn(params, tokens, caches),
+                             share_of="flash_attn")
+    first = torch.as_tensor(out[:, :1], device=dev).long()
+    decode_profile = device_profile(
+        lambda: engine.decode_fn(params, first, SERVE_PROMPT, caches))
+    return {"phase": "serve", "arch": cfg.name, "params": n_params,
+            "init_params_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "new": SERVE_NEW, "max_len": SERVE_MAX_LEN, "step_all_s": total_s,
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_step_ms,
+            "decode_steps": len(decode_ms),
+            "generated_tok_per_s": SERVE_BATCH * SERVE_NEW / total_s,
+            "prompt_tok_per_s": SERVE_BATCH * SERVE_PROMPT / (prefill_ms / 1e3),
+            "decode_tok_per_s": SERVE_BATCH / (decode_step_ms / 1e3),
+            "peak_bytes": peak, "flash_launches": launches,
+            "rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
+            "last_token_agreement_info": agree,
+            "first_tokens": out[0, :8].tolist(), "prefill_profile": profile,
+            "decode_profile": decode_profile}, launches
 
 
 def main() -> None:
@@ -329,9 +510,24 @@ def main() -> None:
     stages = stage_ms(tree, p)
     emit({"phase": "steps", "dt": DT, "steps": steps, "peak_bytes": peak,
           "stage_ms": stages, "launches": launches,
-          "profile": device_profile(tree, p)})
+          "profile": device_profile(lambda: rk2_step(tree, DT, p=p, guard=True))})
+    del tree, index, w_sing, w_reg, tree0
+    torch.cuda.empty_cache()
 
-    # -- 5. card, kernels line, result ---------------------------------------
+    # -- 5. flash attention against its plain version ------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    attn_rows = [check_flash(*case, gen=gen, timed=(i == 0))
+                 for i, case in enumerate(ATTN_CASES)]
+    for row in attn_rows:
+        emit({"phase": "attn_vs_plain", **row})
+
+    # -- 6. main path: Yi-6B serving ----------------------------------------
+    serve, flash_launches = serve_phase(dev)
+    emit(serve)
+    launches["flash_attn"] = flash_launches
+
+    # -- 7. card, kernels line, result ---------------------------------------
     def entry(rows, name, source, replaces):
         r = rows[0]
         return {"name": name, "route": "cuda", "source": source,
@@ -347,6 +543,8 @@ def main() -> None:
               "src/repro/kernels/p2p.py:46"),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43"),
+        entry(attn_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "src/repro/kernels/flash_attn.py:32"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """Device choice and numeric settings for the port.
 
-Every entry point (``build_tree``, ``fmm_velocity``, ``rk2_step``) runs on
-the CUDA card unless the caller asks for ``device="cpu"``; without a card
-and without that request it raises instead of dropping to the CPU.
+Every entry point (``build_tree``, ``fmm_velocity``, ``rk2_step``,
+``init_params``, ``ServeEngine``) runs on the CUDA card unless the caller
+asks for ``device="cpu"``; without a card and without that request it
+raises instead of dropping to the CPU.
 
 TF32 stays off for matrix products and convolutions: the M2L contraction
 at p=17 is held to 1e-5 relative, and TF32 keeps only a 10-bit mantissa.
+bf16 products reduce in f32, as the reference's do
+(``preferred_element_type``): cuBLAS's split-K may otherwise round partial
+sums to bf16.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

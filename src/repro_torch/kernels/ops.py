@@ -5,6 +5,7 @@ CPU tensor takes the kernel's plain PyTorch version.  There is no
 fallback from one to the other.  The M2L wrappers come in the grid form
 (zero ghost rows attached here) and the slab form (ghosts attached by the
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
+``flash_attention`` serves the LM's prefill attention.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from ..core import equations as eqs
 from ..core import expansions as ex
+from . import flash_attn as _fa
 from . import m2l as _m2l
 from . import p2p as _p2p
 
@@ -61,3 +63,11 @@ def m2l_apply(me, level: int, p: int, eq=None):
     """Parity-folded M2L for one level's full (ny, nx, p) ME grid."""
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     return m2l_apply_slab(me_halo, level, p, eq=eq)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Blockwise attention; q (B, H, T, d), k/v (B, Hkv, S, d), top-left
+    causal mask (see ``kernels/flash_attn.py``)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal)

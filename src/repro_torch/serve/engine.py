@@ -1,0 +1,82 @@
+"""Serving: prefill and decode steps and a batched greedy-decode engine.
+
+The reference's ``serve/engine.py`` for one card.  ``make_serve_fns``
+returns plain callables (PyTorch runs eagerly; there is no ``jit``), and
+both steps run under ``torch.inference_mode()``.  Prefill attention runs
+the flash-attention kernel on the card (``models.layers.attention_core``);
+decode attends over the bf16 KV cache in plain PyTorch.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..configs.backend import check_on, resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import forward, init_cache, param_tensors, unembed
+
+
+@torch.inference_mode()
+def prefill_step(params, tokens, caches, cfg: ModelConfig, q_chunk: int = 512):
+    """Process the prompt, fill the caches.  Returns (last_logits, caches)."""
+    h, caches = forward(params, tokens, cfg, caches=caches, q_chunk=q_chunk)
+    logits = unembed(params, h[:, -1:], cfg)[:, 0]
+    return logits, caches
+
+
+@torch.inference_mode()
+def decode_step(params, token, pos: int, caches, cfg: ModelConfig):
+    """One token for every sequence.  token: (B, 1); pos: the position,
+    uniform across the batch (slot-aligned batching)."""
+    h, caches = forward(params, token, cfg, caches=caches, pos_scalar=pos)
+    logits = unembed(params, h, cfg)[:, 0]
+    return logits, caches
+
+
+def make_serve_fns(cfg: ModelConfig, q_chunk: int = 512):
+    pre = functools.partial(prefill_step, cfg=cfg, q_chunk=q_chunk)
+    dec = functools.partial(decode_step, cfg=cfg)
+    return pre, dec
+
+
+class ServeEngine:
+    """Batched greedy decoding: :meth:`step_all` is the serving API.
+
+    Runs on ``device`` (the CUDA card unless ``device="cpu"``), where the
+    parameters must already lie.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, batch_slots: int,
+                 max_len: int, device=None):
+        self.device = resolve_device(device)
+        check_on(self.device, *param_tensors(params))
+        self.params = params
+        self.cfg = cfg
+        self.batch_slots = batch_slots
+        self.max_len = max_len
+        self.prefill_fn, self.decode_fn = make_serve_fns(cfg)
+
+    def step_all(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+        """Greedy-decode ``max_new`` tokens for a batch of equal-length
+        prompts.  Returns (B, max_new) int32, the reference's loop: the
+        position is uniform across the batch and ``argmax`` takes the first
+        index on ties."""
+        B, T = prompts.shape
+        if T + max_new > self.max_len:
+            raise ValueError(f"{T} prompt + {max_new} new tokens exceed "
+                             f"max_len {self.max_len}")
+        with torch.inference_mode():
+            tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                     device=self.device)
+            caches = init_cache(self.cfg, B, self.max_len, device=self.device)
+            logits, caches = self.prefill_fn(self.params, tokens, caches)
+            tok = torch.argmax(logits, dim=-1)
+            outs = []
+            for t in range(max_new):
+                outs.append(tok)
+                logits, caches = self.decode_fn(self.params, tok[:, None], T + t,
+                                                caches)
+                tok = torch.argmax(logits, dim=-1)
+            return torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()

@@ -1,0 +1,197 @@
+"""Flash attention: the port's plain version against the reference's TPU
+kernel (run in interpret mode on the CPU), and the CUDA kernel against the
+plain version on the card.
+
+Tolerances: f32 within 2e-5 rel L2, as the reference's own kernel tests
+hold it against ``attention_ref`` (f32 sums in another order and blocking);
+bf16 within 2e-2, the reference's bf16 bound (outputs rounded to bf16, so
+one half-ulp is 2e-3, and the inputs' rounding is shared).  On the card the
+kernel and the plain version see the same inputs and differ only by f32
+summation order: f32 within 1e-5, bf16 within 5e-3 (a rounding flip of the
+bf16 output costs one ulp, 4e-3 relative).  The ``gpu`` cases decide inside
+the test whether a card exists and import no jax.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels import ops, ref
+
+
+def _np32(x):
+    if torch.is_tensor(x):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _rel(a, b):
+    a, b = _np32(a), _np32(b)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+def _qkv(B, H, Hkv, T, S, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, T, d)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, d)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, d)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The reference's TPU kernel (interpret mode) and its jnp oracle."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attn import flash_attention
+    return SimpleNamespace(jnp=jnp, flash=flash_attention, ref=jref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# plain version against the reference's kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,d", [
+    (2, 4, 4, 128, 32),     # MHA
+    (1, 8, 2, 256, 64),     # GQA 4:1
+    (2, 4, 1, 128, 64),     # MQA
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_reference_kernel_f32(jx, B, H, Hkv, T, d, causal):
+    q, k, v = _qkv(B, H, Hkv, T, T, d, H * T + d)
+    want = jx.flash(jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v),
+                    causal=causal, block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (B, H, T, d)
+    assert _rel(got, np.asarray(want)) < 2e-5
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 64), (64, 128), (256, 256)])
+def test_plain_matches_reference_kernel_bf16(jx, bq, bk):
+    q, k, v = _qkv(1, 4, 4, 256, 256, 64, 9)
+    jb = [jx.jnp.asarray(a, jx.jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jx.flash(*jb, causal=True, block_q=bq, block_k=bk,
+                               interpret=True).astype(jx.jnp.float32))
+    tb = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = fa.flash_attention_plain(*tb, causal=True)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, want) < 2e-2
+
+
+def test_plain_matches_reference_kernel_cross_attention(jx):
+    """S != T, not causal (prefill chunking / encoder-decoder shapes)."""
+    q, k, v = _qkv(1, 2, 2, 64, 192, 32, 11)
+    want = jx.flash(jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v),
+                    causal=False, block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), causal=False)
+    assert _rel(got, np.asarray(want)) < 2e-5
+
+
+@pytest.mark.parametrize("T,S", [(64, 192), (128, 64)])
+def test_causal_mask_is_top_left_like_the_tpu_kernel(jx, T, S):
+    """For T != S the kernel hides kpos > qpos (top-left); the oracle
+    ``attention_ref`` aligns the mask bottom-right.  The port takes the
+    kernel's choice, so it matches the kernel and differs from the oracle."""
+    q, k, v = _qkv(1, 4, 2, T, S, 32, T + S)
+    want = jx.flash(jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v),
+                    causal=True, block_q=64, block_k=64, interpret=True)
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True)
+    assert _rel(got, np.asarray(want)) < 2e-5
+    bottom_right = ref.attention_ref(tq, tk, tv, causal=True)
+    assert _rel(got, bottom_right) > 0.1
+    jref = jx.ref.attention_ref(jx.jnp.asarray(q), jx.jnp.asarray(k),
+                                jx.jnp.asarray(v), causal=True)
+    assert _rel(bottom_right, np.asarray(jref)) < 2e-5
+
+
+@pytest.mark.parametrize("T,S,causal", [(48, 48, True), (40, 100, False)])
+def test_attention_ref_matches_reference_oracle(jx, T, S, causal):
+    q, k, v = _qkv(2, 6, 3, T, S, 16, 5)
+    want = jx.ref.attention_ref(jx.jnp.asarray(q), jx.jnp.asarray(k),
+                                jx.jnp.asarray(v), causal=causal)
+    got = ref.attention_ref(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                            causal=causal)
+    assert _rel(got, np.asarray(want)) < 2e-5
+    if T == S:      # the two masks agree
+        plain = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k),
+                                         torch.tensor(v), causal=causal)
+        assert _rel(plain, got) < 2e-5
+
+
+def test_dispatch_takes_plain_on_cpu():
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 4, 2, 33, 33, 8, 3))
+    before = fa.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES == before
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v), rtol=0, atol=0)
+
+
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 4, 2, 16, 16, 8, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_cuda(q, k, v)
+    q12, k12, v12 = (torch.tensor(a) for a in _qkv(1, 4, 2, 16, 16, 12, 4))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention_cuda(q12, k12, v12)
+    with pytest.raises(ValueError, match="not a multiple"):
+        fa.flash_attention_cuda(torch.zeros(1, 3, 16, 8), k, v)
+    with pytest.raises(ValueError, match=r"\(B, H, T, d\)"):
+        fa.flash_attention_cuda(q[0], k, v)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel against the plain version, on the card
+# ---------------------------------------------------------------------------
+
+
+GPU_CASES = [
+    # B, H, Hkv, T, S, d, causal, dtype
+    (1, 8, 2, 1000, 1000, 64, True, torch.float32),     # ragged T = S
+    (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
+    (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention
+    (1, 2, 1, 33, 100, 8, True, torch.float32),        # T < S, top-left
+    (1, 4, 2, 100, 33, 40, True, torch.bfloat16),      # T > S, 10 column chunks
+    (1, 4, 1, 130, 130, 256, True, torch.float32),     # widest head
+    (2, 2, 1, 65, 65, 200, False, torch.bfloat16),     # 50 column chunks
+    (1, 1, 1, 1, 1, 16, True, torch.float32),          # one token
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,S,d,causal,dtype", GPU_CASES)
+def test_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal, dtype):
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype)
+               for a in _qkv(B, H, Hkv, T, S, d, T * 7 + d))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-5 if dtype == torch.float32 else 5e-3
+    assert _rel(got.cpu(), want.cpu()) < tol
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_strided_and_misaligned(cuda):
+    q, k, v = (torch.tensor(a, device=cuda) for a in _qkv(1, 4, 2, 32, 32, 16, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2), k, v)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_cuda(flat[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention_cuda(q, k.to(torch.bfloat16), v)

@@ -54,3 +54,30 @@ def test_entry_points_raise_without_a_card():
         rk2_step(tree, 1e-3, p=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tree_from_numpy(tree.z.numpy(), tree.q.numpy(), tree.mask.numpy(), 2, 0.01)
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs.yi_6b import SMOKE_CONFIG
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serve.engine import ServeEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(SMOKE_CONFIG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(SMOKE_CONFIG, 1, 8)
+    params = init_params(SMOKE_CONFIG, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, SMOKE_CONFIG, batch_slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "yi-6b", "--local"])
+
+
+def test_engine_refuses_parameters_on_another_device():
+    from repro_torch.configs.yi_6b import SMOKE_CONFIG
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    params = init_params(SMOKE_CONFIG, device="meta")
+    with pytest.raises(ValueError, match="expected cpu"):
+        ServeEngine(params, SMOKE_CONFIG, batch_slots=1, max_len=16, device="cpu")
