@@ -18,25 +18,36 @@ Phases, each printing one JSON line:
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
               conserved particle count, per-step and per-stage times, peak
               memory;
-5. attn_vs_plain — the flash-attention kernel against its plain version at
-              Yi-6B's prefill shape (4, 32, 4, 2048, 128) bf16 causal, a
-              ragged (1, 8, 2, 1000, 64) f32 causal case, (2, 4, 4, 77, 128)
-              bf16 causal, and a non-causal T = 64, S = 192 f32 case; rel L2
-              gates 1e-5 (f32) and 5e-3 (bf16, whose output rounding alone is
-              2e-3); kernel, plain, bound and SDPA (yardstick) milliseconds;
+5. attn_vs_plain — both flash-attention kernels against their plain
+              version.  The tensor-core kernel (bf16) at Yi-6B's prefill
+              shape (4, 32, 4, 2048, 128) causal and at ragged T = S (77,
+              1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H, d 64
+              and 128, T = 1; the SIMT kernel at the same prefill shape in
+              f32, ragged f32, non-causal f32 and a bf16 d = 40 case.  Rel L2
+              gates 1e-5 (f32) and 5e-3 (bf16: output rounding alone is
+              2e-3, the tensor-core kernel's bf16 P about 2e-3).  At the
+              prefill shape: kernel, plain, bound and SDPA (yardstick)
+              milliseconds, and the tensor-core kernel on the model's
+              strided views and the SIMT kernel on the same bf16 inputs;
 6. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
               greedy tokens each.  Gates: every logit finite; exactly 32
-              flash launches inside ``step_all`` (one per layer in prefill,
-              none in decode); the logits that chose the last token within
-              2e-2 rel L2 of a teacher-forced ``forward`` over prompt +
-              generated[:-1] on the card.  Prints prefill ms, decode ms per
-              step, tokens per second, the flash kernel's share of prefill
-              device time (torch.profiler) and peak device memory.
+              tensor-core flash launches inside ``step_all`` (one per layer
+              in prefill, none in decode) and no SIMT launch; the logits
+              that chose the last token within 2e-2 rel L2 of a
+              teacher-forced ``forward`` over prompt + generated[:-1] on the
+              card.  Prints prefill ms, decode ms per step, tokens per
+              second, the flash kernel's and the copies' share of prefill
+              device time (torch.profiler), the same for one prefill on the
+              SIMT route for comparison, and peak device memory;
+7. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the SIMT
+              kernel's path (f32 attention stays exact f32).  Gates: every
+              logit finite, exactly 2 SIMT launches inside ``step_all`` and
+              no tensor-core launch, decode within 2e-2 of teacher-forced.
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, ``step_all`` in phase 6 for flash attention) and read
-right after it: every kernel must have run there.  Then come the card's
+the FMM kernels, ``step_all`` in phases 6 and 7 for flash attention) and
+read right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -44,6 +55,7 @@ sources beside this file, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -87,15 +99,26 @@ SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
-# (B, H, Hkv, T, S, d, causal, dtype); the first is Yi-6B's prefill shape
-ATTN_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
+# (B, H, Hkv, T, S, d, causal, dtype); the first of each is Yi-6B's prefill
+# shape, the only timed case
+TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
+            (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
+            (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),
+            (1, 4, 1, 2079, 2079, 128, True, torch.bfloat16),
+            (1, 4, 2, 100, 300, 128, True, torch.bfloat16),
+            (1, 4, 2, 300, 100, 64, True, torch.bfloat16),
+            (2, 4, 4, 200, 333, 128, False, torch.bfloat16),
+            (1, 8, 8, 129, 129, 64, True, torch.bfloat16),
+            (1, 2, 2, 1, 1, 64, True, torch.bfloat16)]
+SIMT_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
-              (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
-              (1, 2, 2, 64, 192, 32, False, torch.float32)]
+              (1, 2, 2, 64, 192, 32, False, torch.float32),
+              (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = 2088
 SERVE_TOL = 2e-2
+F32_LAYERS, F32_BATCH, F32_PROMPT, F32_NEW = 2, 2, 1024, 4
 
 
 def emit(obj) -> None:
@@ -247,11 +270,11 @@ def stage_ms(tree, p) -> dict:
     return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
 
 
-def device_profile(fn, share_of: str | None = None) -> dict:
+def device_profile(fn, share_of: tuple[str, ...] = ()) -> dict:
     """torch.profiler over one call of ``fn``: device time by kernel name,
-    the share of the device span in which no kernel or copy ran and, with
-    ``share_of``, the share of device busy time in kernels whose name holds
-    that string."""
+    the share of the device span in which no kernel or copy ran and, for
+    each string of ``share_of``, the time and share of device busy time in
+    kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -275,10 +298,10 @@ def device_profile(fn, share_of: str | None = None) -> dict:
     out = {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
            "idle_share": 1.0 - busy / span, "device_events": len(spans),
            "top_ms": [[name[:100], us / 1e3] for name, us in top]}
-    if share_of is not None:
-        mine = sum(us for name, us in by_name.items() if share_of in name)
-        out[f"{share_of}_ms"] = mine / 1e3
-        out[f"{share_of}_share_of_busy"] = mine / busy
+    for part in share_of:
+        mine = sum(us for name, us in by_name.items() if part in name)
+        out[f"{part}_ms"] = mine / 1e3
+        out[f"{part}_share_of_busy"] = mine / busy
     return out
 
 
@@ -290,21 +313,21 @@ def causal_pairs(T: int, S: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(T - S, 0) * S
 
 
-def check_flash(B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
+def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
     dev = torch.device("cuda")
     q = torch.randn((B, H, T, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
-    got = flash_attn.flash_attention_cuda(q, k, v, causal=causal)
+    got = kernel(q, k, v, causal=causal)
     want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = rel_l2(got.float(), want.float())
     max_abs = float((got.float() - want.float()).abs().max())
-    require(bool(torch.isfinite(got).all()), "flash_attn: non-finite output")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     tol = ATTN_TOL[dtype]
     shape = [B, H, Hkv, T, S, d]
-    require(err <= tol, f"flash_attn {shape} {dtype}: rel L2 {err} > {tol}")
-    row = dict(name="flash_attn", shape=shape, causal=causal, dtype=str(dtype),
+    require(err <= tol, f"{name} {shape} {dtype}: rel L2 {err} > {tol}")
+    row = dict(name=name, shape=shape, causal=causal, dtype=str(dtype),
                rel_l2=err, gate=tol, max_abs_err=max_abs)
     if not timed:
         return row
@@ -315,8 +338,17 @@ def check_flash(B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
     ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
     ve = v.repeat_interleave(H // Hkv, dim=1)
     lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
+    if kernel is flash_attn.flash_attention_tc:
+        # the model's (B, T, H, d) -> (B, H, T, d) views, and the SIMT kernel
+        # on the same inputs (its time before the tensor-core route)
+        qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+        row.update(
+            strided_ms=cuda_ms(lambda: kernel(qv, kv, vv, causal=causal), iters=20),
+            strided_rel_l2=rel_l2(kernel(qv, kv, vv, causal=causal).float(), want.float()),
+            simt_ms_same_inputs=cuda_ms(
+                lambda: flash_attn.flash_attention_cuda(q, k, v, causal=causal), iters=10))
     row.update(
-        ms=cuda_ms(lambda: flash_attn.flash_attention_cuda(q, k, v, causal=causal), iters=20),
+        ms=cuda_ms(lambda: kernel(q, k, v, causal=causal), iters=20),
         plain_ms=cuda_ms(lambda: flash_attn.flash_attention_plain(q, k, v, causal=causal),
                          iters=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, ops=ops_, bytes=nbytes,
@@ -327,10 +359,10 @@ def check_flash(B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
     return row
 
 
-def serve_phase(dev) -> tuple[dict, int]:
-    """Yi-6B at full width behind ServeEngine.step_all; returns the phase's
-    record and the flash launches counted inside step_all."""
-    cfg = get_config(SERVE_ARCH)
+def serve_phase(dev, cfg, batch, prompt, new, max_len,
+                profile: bool) -> tuple[dict, dict]:
+    """``cfg`` behind ServeEngine.step_all; returns the phase's record and
+    the launches of each flash kernel counted inside step_all."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -340,10 +372,9 @@ def serve_phase(dev) -> tuple[dict, int]:
     n_params = sum(t.numel() for t in param_tensors(params))
     require(n_params == cfg.param_count, f"{n_params} parameters, config says "
             f"{cfg.param_count}")
-    engine = ServeEngine(params, cfg, batch_slots=SERVE_BATCH,
-                         max_len=SERVE_MAX_LEN, device=dev)
+    engine = ServeEngine(params, cfg, batch_slots=batch, max_len=max_len, device=dev)
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        0, cfg.vocab, (batch, prompt)).astype(np.int32)
 
     # time each prefill/decode call with CUDA events and keep its logits
     marks: dict[str, list] = {"prefill": [], "decode": []}
@@ -371,20 +402,19 @@ def serve_phase(dev) -> tuple[dict, int]:
 
     torch.cuda.reset_peak_memory_stats()
     flash_attn.LAUNCHES = 0
+    flash_attn.TC_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.step_all(prompts, SERVE_NEW)
+    out = engine.step_all(prompts, new)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = flash_attn.LAUNCHES
+    launches = {"tc": flash_attn.TC_LAUNCHES, "simt": flash_attn.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     engine.prefill_fn, engine.decode_fn = prefill_fn, decode_fn
 
-    require(out.shape == (SERVE_BATCH, SERVE_NEW), f"step_all returned {out.shape}")
+    require(out.shape == (batch, new), f"step_all returned {out.shape}")
     require(bool((out >= 0).all() and (out < cfg.vocab).all()), "token id out of range")
     require(all(bool(torch.isfinite(x).all()) for x in logits_seen), "non-finite logits")
-    require(launches == cfg.num_layers,
-            f"{launches} flash launches in step_all, expected {cfg.num_layers}")
     prefill_ms = sum(a.elapsed_time(b) for a, b in marks["prefill"])
     decode_ms = [a.elapsed_time(b) for a, b in marks["decode"]]
     decode_step_ms = sum(decode_ms) / len(decode_ms)
@@ -401,27 +431,37 @@ def serve_phase(dev) -> tuple[dict, int]:
     agree = float((forced.argmax(-1).cpu().numpy() == out[:, -1]).mean())
     require(err <= SERVE_TOL, f"decode vs teacher-forced logits rel L2 {err} > {SERVE_TOL}")
 
-    tokens = torch.as_tensor(prompts, device=dev).long()
-    caches = init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
-    profile = device_profile(lambda: engine.prefill_fn(params, tokens, caches),
-                             share_of="flash_attn")
-    first = torch.as_tensor(out[:, :1], device=dev).long()
-    decode_profile = device_profile(
-        lambda: engine.decode_fn(params, first, SERVE_PROMPT, caches))
-    return {"phase": "serve", "arch": cfg.name, "params": n_params,
-            "init_params_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
-            "new": SERVE_NEW, "max_len": SERVE_MAX_LEN, "step_all_s": total_s,
-            "prefill_ms": prefill_ms,
-            "decode_ms_per_step": decode_step_ms,
-            "decode_steps": len(decode_ms),
-            "generated_tok_per_s": SERVE_BATCH * SERVE_NEW / total_s,
-            "prompt_tok_per_s": SERVE_BATCH * SERVE_PROMPT / (prefill_ms / 1e3),
-            "decode_tok_per_s": SERVE_BATCH / (decode_step_ms / 1e3),
-            "peak_bytes": peak, "flash_launches": launches,
-            "rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
-            "last_token_agreement_info": agree,
-            "first_tokens": out[0, :8].tolist(), "prefill_profile": profile,
-            "decode_profile": decode_profile}, launches
+    record = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+              "params": n_params, "init_params_s": init_s, "batch": batch,
+              "prompt": prompt, "new": new, "max_len": max_len,
+              "step_all_s": total_s, "prefill_ms": prefill_ms,
+              "decode_ms_per_step": decode_step_ms, "decode_steps": len(decode_ms),
+              "generated_tok_per_s": batch * new / total_s,
+              "prompt_tok_per_s": batch * prompt / (prefill_ms / 1e3),
+              "decode_tok_per_s": batch / (decode_step_ms / 1e3),
+              "peak_bytes": peak, "flash_launches": launches,
+              "rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
+              "last_token_agreement_info": agree, "first_tokens": out[0, :8].tolist()}
+    if profile:
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        caches = init_cache(cfg, batch, max_len, device=dev)
+        prefill = lambda: engine.prefill_fn(params, tokens, caches)  # noqa: E731
+        record["prefill_profile"] = device_profile(
+            prefill, share_of=("flash_attn_tc", "copy"))
+        # one prefill on the SIMT route with contiguous copies (the route
+        # before the tensor-core kernel), for comparison only
+        route = flash_attn.route
+        flash_attn.route = lambda q, k: "simt"
+        try:
+            prefill()
+            record["prefill_profile_simt_route"] = device_profile(
+                prefill, share_of=("flash_attn_kernel", "copy"))
+        finally:
+            flash_attn.route = route
+        first = torch.as_tensor(out[:, :1], device=dev).long()
+        record["decode_profile"] = device_profile(
+            lambda: engine.decode_fn(params, first, prompt, caches))
+    return record, launches
 
 
 def main() -> None:
@@ -439,7 +479,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "arning" in ln]
              for k, v in reports.items()}
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -517,17 +557,36 @@ def main() -> None:
     # -- 5. flash attention against its plain version ------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    attn_rows = [check_flash(*case, gen=gen, timed=(i == 0))
-                 for i, case in enumerate(ATTN_CASES)]
-    for row in attn_rows:
+    tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
+                           gen=gen, timed=(i == 0)) for i, case in enumerate(TC_CASES)]
+    simt_rows = [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
+                             gen=gen, timed=(i == 0)) for i, case in enumerate(SIMT_CASES)]
+    for row in tc_rows + simt_rows:
         emit({"phase": "attn_vs_plain", **row})
+    torch.cuda.empty_cache()
 
-    # -- 6. main path: Yi-6B serving ----------------------------------------
-    serve, flash_launches = serve_phase(dev)
-    emit(serve)
-    launches["flash_attn"] = flash_launches
+    # -- 6. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
+    cfg = get_config(SERVE_ARCH)
+    serve, serve_launches = serve_phase(dev, cfg, SERVE_BATCH, SERVE_PROMPT,
+                                        SERVE_NEW, SERVE_MAX_LEN, profile=True)
+    emit({"phase": "serve", **serve})
+    require(serve_launches == {"tc": cfg.num_layers, "simt": 0},
+            f"flash launches in step_all {serve_launches}, expected "
+            f"{cfg.num_layers} tensor-core and no SIMT launch")
+    launches["flash_attn"] = serve_launches["tc"]
+    torch.cuda.empty_cache()
 
-    # -- 7. card, kernels line, result ---------------------------------------
+    # -- 7. main path: Yi-6B in f32, cut to 2 layers, on the SIMT kernel ----
+    cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
+    serve32, f32_launches = serve_phase(dev, cfg32, F32_BATCH, F32_PROMPT, F32_NEW,
+                                        F32_PROMPT + F32_NEW, profile=False)
+    emit({"phase": "serve_f32", **serve32})
+    require(f32_launches == {"tc": 0, "simt": F32_LAYERS},
+            f"flash launches in f32 step_all {f32_launches}, expected "
+            f"{F32_LAYERS} SIMT and no tensor-core launch")
+    launches["flash_attn_simt"] = f32_launches["simt"]
+
+    # -- 8. card, kernels line, result ---------------------------------------
     def entry(rows, name, source, replaces):
         r = rows[0]
         return {"name": name, "route": "cuda", "source": source,
@@ -543,7 +602,9 @@ def main() -> None:
               "src/repro/kernels/p2p.py:46"),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43"),
-        entry(attn_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn.cu",
+        entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
+              "src/repro/kernels/flash_attn.py:32"),
+        entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:32"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

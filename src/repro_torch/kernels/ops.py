@@ -5,7 +5,8 @@ CPU tensor takes the kernel's plain PyTorch version.  There is no
 fallback from one to the other.  The M2L wrappers come in the grid form
 (zero ghost rows attached here) and the slab form (ghosts attached by the
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
-``flash_attention`` serves the LM's prefill attention.
+``flash_attention`` serves the LM's prefill attention; it picks one of its
+two kernels by ``flash_attn.route`` (device, dtype, head dim).
 """
 from __future__ import annotations
 
@@ -67,7 +68,13 @@ def m2l_apply(me, level: int, p: int, eq=None):
 
 def flash_attention(q, k, v, causal: bool = True):
     """Blockwise attention; q (B, H, T, d), k/v (B, Hkv, S, d), top-left
-    causal mask (see ``kernels/flash_attn.py``)."""
-    if q.device.type == "cpu":
+    causal mask, on the route ``flash_attn.route`` names.  The tensor-core
+    kernel reads strided views as they are; the SIMT kernel gets contiguous
+    copies."""
+    which = _fa.route(q, k)
+    if which == "plain":
         return _fa.flash_attention_plain(q, k, v, causal=causal)
-    return _fa.flash_attention_cuda(q, k, v, causal=causal)
+    if which == "tc":
+        return _fa.flash_attention_tc(q, k, v, causal=causal)
+    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal)

@@ -1,12 +1,15 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP.
 
 The reference's layers in PyTorch, with its ``(B, H, T, d)`` attention
-layout.  ``attention_core`` runs the hand-written flash-attention kernel on
-a CUDA tensor in exactly the case the kernel computes (causal, no window,
-no query offset, ``T == S``, f32 scores), where the kernel's top-left
-causal mask is the model's mask.  Every other case, and every CPU tensor,
-takes ``attention_core_plain``: the reference's q-chunked exact softmax.
-The choice follows the arguments alone; nothing falls back on a failure.
+layout.  ``attention_core`` runs a hand-written flash-attention kernel on
+a CUDA tensor in exactly the case the kernels compute (causal, no window,
+no query offset, ``T == S``, f32 scores), where the kernels' top-left
+causal mask is the model's mask: the tensor-core kernel for bf16 with head
+dim 64 or 128 (on the transposed views as they are), the SIMT kernel
+otherwise (``kernels.flash_attn.route``).  Every other case, and every CPU
+tensor, takes ``attention_core_plain``: the reference's q-chunked exact
+softmax.  The choice follows the arguments alone; nothing falls back on a
+failure.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Exact attention.  q: (B, H, T, d);  k, v: (B, Hkv, S, d).
 
     On a CUDA tensor with ``causal``, no ``window``, ``q_offset == 0``,
-    ``T == S`` and f32 scores this is the flash kernel (``ops.flash_attention``,
+    ``T == S`` and f32 scores this is a flash kernel (``ops.flash_attention``,
     top-left mask, equal to the model's here); otherwise
     :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
     dry-run accounting probe, not a model, and raises.
@@ -67,8 +70,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     T, S = q.shape[2], k.shape[2]
     if (q.device.type == "cuda" and causal and window is None and q_offset == 0
             and T == S and score_dtype == torch.float32):
-        return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=True)
+        return ops.flash_attention(q, k, v, causal=True)
     return attention_core_plain(q, k, v, causal=causal, window=window,
                                 q_chunk=q_chunk, q_offset=q_offset,
                                 score_dtype=score_dtype)

@@ -3,7 +3,7 @@
 The reference's ``serve/engine.py`` for one card.  ``make_serve_fns``
 returns plain callables (PyTorch runs eagerly; there is no ``jit``), and
 both steps run under ``torch.inference_mode()``.  Prefill attention runs
-the flash-attention kernel on the card (``models.layers.attention_core``);
+a flash-attention kernel on the card (``models.layers.attention_core``);
 decode attends over the bf16 KV cache in plain PyTorch.
 """
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """Flash attention: the port's plain version against the reference's TPU
-kernel (run in interpret mode on the CPU), and the CUDA kernel against the
+kernel (run in interpret mode on the CPU), and the CUDA kernels against the
 plain version on the card.
 
 Tolerances: f32 within 2e-5 rel L2, as the reference's own kernel tests
 hold it against ``attention_ref`` (f32 sums in another order and blocking);
 bf16 within 2e-2, the reference's bf16 bound (outputs rounded to bf16, so
 one half-ulp is 2e-3, and the inputs' rounding is shared).  On the card the
-kernel and the plain version see the same inputs and differ only by f32
-summation order: f32 within 1e-5, bf16 within 5e-3 (a rounding flip of the
-bf16 output costs one ulp, 4e-3 relative).  The ``gpu`` cases decide inside
-the test whether a card exists and import no jax.
+kernels and the plain version see the same inputs: f32 within 1e-5 (f32
+summation order only), bf16 within 5e-3 (a rounding flip of the bf16
+output costs one ulp, 4e-3 relative; the tensor-core kernel also rounds P
+to bf16, about 2e-3).  The ``gpu`` cases decide inside the test whether a
+card exists and import no jax.
 """
 from types import SimpleNamespace
 
@@ -132,9 +133,9 @@ def test_attention_ref_matches_reference_oracle(jx, T, S, causal):
 
 def test_dispatch_takes_plain_on_cpu():
     q, k, v = (torch.tensor(a) for a in _qkv(1, 4, 2, 33, 33, 8, 3))
-    before = fa.LAUNCHES
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES)
     out = ops.flash_attention(q, k, v, causal=True)
-    assert fa.LAUNCHES == before
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == before
     torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v), rtol=0, atol=0)
 
 
@@ -152,7 +153,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel against the plain version, on the card
+# CUDA kernels against the plain version, on the card; each case counts one
+# launch of the kernel that ``route`` names (the bf16 d = 128 case takes the
+# tensor-core kernel, the others the SIMT kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -174,10 +177,12 @@ GPU_CASES = [
 def test_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal, dtype):
     q, k, v = (torch.tensor(a, device=cuda).to(dtype)
                for a in _qkv(B, H, Hkv, T, S, d, T * 7 + d))
-    before = fa.LAUNCHES
+    before = {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES}
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == before + 1
+    which = fa.route(q, k)
+    assert {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES} == {
+        r: n + (r == which) for r, n in before.items()}
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
