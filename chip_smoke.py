@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
               2e-3, the tensor-core kernel's bf16 P about 2e-3).  At the
               prefill shape: kernel, plain, bound and SDPA (yardstick)
               milliseconds, and the tensor-core kernel on the model's
-              strided views and the SIMT kernel on the same bf16 inputs;
+              strided views (gated as the contiguous inputs are) and the
+              SIMT kernel on the same bf16 inputs;
 6. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
               greedy tokens each.  Gates: every logit finite; exactly 32
@@ -38,12 +39,13 @@ Phases, each printing one JSON line:
               teacher-forced ``forward`` over prompt + generated[:-1] on the
               card.  Prints prefill ms, decode ms per step, tokens per
               second, the flash kernel's and the copies' share of prefill
-              device time (torch.profiler), the same for one prefill on the
-              SIMT route for comparison, and peak device memory;
+              device time (torch.profiler), and peak device memory;
 7. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the SIMT
-              kernel's path (f32 attention stays exact f32).  Gates: every
-              logit finite, exactly 2 SIMT launches inside ``step_all`` and
-              no tensor-core launch, decode within 2e-2 of teacher-forced.
+              kernel's path (f32 attention stays exact f32), 4 prompts of
+              2048 tokens, so prefill gives the SIMT kernel the shape that
+              phase 5 checks and times.  Gates: every logit finite, exactly
+              2 SIMT launches inside ``step_all`` and no tensor-core launch,
+              decode within 2e-2 of teacher-forced.
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, ``step_all`` in phases 6 and 7 for flash attention) and
@@ -99,8 +101,8 @@ SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
-# (B, H, Hkv, T, S, d, causal, dtype); the first of each is Yi-6B's prefill
-# shape, the only timed case
+# (B, H, Hkv, T, S, d, causal, dtype); the first of each is the shape its
+# serve phase's prefill gives the kernel (Yi-6B, 4 x 2048), the only timed case
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
             (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),
@@ -118,7 +120,7 @@ SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = 2088
 SERVE_TOL = 2e-2
-F32_LAYERS, F32_BATCH, F32_PROMPT, F32_NEW = 2, 2, 1024, 4
+F32_LAYERS, F32_BATCH, F32_PROMPT, F32_NEW = 2, SERVE_BATCH, SERVE_PROMPT, 4
 
 
 def emit(obj) -> None:
@@ -342,9 +344,15 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
         # the model's (B, T, H, d) -> (B, H, T, d) views, and the SIMT kernel
         # on the same inputs (its time before the tensor-core route)
         qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+        got_v = kernel(qv, kv, vv, causal=causal)
+        torch.cuda.synchronize()
+        err_v = rel_l2(got_v.float(), want.float())
+        require(bool(torch.isfinite(got_v).all()), f"{name} strided views: non-finite output")
+        require(err_v <= tol, f"{name} {shape} strided views: rel L2 {err_v} > {tol}")
         row.update(
             strided_ms=cuda_ms(lambda: kernel(qv, kv, vv, causal=causal), iters=20),
-            strided_rel_l2=rel_l2(kernel(qv, kv, vv, causal=causal).float(), want.float()),
+            strided_rel_l2=err_v,
+            strided_max_abs_err=float((got_v.float() - want.float()).abs().max()),
             simt_ms_same_inputs=cuda_ms(
                 lambda: flash_attn.flash_attention_cuda(q, k, v, causal=causal), iters=10))
     row.update(
@@ -448,16 +456,6 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len,
         prefill = lambda: engine.prefill_fn(params, tokens, caches)  # noqa: E731
         record["prefill_profile"] = device_profile(
             prefill, share_of=("flash_attn_tc", "copy"))
-        # one prefill on the SIMT route with contiguous copies (the route
-        # before the tensor-core kernel), for comparison only
-        route = flash_attn.route
-        flash_attn.route = lambda q, k: "simt"
-        try:
-            prefill()
-            record["prefill_profile_simt_route"] = device_profile(
-                prefill, share_of=("flash_attn_kernel", "copy"))
-        finally:
-            flash_attn.route = route
         first = torch.as_tensor(out[:, :1], device=dev).long()
         record["decode_profile"] = device_profile(
             lambda: engine.decode_fn(params, first, prompt, caches))
@@ -555,6 +553,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 5. flash attention against its plain version ------------------------
+    # the timed cases are the shape both serve phases' prefills give the kernels
+    cfg = get_config(SERVE_ARCH)
+    prefill_shape = (SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT,
+                     SERVE_PROMPT, cfg.head_dim or cfg.d_model // cfg.num_heads, True)
+    require(TC_CASES[0][:7] == SIMT_CASES[0][:7] == prefill_shape
+            and (F32_BATCH, F32_PROMPT) == (SERVE_BATCH, SERVE_PROMPT),
+            f"timed flash cases differ from the prefill shape {prefill_shape}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
@@ -566,7 +571,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 6. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
-    cfg = get_config(SERVE_ARCH)
     serve, serve_launches = serve_phase(dev, cfg, SERVE_BATCH, SERVE_PROMPT,
                                         SERVE_NEW, SERVE_MAX_LEN, profile=True)
     emit({"phase": "serve", **serve})

@@ -154,7 +154,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain version, on the card; each case counts one
-# launch of the kernel that ``route`` names (the bf16 d = 128 case takes the
+# launch of the kernel that ``route`` names (bf16 at d 64 or 128 takes the
 # tensor-core kernel, the others the SIMT kernel)
 # ---------------------------------------------------------------------------
 
@@ -162,7 +162,18 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 GPU_CASES = [
     # B, H, Hkv, T, S, d, causal, dtype
     (1, 8, 2, 1000, 1000, 64, True, torch.float32),     # ragged T = S
-    (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
+    # tensor-core route
+    (2, 4, 4, 77, 77, 128, True, torch.bfloat16),      # ragged T = S, Hkv = H
+    (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),   # ragged, GQA 4:1
+    (1, 4, 1, 2079, 2079, 128, True, torch.bfloat16),  # teacher-forced T, Hkv 1
+    (1, 8, 8, 129, 129, 64, True, torch.bfloat16),     # one row past a tile
+    (1, 4, 2, 100, 300, 128, True, torch.bfloat16),    # T < S, top-left mask
+    (1, 4, 2, 300, 100, 64, True, torch.bfloat16),     # T > S
+    (2, 4, 4, 200, 333, 128, False, torch.bfloat16),   # not causal
+    (1, 6, 2, 256, 512, 64, False, torch.bfloat16),    # whole tiles, not causal
+    (1, 2, 2, 1, 1, 64, True, torch.bfloat16),         # one token
+    (1, 4, 2, 1, 50, 128, False, torch.bfloat16),      # one query
+    # SIMT route
     (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention
     (1, 2, 1, 33, 100, 8, True, torch.float32),        # T < S, top-left
     (1, 4, 2, 100, 33, 40, True, torch.bfloat16),      # T > S, 10 column chunks

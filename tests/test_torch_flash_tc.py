@@ -1,5 +1,8 @@
 """The tensor-core flash-attention route: the choice of route (on the CPU),
-the wrapper's checks, and on the card the kernel against the plain version.
+the wrapper's checks, and on the card the kernel on the model's strided
+views and inside the model.  Its cases against the plain version at ragged,
+T != S, non-causal and GQA shapes are rows of ``GPU_CASES`` in
+``test_torch_flash_attn.py``.
 
 No jax here.  The ``gpu`` cases decide inside the test whether a card
 exists.  Tolerance on the card: 5e-3 rel L2 against the f32 plain version
@@ -122,37 +125,8 @@ def test_dispatch_on_cpu_launches_neither_kernel(dtype, d):
 
 
 # ---------------------------------------------------------------------------
-# the kernel against the plain version, on the card
+# on the card: the model's strided views, attention_core and the model
 # ---------------------------------------------------------------------------
-
-
-TC_CASES = [
-    # B, H, Hkv, T, S, d, causal
-    (2, 4, 4, 77, 77, 128, True),        # ragged T = S, Hkv = H
-    (1, 8, 2, 1000, 1000, 64, True),     # ragged, GQA 4:1
-    (1, 4, 1, 2079, 2079, 128, True),    # the teacher-forced forward's T, Hkv 1
-    (1, 8, 8, 129, 129, 64, True),       # one row past a tile, Hkv = H
-    (1, 4, 2, 100, 300, 128, True),      # T < S, top-left mask
-    (1, 4, 2, 300, 100, 64, True),       # T > S
-    (2, 4, 4, 200, 333, 128, False),     # not causal
-    (1, 6, 2, 256, 512, 64, False),      # whole tiles, not causal
-    (1, 2, 2, 1, 1, 64, True),           # one token
-    (1, 4, 2, 1, 50, 128, False),        # one query
-]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Hkv,T,S,d,causal", TC_CASES)
-def test_tc_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal):
-    q, k, v = _qkv(B, H, Hkv, T, S, d, T * 7 + S + d, device=cuda)
-    before = (fa.LAUNCHES, fa.TC_LAUNCHES)
-    got = ops.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before[0], before[1] + 1)
-    want = fa.flash_attention_plain(q, k, v, causal=causal)
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    assert bool(torch.isfinite(got).all())
-    assert _rel(got, want) < TOL
 
 
 @pytest.mark.gpu
