@@ -9,27 +9,35 @@ Run from the repository root with no arguments:
 Phases, each printing one JSON line:
 
 1. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-              (one nvcc per source, in parallel) and print the ptxas report;
-2. kernels  — P2P and M2L against their plain PyTorch versions on the card
-              at the FMM path's shapes (N = 765,625 Lamb-Oseen lattice, level
-              10, p = 17, 8 slots), with CUDA-event times and the bound;
+              (one nvcc per source, in parallel) and print the ptxas report,
+              and what one TF32 tensor-core pass reads of an f32 operand's
+              low 13 bits (``tf32.probe``);
+2. kernels  — P2P and M2L (3xTF32 tensor cores) against their plain
+              PyTorch versions on the card at the FMM path's shapes (N =
+              765,625 Lamb-Oseen lattice, level 10 and level 2, p = 17, 8
+              slots), with CUDA-event times and the bound;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
               conserved particle count, per-step and per-stage times, peak
               memory;
-5. attn_vs_plain — both flash-attention kernels against their plain
-              version.  The tensor-core kernel (bf16) at Yi-6B's prefill
-              shape (4, 32, 4, 2048, 128) causal and at ragged T = S (77,
-              1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H, d 64
-              and 128, T = 1; the SIMT kernel at the same prefill shape in
-              f32, ragged f32, non-causal f32 and a bf16 d = 40 case.  Rel L2
-              gates 1e-5 (f32) and 5e-3 (bf16: output rounding alone is
+5. attn_vs_plain — the three flash-attention kernels against their
+              plain version.  The bf16 tensor-core kernel at Yi-6B's
+              prefill shape (4, 32, 4, 2048, 128) causal and at ragged T = S
+              (77, 1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H,
+              d 64 and 128, T = 1; the 3xTF32 kernel in f32 at the prefill
+              shape, ragged T = S (1000, 2079), T < S, T > S, non-causal,
+              Hkv 1, d 64 and T = 1; the SIMT kernel at recurrentgemma-2b's attention (4, 10,
+              1, 2048, 256) bf16 causal through ``ops.flash_attention`` (its
+              main path: the launch counts of that one call are its
+              ``launches``), f32 at d 64 and 32 and a bf16 d = 40 case.  Rel
+              L2 gates 1e-5 (f32) and 5e-3 (bf16: output rounding alone is
               2e-3, the tensor-core kernel's bf16 P about 2e-3).  At the
-              prefill shape: kernel, plain, bound and SDPA (yardstick)
-              milliseconds, and the tensor-core kernel on the model's
-              strided views (gated as the contiguous inputs are) and the
-              SIMT kernel on the same bf16 inputs;
+              timed shapes: kernel, plain, bound and SDPA (yardstick)
+              milliseconds; both tensor-core kernels also on the model's
+              strided views (gated as the contiguous inputs are), and the
+              SIMT kernel on the same inputs (its time before the
+              tensor-core routes);
 6. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
               greedy tokens each.  Gates: every logit finite; exactly 32
@@ -40,16 +48,17 @@ Phases, each printing one JSON line:
               card.  Prints prefill ms, decode ms per step, tokens per
               second, the flash kernel's and the copies' share of prefill
               device time (torch.profiler), and peak device memory;
-7. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the SIMT
-              kernel's path (f32 attention stays exact f32), 4 prompts of
-              2048 tokens, so prefill gives the SIMT kernel the shape that
-              phase 5 checks and times.  Gates: every logit finite, exactly
-              2 SIMT launches inside ``step_all`` and no tensor-core launch,
+7. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the 3xTF32
+              kernel's path (f32 attention at f32 accuracy), 4 prompts of
+              2048 tokens, so prefill gives the kernel the shape that phase
+              5 checks and times.  Gates: every logit finite, exactly 2
+              3xTF32 launches inside ``step_all`` and no other flash launch,
               decode within 2e-2 of teacher-forced.
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, ``step_all`` in phases 6 and 7 for flash attention) and
-read right after it: every kernel must have run there.  Then come the card's
+the FMM kernels, ``step_all`` in phases 6 and 7 for the tensor-core flash
+kernels, phase 5's recurrentgemma-2b call for the SIMT one) and read right
+after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -79,7 +88,7 @@ from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noq
 from repro_torch.core.stepper import rk2_step  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p  # noqa: E402
+from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -88,6 +97,7 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 # FP32 operations per live pair in csrc/p2p.cu (a division or an expf counts
 # as one): deltas 2, r2 3, 1/r2 1, two accumulated products 8, and the
 # mollifier 4 more (divide, exp, subtract, multiply) when sigma is finite.
@@ -101,8 +111,9 @@ SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
-# (B, H, Hkv, T, S, d, causal, dtype); the first of each is the shape its
-# serve phase's prefill gives the kernel (Yi-6B, 4 x 2048), the only timed case
+# (B, H, Hkv, T, S, d, causal, dtype); the first of each is the shape of its
+# main path, the only timed case: the serve phases' prefill (Yi-6B, 4 x 2048)
+# for the tensor-core kernels, recurrentgemma-2b's attention for the SIMT one
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
             (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),
@@ -112,7 +123,17 @@ TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (2, 4, 4, 200, 333, 128, False, torch.bfloat16),
             (1, 8, 8, 129, 129, 64, True, torch.bfloat16),
             (1, 2, 2, 1, 1, 64, True, torch.bfloat16)]
-SIMT_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
+TF32_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
+              (1, 8, 2, 1000, 1000, 64, True, torch.float32),
+              (1, 4, 1, 2079, 2079, 128, True, torch.float32),
+              (1, 4, 2, 100, 300, 128, True, torch.float32),
+              (1, 4, 2, 300, 100, 64, True, torch.float32),
+              (2, 4, 4, 200, 333, 128, False, torch.float32),
+              (1, 2, 2, 1, 1, 64, True, torch.float32)]
+# recurrentgemma-2b (arXiv:2402.19427; src/repro/configs/recurrentgemma_2b.py):
+# 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
+# 4 x 2048 tokens; the first full-width head dim the port's SIMT kernel serves
+SIMT_CASES = [(4, 10, 1, 2048, 2048, 256, True, torch.bfloat16),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
               (1, 2, 2, 64, 192, 32, False, torch.float32),
               (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
@@ -153,6 +174,15 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def bound_ms(nbytes: float, ops: float, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def f32_product_bound(nbytes: float, ops: float) -> dict:
+    """The bound of an f32 matrix product: its least time is three TF32
+    tensor-core passes per product (the 3xTF32 split keeps f32 accuracy),
+    max(bytes / 3.35 TB/s, 3 ops / 495 TFLOP/s); the FP32 SIMT figure is
+    kept for information."""
+    b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_FLOP_PER_S)
+    return dict(bound_ms=b_ms, bound_by=b_by, fp32_simt_bound_ms=ops / FP32_FLOP_PER_S * 1e3)
 
 
 def live_pairs(z_halo, mask_halo) -> int:
@@ -197,7 +227,8 @@ def check_m2l(me, level, p):
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     stack, (PR, _), (PC, _) = ex.m2l_slab_stack(me_halo, p, 0, ex.M2L_HALO)
     W = ops.folded_operator(VORTEX, p, level, stack.device)
-    got = m2l.m2l_cuda(stack, W)
+    W_split = ops.split_operator(VORTEX, p, level, stack.device)   # as the main path
+    got = m2l.m2l_cuda(stack, W, W_split)
     want = m2l.m2l_plain(stack, W)
     torch.cuda.synchronize()
     err = rel_l2(got, want)
@@ -205,7 +236,7 @@ def check_m2l(me, level, p):
     require(bool(torch.isfinite(torch.view_as_real(got)).all()), "m2l: non-finite output")
     require(err <= KERNEL_TOL, f"m2l level {level}: rel L2 {err} > {KERNEL_TOL}")
     iters = 20 if level >= 8 else 200
-    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=iters)
+    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W, W_split), iters=iters)
     plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=max(iters // 4, 5))
     # yardstick: one complex matmul of the unfolded stack (built outside the
     # timed region) against the stacked operator
@@ -218,10 +249,9 @@ def check_m2l(me, level, p):
     nnz_blocks = int((W.reshape(8, 4, p, 4, p).abs().amax(dim=(2, 4)) > 0).sum())
     ops_ = PR * PC * nnz_blocks * p * p * 8
     nbytes = (stack.numel() + W.numel() + got.numel()) * 8
-    b_ms, b_by = bound_ms(nbytes, ops_)
     return dict(name="m2l", level=level, p=p, shape=list(stack.shape),
                 rel_l2=err, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                **f32_product_bound(nbytes, ops_), library_ms=library_ms,
                 library_rel_l2=lib_err, nonzero_blocks=nnz_blocks,
                 bytes=nbytes, ops=ops_)
 
@@ -315,12 +345,29 @@ def causal_pairs(T: int, S: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(T - S, 0) * S
 
 
-def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool):
+def zero_flash_counts() -> None:
+    flash_attn.LAUNCHES = flash_attn.TC_LAUNCHES = flash_attn.TF32_LAUNCHES = 0
+
+
+def flash_counts() -> dict:
+    return {"tc": flash_attn.TC_LAUNCHES, "tf32": flash_attn.TF32_LAUNCHES,
+            "simt": flash_attn.LAUNCHES}
+
+
+def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool,
+                main_path: bool = False):
+    """``kernel`` against the plain version; with ``main_path`` the launch
+    counters are zeroed before its first call and read after it."""
     dev = torch.device("cuda")
     q = torch.randn((B, H, T, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
+    if main_path:
+        torch.cuda.synchronize()
+        zero_flash_counts()
     got = kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    counts = flash_counts()
     want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = rel_l2(got.float(), want.float())
@@ -331,18 +378,24 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     require(err <= tol, f"{name} {shape} {dtype}: rel L2 {err} > {tol}")
     row = dict(name=name, shape=shape, causal=causal, dtype=str(dtype),
                rel_l2=err, gate=tol, max_abs_err=max_abs)
+    if main_path:
+        row["launches"] = counts
     if not timed:
         return row
     ops_ = 4 * d * B * H * causal_pairs(T, S, causal)       # QK^T and PV, 2 FLOP per FMA
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    b_ms, b_by = bound_ms(nbytes, ops_, peak)
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound_ms(nbytes, ops_, BF16_FLOP_PER_S)
+        bound = dict(bound_ms=b_ms, bound_by=b_by,
+                     fp32_simt_bound_ms=ops_ / FP32_FLOP_PER_S * 1e3)
+    else:
+        bound = f32_product_bound(nbytes, ops_)
     ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
     ve = v.repeat_interleave(H // Hkv, dim=1)
     lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
-    if kernel is flash_attn.flash_attention_tc:
+    if kernel in (flash_attn.flash_attention_tc, flash_attn.flash_attention_tf32):
         # the model's (B, T, H, d) -> (B, H, T, d) views, and the SIMT kernel
-        # on the same inputs (its time before the tensor-core route)
+        # on the same inputs (its time before the tensor-core routes)
         qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
         got_v = kernel(qv, kv, vv, causal=causal)
         torch.cuda.synchronize()
@@ -359,8 +412,7 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
         ms=cuda_ms(lambda: kernel(q, k, v, causal=causal), iters=20),
         plain_ms=cuda_ms(lambda: flash_attn.flash_attention_plain(q, k, v, causal=causal),
                          iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, ops=ops_, bytes=nbytes,
-        fp32_simt_bound_ms=ops_ / FP32_FLOP_PER_S * 1e3,
+        **bound, ops=ops_, bytes=nbytes,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=causal), iters=20),
         library_rel_l2=rel_l2(lib.float(), want.float()))
@@ -409,14 +461,13 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len,
     logits_seen.clear()
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attn.LAUNCHES = 0
-    flash_attn.TC_LAUNCHES = 0
     torch.cuda.synchronize()
+    zero_flash_counts()
     t0 = time.perf_counter()
     out = engine.step_all(prompts, new)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"tc": flash_attn.TC_LAUNCHES, "simt": flash_attn.LAUNCHES}
+    launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     engine.prefill_fn, engine.decode_fn = prefill_fn, decode_fn
 
@@ -479,8 +530,17 @@ def main() -> None:
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln or "arning" in ln]
              for k, v in reports.items()}
+    # what one TF32 pass reads of an operand's low 13 bits (the split's lo
+    # goes in with them set)
+    x = torch.tensor([1 + 3 * 2.0 ** -12, 1 + 2.0 ** -11, 1 + 2.0 ** -23,
+                      -(1 + 3 * 2.0 ** -12), 3.0e-5], device=dev)
+    read = tf32.probe(x).cpu()
+    hi, _ = tf32.split(x.cpu())
+    reads = ("truncated" if torch.equal(read, tf32.truncate(x.cpu())) else
+             "rounded to nearest" if torch.equal(read, hi) else "neither")
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "tf32_pass_reads_low_bits": reads, "tf32_probe": [x.tolist(), read.tolist()]})
 
     # -- 2. each kernel against its plain version at main-path shapes ------
     m_side = int(round(CONFIG.num_particles ** 0.5))
@@ -553,52 +613,66 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 5. flash attention against its plain version ------------------------
-    # the timed cases are the shape both serve phases' prefills give the kernels
+    # the tensor-core kernels' timed cases are the shape the serve phases'
+    # prefills give them
     cfg = get_config(SERVE_ARCH)
     prefill_shape = (SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads, SERVE_PROMPT,
                      SERVE_PROMPT, cfg.head_dim or cfg.d_model // cfg.num_heads, True)
-    require(TC_CASES[0][:7] == SIMT_CASES[0][:7] == prefill_shape
+    require(TC_CASES[0][:7] == TF32_CASES[0][:7] == prefill_shape
             and (F32_BATCH, F32_PROMPT) == (SERVE_BATCH, SERVE_PROMPT),
             f"timed flash cases differ from the prefill shape {prefill_shape}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
                            gen=gen, timed=(i == 0)) for i, case in enumerate(TC_CASES)]
-    simt_rows = [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
-                             gen=gen, timed=(i == 0)) for i, case in enumerate(SIMT_CASES)]
-    for row in tc_rows + simt_rows:
+    tf32_rows = [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
+                             gen=gen, timed=(i == 0)) for i, case in enumerate(TF32_CASES)]
+    # the SIMT kernel's main path: recurrentgemma-2b's attention through
+    # the dispatcher, counted; then its other cases on the kernel itself
+    simt_rows = [check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[0],
+                             gen=gen, timed=True, main_path=True)]
+    simt_rows += [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
+                              gen=gen, timed=False) for case in SIMT_CASES[1:]]
+    for row in tc_rows + tf32_rows + simt_rows:
         emit({"phase": "attn_vs_plain", **row})
+    require(simt_rows[0]["launches"] == {"tc": 0, "tf32": 0, "simt": 1},
+            f"recurrentgemma-2b attention launched {simt_rows[0]['launches']}, "
+            f"expected one SIMT launch and no other")
+    launches["flash_attn_simt"] = simt_rows[0]["launches"]["simt"]
     torch.cuda.empty_cache()
 
     # -- 6. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
     serve, serve_launches = serve_phase(dev, cfg, SERVE_BATCH, SERVE_PROMPT,
                                         SERVE_NEW, SERVE_MAX_LEN, profile=True)
     emit({"phase": "serve", **serve})
-    require(serve_launches == {"tc": cfg.num_layers, "simt": 0},
+    require(serve_launches == {"tc": cfg.num_layers, "tf32": 0, "simt": 0},
             f"flash launches in step_all {serve_launches}, expected "
-            f"{cfg.num_layers} tensor-core and no SIMT launch")
+            f"{cfg.num_layers} bf16 tensor-core launches and no other")
     launches["flash_attn"] = serve_launches["tc"]
     torch.cuda.empty_cache()
 
-    # -- 7. main path: Yi-6B in f32, cut to 2 layers, on the SIMT kernel ----
+    # -- 7. main path: Yi-6B in f32, cut to 2 layers, on the 3xTF32 kernel -
     cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
     serve32, f32_launches = serve_phase(dev, cfg32, F32_BATCH, F32_PROMPT, F32_NEW,
                                         F32_PROMPT + F32_NEW, profile=False)
     emit({"phase": "serve_f32", **serve32})
-    require(f32_launches == {"tc": 0, "simt": F32_LAYERS},
+    require(f32_launches == {"tc": 0, "tf32": F32_LAYERS, "simt": 0},
             f"flash launches in f32 step_all {f32_launches}, expected "
-            f"{F32_LAYERS} SIMT and no tensor-core launch")
-    launches["flash_attn_simt"] = f32_launches["simt"]
+            f"{F32_LAYERS} 3xTF32 launches and no other")
+    launches["flash_attn_tf32"] = f32_launches["tf32"]
 
     # -- 8. card, kernels line, result ---------------------------------------
-    def entry(rows, name, source, replaces):
+    def entry(rows, name, source, replaces, **extra):
         r = rows[0]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(x["max_abs_err"] for x in rows),
-                "rel_l2": max(x["rel_l2"] for x in rows),
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": max(x["max_abs_err"] for x in rows),
+             "rel_l2": max(x["rel_l2"] for x in rows),
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if "fp32_simt_bound_ms" in r:                    # the products' FP32 SIMT figure
+            e["fp32_simt_bound_ms"] = r["fp32_simt_bound_ms"]
+        return {**e, **extra}
 
     print(card, flush=True)
     emit({"kernels": [
@@ -608,8 +682,14 @@ def main() -> None:
               "src/repro/kernels/m2l.py:43"),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32"),
+        entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
+              "src/repro/kernels/flash_attn.py:32",
+              simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"]),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
-              "src/repro/kernels/flash_attn.py:32"),
+              "src/repro/kernels/flash_attn.py:32",
+              launches_counted_in="phase 5: one ops.flash_attention call at "
+                                  "recurrentgemma-2b's attention shape "
+                                  "(4, 10, 1, 2048, 2048, 256) bf16 causal"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``build/kernels/<name>-<hash>.so`` under the repository
-root, where the hash covers the source and the flags: a changed source
-builds anew, an unchanged one loads the library already built.  All
-missing libraries compile at once, one ``nvcc`` process per source.  The
+root, where the hash covers the source, every ``csrc/*.cuh`` header and
+the flags: a changed source or header builds anew, an unchanged one loads
+the library already built.  All missing libraries compile at once, one
+``nvcc`` process per source.  The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside each library as ``<name>-<hash>.log``.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("p2p", "m2l", "flash_attn", "flash_attn_tc")
+SOURCES = ("p2p", "m2l", "flash_attn", "flash_attn_tc", "flash_attn_tf32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,8 +36,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

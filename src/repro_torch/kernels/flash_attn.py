@@ -1,20 +1,23 @@
-"""Blockwise online-softmax (flash) attention: two CUDA kernels and the plain
-version.
+"""Blockwise online-softmax (flash) attention: three CUDA kernels and the
+plain version.
 
-Both kernels replace the TPU kernel ``_fa_kernel`` launched by
-``flash_attention`` in ``src/repro/kernels/flash_attn.py``.  All three
-compute, for q ``(B, H, T, d)`` and k, v ``(B, Hkv, S, d)`` with
-``H % Hkv == 0``, softmax attention with f32 sums and GQA by index
-arithmetic (query head ``h`` reads key/value head ``h // (H // Hkv)``), and
-write the output in q's dtype.  :func:`route` picks one by device, dtype
-and head dim alone:
+The kernels replace the TPU kernel ``_fa_kernel`` launched by
+``flash_attention`` in ``src/repro/kernels/flash_attn.py``.  All compute,
+for q ``(B, H, T, d)`` and k, v ``(B, Hkv, S, d)`` with ``H % Hkv == 0``,
+softmax attention with f32 sums and GQA by index arithmetic (query head
+``h`` reads key/value head ``h // (H // Hkv)``), and write the output in
+q's dtype.  :func:`route` picks one by device, dtype and head dim alone:
 
 - ``"tc"``: ``flash_attention_tc`` launches ``csrc/flash_attn_tc.cu`` on
   Hopper's tensor cores (bf16 ``wgmma``, TMA-fed K/V) for bf16 with
   d 64 or 128, strided inputs included;
+- ``"tf32"``: ``flash_attention_tf32`` launches
+  ``csrc/flash_attn_tf32.cu`` on the TF32 tensor cores with a 3xTF32
+  split (f32 accuracy; no single TF32 pass) for f32 with d 64 or 128,
+  strided inputs included;
 - ``"simt"``: ``flash_attention_cuda`` launches ``csrc/flash_attn.cu``
-  (FP32 SIMT FMAs) for every other CUDA case, f32 above all: f32 on tensor
-  cores would need TF32, which the port keeps off;
+  (FP32 SIMT FMAs) for every other CUDA case: other head dims up to 256,
+  in bf16 or f32;
 - ``"plain"``: ``flash_attention_plain`` for a CPU tensor.
 
 The causal mask is the TPU kernel's **top-left** one: key ``kpos`` is hidden
@@ -23,13 +26,14 @@ model's causal mask.  For ``T != S`` it is not the bottom-right mask of
 ``ref.attention_ref`` (``tril(k=S-T)``); the model routes only ``T == S``
 here (``models.layers.attention_core``).
 
-Bound on an H100 at Yi-6B's prefill shape (4, 32, 4, 2048, 128) bf16,
-causal: operations, 137.5 GFLOP against 151 MB of traffic, 0.139 ms on the
-bf16 tensor cores (2.05 ms at the 67 TFLOP/s FP32 SIMT peak).  Design: see
-the notes in the CUDA sources.
+Bound on an H100 at Yi-6B's prefill shape (4, 32, 4, 2048, 128), causal:
+operations, 137.5 GFLOP against 151 MB of traffic in bf16 (302 MB in f32):
+0.139 ms on the bf16 tensor cores, 0.833 ms for the three TF32 passes of
+an f32 product at 495 TFLOP/s (2.05 ms at the 67 TFLOP/s FP32 SIMT peak).
+Design: see the notes in the CUDA sources.
 
 ``flash_attention_plain`` is the same function in plain PyTorch; the CPU
-path and the kernel's checks use it.
+path and the kernels' checks use it.
 """
 from __future__ import annotations
 
@@ -43,19 +47,24 @@ from . import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128)   # head dims of both tensor-core kernels
 
 LAUNCHES = 0        # SIMT kernel launches since the last reset
-TC_LAUNCHES = 0     # tensor-core kernel launches since the last reset
+TC_LAUNCHES = 0     # bf16 tensor-core kernel launches since the last reset
+TF32_LAUNCHES = 0   # 3xTF32 tensor-core kernel launches since the last reset
 
 
 def route(q: torch.Tensor, k: torch.Tensor) -> str:
-    """``"plain"`` for a CPU tensor, ``"tc"`` for CUDA bf16 q and k with d
-    in ``TC_HEAD_DIMS``, ``"simt"`` for every other CUDA case."""
+    """``"plain"`` for a CPU tensor; for CUDA q and k with d in
+    ``TC_HEAD_DIMS``, ``"tc"`` if both are bf16 and ``"tf32"`` if both are
+    f32; ``"simt"`` for every other CUDA case."""
     if q.device.type == "cpu":
         return "plain"
-    if q.dtype == k.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
-        return "tc"
+    if q.shape[-1] in TC_HEAD_DIMS:
+        if q.dtype == k.dtype == torch.bfloat16:
+            return "tc"
+        if q.dtype == k.dtype == torch.float32:
+            return "tf32"
     return "simt"
 
 
@@ -145,9 +154,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _tc_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_tc")
-    fn = lib.flash_attn_tc_launch
+def _tma_lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, *[i64] * 12,
@@ -157,23 +166,64 @@ def _tc_lib() -> ctypes.CDLL:
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> list[int]:
-    """(batch, head, seq) strides in elements for the kernel's tensor maps:
-    each a multiple of 8 (16 bytes); a dimension of size 1 takes the stride
-    it would have in a contiguous tensor."""
+    """(batch, head, seq) strides in elements for a kernel's tensor maps:
+    each a multiple of 16 bytes; a dimension of size 1 takes the stride it
+    would have in a contiguous tensor."""
+    per16 = 16 // t.element_size()
     strides = []
     for dim in range(3):
         st = t.stride(dim) if t.shape[dim] > 1 else math.prod(t.shape[dim + 1:])
-        if st % 8:
+        if st % per16:
             raise ValueError(f"{name} has strides {t.stride()}: the tensor-core "
-                             f"kernel needs every stride but d's a multiple "
-                             f"of 8 elements (16 bytes)")
+                             f"kernels need every stride but d's a multiple "
+                             f"of {per16} elements (16 bytes)")
         strides.append(st)
     return strides
 
 
+def _launch_tma(kind: str, name: str, dtype: torch.dtype, q, k, v,
+                causal: bool) -> torch.Tensor:
+    """Check q, k, v for a TMA-fed tensor-core kernel, launch
+    ``csrc/<name>.cu`` and return its output, a ``(B, H, T, d)`` view of
+    ``(B, T, H, d)`` memory."""
+    _check_shapes(q, k, v)
+    B, H, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the {kind} kernel takes d in "
+                         f"{TC_HEAD_DIMS}")
+    if T == 0 or S == 0:
+        raise ValueError(f"empty sequence: T={T}, S={S}")
+    strides = []
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != dtype:
+            raise ValueError(f"{tname} is {t.dtype}; the {kind} kernel takes "
+                             f"{str(dtype).removeprefix('torch.')}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{tname} must have unit stride in d, has "
+                             f"strides {t.stride()}")
+        strides += _tma_strides(tname, t)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{tname} must start on a 16-byte boundary")
+        if not t.is_cuda:
+            raise ValueError(f"{tname} must be a CUDA tensor, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{tname} on {t.device}, q on {q.device}")
+    out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(_tma_lib(name), f"{name}_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, T,
+        S, d, *strides, *_tma_strides("out", out), 1.0 / d ** 0.5, int(causal),
+        stream)
+    if err:
+        raise RuntimeError(f"{kind} flash attention launch failed: "
+                           f"{'CUresult' if err < 0 else 'CUDA error'} {abs(err)}")
+    return out
+
+
 def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True) -> torch.Tensor:
-    """Launch the tensor-core flash-attention kernel; same contract as
+    """Launch the bf16 tensor-core flash-attention kernel; same contract as
     :func:`flash_attention_plain` for bf16 with d 64 or 128.
 
     q, k and v may be strided views (a unit stride in d, every other stride
@@ -182,37 +232,22 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out.transpose(1, 2).reshape(B, T, H * d)`` is free.
     """
     global TC_LAUNCHES
-    _check_shapes(q, k, v)
-    B, H, T, d = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    if d not in TC_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the tensor-core kernel takes d in "
-                         f"{TC_HEAD_DIMS}")
-    if T == 0 or S == 0:
-        raise ValueError(f"empty sequence: T={T}, S={S}")
-    strides = []
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} is {t.dtype}; the tensor-core kernel "
-                             f"takes bfloat16")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must have unit stride in d, has "
-                             f"strides {t.stride()}")
-        strides += _tma_strides(name, t)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _tc_lib().flash_attn_tc_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, T,
-        S, d, *strides, *_tma_strides("out", out), 1.0 / d ** 0.5, int(causal),
-        stream)
-    if err:
-        raise RuntimeError(f"tensor-core flash attention launch failed: "
-                           f"{'CUresult' if err < 0 else 'CUDA error'} {abs(err)}")
+    out = _launch_tma("tensor-core", "flash_attn_tc", torch.bfloat16, q, k, v, causal)
     TC_LAUNCHES += 1
+    return out
+
+
+def flash_attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Launch the 3xTF32 tensor-core flash-attention kernel; same contract
+    as :func:`flash_attention_plain` for f32 with d 64 or 128, held to f32
+    accuracy (three TF32 passes per product, no single pass).
+
+    q, k and v may be strided views (a unit stride in d, every other stride
+    a multiple of 4 elements); the output is laid out as
+    :func:`flash_attention_tc`'s.
+    """
+    global TF32_LAUNCHES
+    out = _launch_tma("3xTF32", "flash_attn_tf32", torch.float32, q, k, v, causal)
+    TF32_LAUNCHES += 1
     return out

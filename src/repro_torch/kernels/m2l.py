@@ -10,12 +10,16 @@ complex products against the ``(8, 4p, 4p)`` folded operator, one per
 relayout back to the level grid and the ``m2l_scale`` factor stay in
 ``expansions.m2l_folded``.
 
-Bound on an H100: FP32 arithmetic, ``8 (4p)^2`` complex multiply-adds per
-parent (less where the operator's structural zero blocks are skipped by
-the bound's count; the kernel does the dense product).  The kernel stages
-each block's ``(8+2, 8+2, 4p)`` halo tile and one ``W[d]`` at a time in
-shared memory and keeps a 4x4 register tile of accumulators per thread,
-in IEEE FP32 FMAs (no TF32).
+Bound on an H100: ``8 (4p)^2`` complex multiply-adds per parent (less
+where the operator's structural zero blocks are skipped by the bound's
+count; the kernel does the dense product), each f32 product as three TF32
+tensor-core passes.  The kernel runs the complex product as one real
+product on the interleaved (re, im) view, on ``mma.sync`` TF32 tensor-core
+instructions with a 3xTF32 split (f32 accuracy, no single TF32 pass): a
+block stages its ``(8+2, 8+2, 4p)`` halo tile once and streams the split
+operator (:func:`split_operator`, made once per operator) through a ring
+of bulk async copies; the 8 offsets accumulate in registers.  See
+``csrc/m2l.cu``.
 
 ``m2l_plain`` is the same function in plain PyTorch.
 """
@@ -26,9 +30,10 @@ import ctypes
 import torch
 
 from ..core import expansions as ex
-from . import _build
+from . import _build, tf32
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+MAX_P = 32          # the kernel's register tile: 16 n-tiles per warp
 
 LAUNCHES = 0        # kernel launches since the last reset
 
@@ -36,6 +41,17 @@ LAUNCHES = 0        # kernel launches since the last reset
 def m2l_plain(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """(PR+2, PC+2, 4p) parent planes x (8, 4p, 4p) -> (PR, PC, 4p)."""
     return ex.folded_contract(stack, W)
+
+
+def split_operator(W: torch.Tensor) -> torch.Tensor:
+    """The kernel's form of the (8, K, K) complex64 operator: (8, K, K, 4)
+    f32 holding ``[re_hi, re_lo, im_hi, im_lo]`` of each entry, the 3xTF32
+    split of ``tf32.split``."""
+    if W.dtype != torch.complex64 or W.ndim != 3:
+        raise ValueError(f"W must be (8, K, K) complex64, got {W.dtype} "
+                         f"{tuple(W.shape)}")
+    hi, lo = tf32.split(torch.view_as_real(W).contiguous())
+    return torch.stack([hi[..., 0], lo[..., 0], hi[..., 1], lo[..., 1]], dim=-1)
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,8 +65,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`."""
+def m2l_cuda(stack: torch.Tensor, W: torch.Tensor,
+             W_split: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`.
+
+    ``W_split`` is ``split_operator(W)``; a caller that applies one
+    operator many times passes it (``ops.split_operator`` caches it),
+    otherwise it is made here.
+    """
     global LAUNCHES
     for name, t in (("stack", stack), ("W", W)):
         if not t.is_cuda:
@@ -70,13 +92,20 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
                          f"{tuple(W.shape)}")
     p = K // 4
     lib = _lib()
-    if 16 * p > 1024 or lib.m2l_smem_bytes(p) > MAX_SMEM:
-        raise ValueError(f"p={p} exceeds the kernel's thread or shared-memory "
-                         f"limit")
+    smem = lib.m2l_smem_bytes(p)
+    if smem < 0 or smem > MAX_SMEM:
+        raise ValueError(f"p={p} exceeds the kernel's shared-memory limit: "
+                         f"p <= {MAX_P}")
+    if W_split is None:
+        W_split = split_operator(W)
+    if (tuple(W_split.shape) != (8, K, K, 4) or W_split.dtype != torch.float32
+            or not W_split.is_contiguous() or W_split.device != stack.device):
+        raise ValueError(f"W_split must be the contiguous (8, {K}, {K}, 4) "
+                         f"float32 split of W on {stack.device}")
     PR, PC = stack.shape[0] - 2, stack.shape[1] - 2
     out = torch.empty((PR, PC, K), dtype=torch.complex64, device=stack.device)
     stream = torch.cuda.current_stream(stack.device).cuda_stream
-    err = lib.m2l_launch(stack.data_ptr(), W.data_ptr(), out.data_ptr(),
+    err = lib.m2l_launch(stack.data_ptr(), W_split.data_ptr(), out.data_ptr(),
                          PR, PC, p, stream)
     if err:
         raise RuntimeError(f"m2l kernel launch failed: CUDA error {err}")

@@ -6,7 +6,7 @@ fallback from one to the other.  The M2L wrappers come in the grid form
 (zero ghost rows attached here) and the slab form (ghosts attached by the
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
 ``flash_attention`` serves the LM's prefill attention; it picks one of its
-two kernels by ``flash_attn.route`` (device, dtype, head dim).
+three kernels by ``flash_attn.route`` (device, dtype, head dim).
 """
 from __future__ import annotations
 
@@ -34,11 +34,13 @@ def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, eq=None):
     return _p2p.p2p_cuda(z_halo, q_halo, mask_halo, sigma)
 
 
-def m2l_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """The folded contraction on the stack's device."""
+def m2l_contract(stack: torch.Tensor, W: torch.Tensor,
+                 W_split: torch.Tensor | None = None) -> torch.Tensor:
+    """The folded contraction on the stack's device; ``W_split`` is the
+    kernel's form of ``W`` (made per call when not given)."""
     if stack.device.type == "cpu":
         return _m2l.m2l_plain(stack, W)
-    return _m2l.m2l_cuda(stack, W)
+    return _m2l.m2l_cuda(stack, W, W_split)
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,16 +50,26 @@ def folded_operator(eq, p: int, level: int, device: torch.device) -> torch.Tenso
                            device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def split_operator(eq, p: int, level: int, device: torch.device) -> torch.Tensor:
+    """The M2L kernel's 3xTF32 form of ``folded_operator``, made once."""
+    return _m2l.split_operator(folded_operator(eq, p, level, device))
+
+
 def m2l_apply_slab(me_halo, level: int, p: int, row0: int = 0,
                    halo: int = ex.M2L_HALO, col0: int = 0, col_halo: int = 0,
                    eq=None):
     """Parity-folded M2L over a halo'd row slab or 2-D tile; ``col_halo>0``
     means column ghosts are attached too."""
     eq = eqs.get_equation(eq)
+    dev = me_halo.device
+    contract = m2l_contract
+    if dev.type != "cpu":
+        contract = functools.partial(m2l_contract,
+                                     W_split=split_operator(eq, p, level, dev))
     return ex.m2l_folded(me_halo, level, p, row0=row0, halo=halo, col0=col0,
-                         col_halo=col_halo,
-                         op=folded_operator(eq, p, level, me_halo.device),
-                         scale=eq.m2l_scale(level), contract=m2l_contract)
+                         col_halo=col_halo, op=folded_operator(eq, p, level, dev),
+                         scale=eq.m2l_scale(level), contract=contract)
 
 
 def m2l_apply(me, level: int, p: int, eq=None):
@@ -69,12 +81,14 @@ def m2l_apply(me, level: int, p: int, eq=None):
 def flash_attention(q, k, v, causal: bool = True):
     """Blockwise attention; q (B, H, T, d), k/v (B, Hkv, S, d), top-left
     causal mask, on the route ``flash_attn.route`` names.  The tensor-core
-    kernel reads strided views as they are; the SIMT kernel gets contiguous
-    copies."""
+    kernels (bf16 and 3xTF32) read strided views as they are; the SIMT
+    kernel gets contiguous copies."""
     which = _fa.route(q, k)
     if which == "plain":
         return _fa.flash_attention_plain(q, k, v, causal=causal)
     if which == "tc":
         return _fa.flash_attention_tc(q, k, v, causal=causal)
+    if which == "tf32":
+        return _fa.flash_attention_tf32(q, k, v, causal=causal)
     return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal)

@@ -7,7 +7,8 @@ hold it against ``attention_ref`` (f32 sums in another order and blocking);
 bf16 within 2e-2, the reference's bf16 bound (outputs rounded to bf16, so
 one half-ulp is 2e-3, and the inputs' rounding is shared).  On the card the
 kernels and the plain version see the same inputs: f32 within 1e-5 (f32
-summation order only), bf16 within 5e-3 (a rounding flip of the bf16
+summation order, and the 3xTF32 split of the f32 tensor-core kernel, about
+5e-7 in the CPU model of ``test_torch_tf32.py``), bf16 within 5e-3 (a rounding flip of the bf16
 output costs one ulp, 4e-3 relative; the tensor-core kernel also rounds P
 to bf16, about 2e-3).  The ``gpu`` cases decide inside the test whether a
 card exists and import no jax.
@@ -154,14 +155,28 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain version, on the card; each case counts one
-# launch of the kernel that ``route`` names (bf16 at d 64 or 128 takes the
-# tensor-core kernel, the others the SIMT kernel)
+# launch of the kernel that ``route`` names (d 64 or 128 takes the bf16
+# tensor-core kernel in bf16 and the 3xTF32 kernel in f32, the others the
+# SIMT kernel)
 # ---------------------------------------------------------------------------
 
 
 GPU_CASES = [
     # B, H, Hkv, T, S, d, causal, dtype
-    (1, 8, 2, 1000, 1000, 64, True, torch.float32),     # ragged T = S
+    # 3xTF32 route
+    (1, 8, 2, 1000, 1000, 64, True, torch.float32),     # ragged T = S, GQA 4:1
+    (2, 4, 4, 77, 77, 128, True, torch.float32),        # ragged T = S, Hkv = H
+    (1, 4, 1, 2079, 2079, 128, True, torch.float32),    # teacher-forced T, Hkv 1
+    (1, 4, 1, 129, 129, 64, True, torch.float32),       # Hkv 1, one row past a tile
+    (1, 4, 2, 100, 300, 128, True, torch.float32),      # T < S, top-left mask
+    (1, 4, 2, 300, 100, 64, True, torch.float32),       # T > S
+    (1, 4, 2, 100, 300, 64, True, torch.float32),       # T < S at d 64
+    (1, 4, 2, 300, 100, 128, True, torch.float32),      # T > S at d 128
+    (2, 4, 4, 200, 333, 128, False, torch.float32),     # not causal
+    (1, 6, 2, 256, 512, 64, False, torch.float32),      # whole tiles, not causal
+    (1, 2, 2, 1, 1, 64, True, torch.float32),           # one token
+    (1, 2, 2, 1, 1, 128, True, torch.float32),
+    (1, 4, 2, 1, 50, 128, False, torch.float32),        # one query
     # tensor-core route
     (2, 4, 4, 77, 77, 128, True, torch.bfloat16),      # ragged T = S, Hkv = H
     (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),   # ragged, GQA 4:1
@@ -188,11 +203,11 @@ GPU_CASES = [
 def test_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal, dtype):
     q, k, v = (torch.tensor(a, device=cuda).to(dtype)
                for a in _qkv(B, H, Hkv, T, S, d, T * 7 + d))
-    before = {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES}
+    before = {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES, "tf32": fa.TF32_LAUNCHES}
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     which = fa.route(q, k)
-    assert {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES} == {
+    assert {"simt": fa.LAUNCHES, "tc": fa.TC_LAUNCHES, "tf32": fa.TF32_LAUNCHES} == {
         r: n + (r == which) for r, n in before.items()}
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape

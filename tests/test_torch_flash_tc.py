@@ -72,8 +72,11 @@ def cuda():
     ("cpu", torch.bfloat16, torch.bfloat16, 16, "plain"),
     ("cuda", torch.bfloat16, torch.bfloat16, 64, "tc"),
     ("cuda", torch.bfloat16, torch.bfloat16, 128, "tc"),
-    ("cuda", torch.float32, torch.float32, 128, "simt"),   # f32 needs exact f32
-    ("cuda", torch.float32, torch.float32, 64, "simt"),
+    ("cuda", torch.float32, torch.float32, 128, "tf32"),   # f32: 3xTF32 split
+    ("cuda", torch.float32, torch.float32, 64, "tf32"),
+    ("cuda", torch.float32, torch.float32, 32, "simt"),    # other f32 head dims
+    ("cuda", torch.float32, torch.float32, 256, "simt"),
+    ("cuda", torch.float32, torch.bfloat16, 64, "simt"),   # mixed: SIMT raises
     ("cuda", torch.bfloat16, torch.bfloat16, 16, "simt"),  # other head dims
     ("cuda", torch.bfloat16, torch.bfloat16, 96, "simt"),
     ("cuda", torch.bfloat16, torch.bfloat16, 256, "simt"),
@@ -99,6 +102,39 @@ def test_tc_wrapper_rejects_what_the_kernel_does_not_take(make, match):
         fa.flash_attention_tc(*make())
 
 
+@pytest.mark.parametrize("make,match", [
+    (lambda: _qkv(1, 4, 2, 16, 16, 64, 0, dtype=torch.float32), "CUDA tensor"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 64, 0), "float32"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 32, 0, dtype=torch.float32), "head dim 32"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 256, 0, dtype=torch.float32), "head dim 256"),
+    (lambda: tuple(t[..., ::2] for t in _qkv(1, 4, 2, 16, 16, 128, 0, dtype=torch.float32)),
+     "unit stride"),
+    (lambda: tuple(t[..., :64] for t in _qkv(1, 4, 2, 16, 16, 66, 0, dtype=torch.float32)),
+     "multiple of 4"),
+    (lambda: (torch.zeros(1, 3, 16, 64),) + _qkv(1, 4, 2, 16, 16, 64, 0, dtype=torch.float32)[1:],
+     "not a multiple"),
+    (lambda: _qkv(1, 4, 2, 0, 16, 64, 0, dtype=torch.float32), "empty sequence"),
+])
+def test_tf32_wrapper_rejects_what_the_kernel_does_not_take(make, match):
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_tf32(*make())
+
+
+def test_tf32_wrapper_rejects_a_misaligned_start():
+    flat = torch.zeros(4 * 16 * 64 + 1)
+    q = flat[1:].view(1, 4, 16, 64)
+    _, k, v = _qkv(1, 4, 2, 16, 16, 64, 0, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_tf32(q, k, v)
+
+
+def test_tma_strides_take_16_bytes_of_either_dtype():
+    f32 = torch.zeros(2, 3, 4, 68)[..., :64]                 # seq stride 68 floats
+    assert fa._tma_strides("f32", f32) == [3 * 4 * 68, 4 * 68, 68]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa._tma_strides("bf16", torch.zeros(1, 3, 4, 68, dtype=torch.bfloat16)[..., :64])
+
+
 def test_tc_wrapper_rejects_a_misaligned_start():
     flat = torch.zeros(4 * 16 * 64 + 1, dtype=torch.bfloat16)
     q = flat[1:].view(1, 4, 16, 64)
@@ -118,9 +154,9 @@ def test_tma_strides_follow_the_view():
                                      (torch.float32, 64), (torch.float32, 16)])
 def test_dispatch_on_cpu_launches_neither_kernel(dtype, d):
     q, k, v = _qkv(1, 4, 2, 33, 33, d, 3, dtype=dtype)
-    before = (fa.LAUNCHES, fa.TC_LAUNCHES)
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES)
     out = ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == before
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES) == before
     torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v), rtol=0, atol=0)
 
 
@@ -143,6 +179,34 @@ def test_tc_kernel_reads_strided_views(cuda, d):
     assert got.transpose(1, 2).is_contiguous()
     want = fa.flash_attention_plain(qv.contiguous(), kv.contiguous(), vv.contiguous())
     assert _rel(got, want) < TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_tf32_kernel_reads_strided_views(cuda, d):
+    """The 3xTF32 kernel on the model's (B, T, H, d) -> (B, H, T, d) views;
+    f32 within 1e-5 of the plain version."""
+    B, H, Hkv, T = 2, 8, 2, 300
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in _qkv(B, H, Hkv, T, T, d, d, device=cuda, dtype=torch.float32))
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+    assert not qv.is_contiguous()
+    got = fa.flash_attention_tf32(qv, kv, vv, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa.flash_attention_plain(qv.contiguous(), kv.contiguous(), vv.contiguous())
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+def test_attention_core_takes_the_tf32_route_for_f32(cuda):
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(2, 8, 2, 200, 200, 128, 1, device=cuda, dtype=torch.float32))
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES)
+    got = tl.attention_core(q, k, v, causal=True, q_chunk=100)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES) == (before[0], before[1],
+                                                               before[2] + 1)
+    assert _rel(got, tl.attention_core_plain(q, k, v, causal=True, q_chunk=100)) < 1e-5
 
 
 @pytest.mark.gpu
@@ -172,3 +236,21 @@ def test_bf16_model_on_card_runs_the_tc_kernel(cuda):
     assert bool(torch.isfinite(logits).all())
     h, _ = tt.forward(params, tokens, cfg)
     assert _rel(logits, tt.unembed(params, h, cfg)) < 3e-2
+
+
+@pytest.mark.gpu
+def test_f32_model_on_card_runs_the_tf32_kernel(cuda):
+    """An f32 smoke model with head dim 64: one 3xTF32 launch per layer and
+    no other flash launch; logits within 1e-4 of the CPU's (f32 summation
+    order in the card's products, as the SIMT route was held)."""
+    cfg = dataclasses.replace(YI_SMOKE, head_dim=64, dtype="float32")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(params, cuda)
+    tokens = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 150)))
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES)
+    hc, _ = tt.forward(on_card, tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES) == (
+        before[0], before[1], before[2] + cfg.num_layers)
+    h, _ = tt.forward(params, tokens, cfg)
+    assert _rel(tt.unembed(on_card, hc, cfg), tt.unembed(params, h, cfg)) < 1e-4

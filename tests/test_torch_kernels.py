@@ -159,7 +159,7 @@ def test_m2l_cuda_rejects_cpu_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("PR,PC", [(2, 2), (3, 3), (7, 9), (8, 8), (17, 5)])
+@pytest.mark.parametrize("PR,PC", [(2, 2), (3, 3), (7, 9), (8, 8), (17, 5), (13, 11)])
 @pytest.mark.parametrize("p", [8, 17])
 def test_m2l_kernel_matches_plain(cuda, PR, PC, p):
     rng = np.random.default_rng(PR * 31 + PC + p)

@@ -50,9 +50,9 @@ def cuda():
 
 def test_attention_core_on_cpu_takes_the_plain_route():
     q, k, v = _qkv(40, 40, "cpu")
-    before = (fa.LAUNCHES, fa.TC_LAUNCHES)
+    before = (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES)
     out = tl.attention_core(q, k, v, causal=True, q_chunk=8)
-    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == before
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES, fa.TF32_LAUNCHES) == before
     torch.testing.assert_close(out, tl.attention_core_plain(q, k, v, q_chunk=8),
                                rtol=0, atol=0)
 
