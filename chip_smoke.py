@@ -53,7 +53,9 @@ Phases, each printing one JSON line:
               2048 tokens, so prefill gives the kernel the shape that phase
               5 checks and times.  Gates: every logit finite, exactly 2
               3xTF32 launches inside ``step_all`` and no other flash launch,
-              decode within 2e-2 of teacher-forced.
+              decode within 2e-2 of teacher-forced.  After the counted run,
+              one prefill is timed on the 3xTF32 route and on the SIMT
+              kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, ``step_all`` in phases 6 and 7 for the tensor-core flash
@@ -226,9 +228,8 @@ def check_p2p(tree, sigma):
 def check_m2l(me, level, p):
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     stack, (PR, _), (PC, _) = ex.m2l_slab_stack(me_halo, p, 0, ex.M2L_HALO)
-    W = ops.folded_operator(VORTEX, p, level, stack.device)
-    W_split = ops.split_operator(VORTEX, p, level, stack.device)   # as the main path
-    got = m2l.m2l_cuda(stack, W, W_split)
+    W = ops.folded_operator(VORTEX, p, level, stack.device)   # as the main path
+    got = m2l.m2l_cuda(stack, W)
     want = m2l.m2l_plain(stack, W)
     torch.cuda.synchronize()
     err = rel_l2(got, want)
@@ -236,7 +237,7 @@ def check_m2l(me, level, p):
     require(bool(torch.isfinite(torch.view_as_real(got)).all()), "m2l: non-finite output")
     require(err <= KERNEL_TOL, f"m2l level {level}: rel L2 {err} > {KERNEL_TOL}")
     iters = 20 if level >= 8 else 200
-    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W, W_split), iters=iters)
+    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=iters)
     plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=max(iters // 4, 5))
     # yardstick: one complex matmul of the unfolded stack (built outside the
     # timed region) against the stacked operator
@@ -419,10 +420,12 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     return row
 
 
-def serve_phase(dev, cfg, batch, prompt, new, max_len,
-                profile: bool) -> tuple[dict, dict]:
+def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
+                other_route: str | None = None) -> tuple[dict, dict]:
     """``cfg`` behind ServeEngine.step_all; returns the phase's record and
-    the launches of each flash kernel counted inside step_all."""
+    the launches of each flash kernel counted inside step_all.  With
+    ``other_route``, after the counted run, one prefill is timed on the
+    route ``flash_attn.route`` names and on ``other_route``, alternately."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -501,16 +504,34 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len,
               "peak_bytes": peak, "flash_launches": launches,
               "rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
               "last_token_agreement_info": agree, "first_tokens": out[0, :8].tolist()}
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    caches = init_cache(cfg, batch, max_len, device=dev)
+    prefill = lambda: engine.prefill_fn(params, tokens, caches)  # noqa: E731
+    if other_route is not None:
+        record["prefill_ms_by_route"] = prefill_by_route(prefill, other_route)
     if profile:
-        tokens = torch.as_tensor(prompts, device=dev).long()
-        caches = init_cache(cfg, batch, max_len, device=dev)
-        prefill = lambda: engine.prefill_fn(params, tokens, caches)  # noqa: E731
         record["prefill_profile"] = device_profile(
             prefill, share_of=("flash_attn_tc", "copy"))
         first = torch.as_tensor(out[:, :1], device=dev).long()
         record["decode_profile"] = device_profile(
             lambda: engine.decode_fn(params, first, prompt, caches))
     return record, launches
+
+
+def prefill_by_route(prefill, other: str) -> dict:
+    """One prefill's CUDA-event ms on the dispatcher's own route and on
+    ``other`` (``flash_attn.route`` swapped for the call), in the order
+    own, other, other, own; not counted as main-path launches."""
+    own_route = flash_attn.route
+    times: dict[str, list[float]] = {"own": [], other: []}
+    try:
+        for which in ("own", other, other, "own"):
+            flash_attn.route = own_route if which == "own" else (lambda q, k: other)
+            prefill()                                    # warm
+            times[which].append(cuda_ms(prefill, iters=1, warmup=0))
+    finally:
+        flash_attn.route = own_route
+    return times
 
 
 def main() -> None:
@@ -654,7 +675,8 @@ def main() -> None:
     # -- 7. main path: Yi-6B in f32, cut to 2 layers, on the 3xTF32 kernel -
     cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
     serve32, f32_launches = serve_phase(dev, cfg32, F32_BATCH, F32_PROMPT, F32_NEW,
-                                        F32_PROMPT + F32_NEW, profile=False)
+                                        F32_PROMPT + F32_NEW, profile=False,
+                                        other_route="simt")
     emit({"phase": "serve_f32", **serve32})
     require(f32_launches == {"tc": 0, "tf32": F32_LAYERS, "simt": 0},
             f"flash launches in f32 step_all {f32_launches}, expected "

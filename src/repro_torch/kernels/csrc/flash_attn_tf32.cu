@@ -1,5 +1,5 @@
 // Blockwise online-softmax (flash) attention in f32 on Hopper's TF32 tensor
-// cores with a 3xTF32 split (f32 accuracy), GQA, TMA-fed tiles.
+// cores (wgmma) with a 3xTF32 split (f32 accuracy), GQA, TMA-fed Q and K.
 //
 // Replaces the TPU kernel _fa_kernel / flash_attention in
 // src/repro/kernels/flash_attn.py for f32 q, k, v with head dim 64 or 128.
@@ -8,8 +8,9 @@
 // the causal mask is the TPU kernel's top-left one (key kpos is hidden from
 // query qpos when kpos > qpos), masked scores contribute exactly 0, and
 // out = o / l with the l > 0 guard.  Both products, Q K^T and P V, run as
-// three TF32 tensor-core passes on hi + lo splits (csrc/tf32x3.cuh), so
-// they keep f32 accuracy; the softmax is f32 with IEEE expf (no fast math).
+// three TF32 tensor-core passes on hi + lo splits (tf32x3::split: hi has its
+// low 13 bits zero, lo = x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi, so they
+// keep f32 accuracy; the softmax is f32 with IEEE expf (no fast math).
 //
 // Bound on an H100 at Yi-6B's prefill shape (B 4, H 32, Hkv 4, T = S = 2048,
 // d 128, causal): 137.5 GFLOP of f32 products over the visible (query, key)
@@ -18,51 +19,48 @@
 // TFLOP/s FP32 SIMT rate of csrc/flash_attn.cu).
 //
 // Design:
-// - One block of 8 warps (256 threads) owns one (b, h, 128-row q tile); each
-//   warp owns 16 query rows, the M of mma.sync.m16n8k8.  q tiles launch
+// - One block of two warpgroups (256 threads) owns one (b, h, 128-row q
+//   tile); each warpgroup owns 64 query rows, wgmma's M.  q tiles launch
 //   heaviest first.  The block loops over 32-key tiles and skips those
-//   wholly above the diagonal; a warp also skips the tiles above its own
-//   16 rows.  Small key tiles keep a warp's score fragment at 16 registers
-//   beside its 64 of O (d = 128).
-// - What bounds it today is latency, not the tensor core: O, S and the
-//   split fragments take 255 registers a thread at d = 128, so an SM holds
-//   8 warps, each with 4 independent products in flight.  Splitting d
-//   across two warps per 16 rows (16 warps an SM at 128 registers) spilled
-//   and ran slower; 64-key tiles, 64-row blocks, other groupings and K, V
-//   split once per tile into shared hi/lo buffers did not beat this
-//   layout (see PERF.md).
-// - TMA loads Q once and K, V tile by tile through 4-D tensor maps over
-//   (d, seq, heads, batch) built from the tensors' own strides, so the
-//   model's transposed views need no copy and a ragged T or S is
-//   zero-filled per head.  Rows are 128-byte swizzled (32 floats per panel);
-//   every fragment load below is conflict-free under that swizzle.  K and V
-//   go through a 2-stage ring, one mbarrier per stage; thread 0 issues tile
-//   j + 1 before the block computes on tile j.
-// - Why mma.sync and not wgmma: TF32 wgmma takes A and B from shared memory
-//   only K-major (the transpose bit is for 16-bit types), so P V would need
-//   V transposed, and A from registers would need P in wgmma's fragment
-//   order; the 3xTF32 split would also need hi and lo copies of Q, K and V
-//   in shared memory, twice their f32 tiles.  mma.sync takes its fragments
-//   from registers, loaded with any addressing and split there.
+//   wholly above the diagonal; a warpgroup also skips the tiles above its
+//   own rows (it still helps split them).
+// - TF32 wgmma reads A and B from shared memory only K-major (the transpose
+//   bit is for 16-bit types), and each operand is needed as hi and lo.
+//   Q and K have d contiguous, K-major for S = Q K^T: TMA lands them through
+//   4-D tensor maps over (d, seq, heads, batch) built from the tensors' own
+//   strides (the model's transposed views need no copy; a ragged T or S is
+//   zero-filled), 128-byte swizzled; the threads then overwrite each element
+//   with its hi and write its lo to a twin buffer of the same layout.  Q is
+//   split once; K tile by tile, through a 2-stage TMA ring.
+// - V is (keys, d), MN-major for O += P V, so the threads load V tile j + 1
+//   from device memory into registers while tile j computes, and write it
+//   transposed (rows d, keys contiguous) as hi and lo, in the 128-byte
+//   swizzle the descriptors name: a 32-key row is one 128-byte line.
+// - P comes from registers: the f32 accumulator fragment of S holds keys
+//   {2t, 2t+1} of each 8-key group (t = lane % 4), the TF32 A fragment
+//   wants k-slots {t, t+4}.  The order of keys inside a product is free, so
+//   slot t takes key 2t and slot t + 4 key 2t + 1, and V^T's columns are
+//   written in that order: no shuffle.  P is split in registers.
 // - The tensor core's f32 accumulation truncates, and the error grows with
-//   the number of passes summed in it (4.5e-6 at the prefill shape when
-//   S and O summed every pass in the core, measured).  So S sums each
-//   32-wide panel of d in a zeroed fragment and adds it to its f32
-//   registers, rounded; O sums each key tile's P V in a zeroed fragment
-//   and takes it with one rounded fma, o = o * alpha + part, which is also
-//   the online softmax's rescale.
-// - S = Q K^T: A = Q rows, B = K rows (both d-contiguous, B "col" layout).
-//   The online softmax runs on the f32 accumulator fragment: a thread holds
-//   keys {2t, 2t+1} of each 8-key group for rows g and g + 8, and a row's
-//   max takes a quad shuffle.  m starts at the finite -1e30 and masked
-//   scores are -inf, so alpha = exp(m_old - m_new) is never NaN and masked p
-//   are exactly 0.
-// - O += P V with P from registers: the A fragment wants keys {t, t + 4} of
-//   each 8-key group where the accumulator holds {2t, 2t + 1}.  The order of
-//   keys inside a product is free, so A slot t takes key 2t, slot t + 4 key
-//   2t + 1, and V's B fragment reads rows 2t and 2t + 1 to match: no shuffle.
-//   P is split where it is used; O stays in f32 registers and the epilogue
-//   divides by l once and stores rows < T.
+//   the passes summed in one accumulator (4.5e-6 at the prefill shape when
+//   S and O were summed entirely in the core, measured).
+//   So S sums its hi*hi passes in chains of 8 k-steps (one per 64-wide half
+//   of d) and its small passes in a third accumulator, added in f32
+//   registers; O sums each key tile's 12 passes in a zeroed accumulator and
+//   takes it with one rounded fma, o = o * alpha + part, which is also the
+//   online softmax's rescale.
+// - The online softmax runs on the accumulator fragment: a thread holds
+//   keys {2t, 2t+1} of each 8-key group for rows g and g + 8 of its warp's
+//   16, and a row's max takes a quad shuffle.  m starts at the finite -1e30
+//   and masked scores are -inf, so alpha = exp(m_old - m_new) is never NaN
+//   and masked p are exactly 0.  V rows past S are loaded as 0.
+// - Shared memory at d = 128: Q hi and lo 128 KB, the K ring 32 KB, K lo,
+//   V^T hi and V^T lo 16 KB each: 208 KB, one block an SM.  The split
+//   buffers of K and V are single: two barriers a tile.  No producer warp,
+//   no ping-pong between the warpgroups yet, so the tensor core idles while
+//   the block splits a tile and runs its softmax, and the m64n32 products
+//   of S read 3 KB of shared memory per 32 KFLOP, more than the TF32 rate
+//   needs: that is what holds it at about 2.4x its bound (inferred).
 //
 // Layouts: q (B, H, T, d), k and v (B, Hkv, S, d), out (B, H, T, d), each
 // with unit stride in d and any other strides that are multiples of 4
@@ -76,21 +74,25 @@
 
 namespace {
 
-constexpr int BQ = 128;          // query rows per block: 8 warps of 16
-constexpr int BK = 32;           // keys per tile
+constexpr int BQ = 128;          // query rows per block: two warpgroups of 64
+constexpr int BK = 32;           // keys per tile: one 128-byte line of V^T
 constexpr int THREADS = 256;
-constexpr int NG = 4;            // O n-tiles whose products are in flight at once
 constexpr int PANEL = 32;        // floats per 128-byte swizzled row
-constexpr int STAGES = 2;        // K/V ring depth
+constexpr int STAGES = 2;        // K ring depth
 constexpr float NEG_BIG = -1e30f;
 
 template <int D>
 struct Smem {
-  static constexpr int Q_BYTES = BQ * D * 4;
-  static constexpr int KV_BYTES = BK * D * 4;          // one tile of K or of V
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;     // K then V
-  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int Q_BYTES = BQ * D * 4;           // Q hi, then Q lo
+  static constexpr int K_BYTES = BK * D * 4;           // one K tile, or V^T tile
+  static constexpr int QLO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;            // STAGES raw K tiles
+  static constexpr int KLO_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int VHI_OFF = KLO_OFF + K_BYTES;
+  static constexpr int VLO_OFF = VHI_OFF + K_BYTES;
+  static constexpr int BAR_OFF = VLO_OFF + K_BYTES;
   static constexpr int BYTES = BAR_OFF + 64 + 1024;    // barriers, alignment slack
+  static constexpr int V_ITEMS = D * (BK / 4) / THREADS;  // V^T 16-byte chunks a thread
 };
 
 // ---- PTX wrappers --------------------------------------------------------
@@ -130,30 +132,150 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Float offset of (row, col) in a tile of `rows` rows stored as D / 32
-// panels of 128-byte rows, 128-byte swizzled: the 16-byte chunk index is
-// XORed with row % 8 (tiles are 1024-byte aligned).
-template <int ROWS>
-__device__ __forceinline__ int swz(int row, int col) {
-  const int chunk = (col % PANEL) / 4;
-  return (col / PANEL) * ROWS * PANEL + row * PANEL + ((chunk ^ (row % 8)) * 4) +
-         (col % 4);
+// Writes by the threads become visible to wgmma and TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// K and V tile j into ring stage j % STAGES; one thread issues it.
-template <int D>
-__device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
-                                        uint32_t skv, uint32_t bar_kv, int j,
-                                        int hkv, int b) {
-  using L = Smem<D>;
-  const int st = j % STAGES;
-  const uint32_t bar = bar_kv + 8 * st;
-  const uint32_t ks = skv + st * L::STAGE_BYTES, vs = ks + L::KV_BYTES;
-  mbar_expect_tx(bar, L::STAGE_BYTES);
+// Shared-memory matrix descriptor, 128-byte swizzle (the tensor maps' mode):
+// 8-row groups 1024 bytes apart, atoms 1024-byte aligned (base offset 0).
+// The start address is bits 0-13 in 16-byte units; shared addresses are
+// below 256 KB, so desc(a) + (off >> 4) == desc(a + off): a k-step's
+// descriptor is its operand's base plus an immediate.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  constexpr uint32_t lbo = 16, sbo = 1024;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of registers that an asynchronous
+// wgmma reads or writes across its issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int p = 0; p < D / PANEL; ++p) {
-    tma_load(ks + p * BK * 128, tk, bar, p * PANEL, j * BK, hkv, b);
-    tma_load(vs + p * BK * 128, tv, bar, p * PANEL, j * BK, hkv, b);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+#define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D16 D8(0), D8(8)
+#define D32 D16, D8(16), D8(24)
+#define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+    "%30, %31}"
+#define R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+    "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+    "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+    "%60, %61, %62, %63}"
+
+// d (64 x 32, f32) (+)= A (64 x 8, shared) * B (8 x 32, shared), both K-major
+// TF32; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : D16 : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) (+)= A (64 x 8, registers) * B (8 x N, shared, K-major), TF32.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : D32 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef D8
+#undef D16
+#undef D32
+#undef D64
+#undef R16
+#undef R32
+#undef R64
+
+// ---- the kernel -------------------------------------------------------------
+
+// Each of n4 16-byte chunks of x becomes its hi; its lo goes to lo.
+__device__ __forceinline__ void split_tile(float4* x, float4* lo, int n4, int tid) {
+  for (int i = tid; i < n4; i += THREADS) {
+    const float4 v = x[i];
+    const tf32x3::Split a = tf32x3::split(v.x), b = tf32x3::split(v.y),
+                        c = tf32x3::split(v.z), e = tf32x3::split(v.w);
+    x[i] = make_float4(__uint_as_float(a.hi), __uint_as_float(b.hi),
+                       __uint_as_float(c.hi), __uint_as_float(e.hi));
+    lo[i] = make_float4(__uint_as_float(a.lo), __uint_as_float(b.lo),
+                        __uint_as_float(c.lo), __uint_as_float(e.lo));
+  }
+}
+
+// This thread's share of V tile k0 (keys past S read as 0).  Chunk c of
+// V^T row n holds k-slots 4c .. 4c + 3, which are keys 8 (c / 2) + c % 2 +
+// {0, 2, 4, 6}: slot t of an 8-key group takes key 2t, slot t + 4 key 2t + 1.
+template <int D>
+__device__ __forceinline__ void load_v(float (&vr)[Smem<D>::V_ITEMS][4],
+                                       const float* __restrict__ vh, long long vst,
+                                       int k0, int S, int tid) {
+#pragma unroll
+  for (int r = 0; r < Smem<D>::V_ITEMS; ++r) {
+    const int idx = tid + THREADS * r;
+    const int n = idx % D, c = idx / D;
+    const int key = k0 + 8 * (c / 2) + c % 2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      vr[r][e] = key + 2 * e < S ? __ldg(vh + (long long)(key + 2 * e) * vst + n) : 0.f;
+  }
+}
+
+// V^T (D rows of 32 k-slots, one 128-byte swizzled line each) as hi and lo.
+// Eight neighbouring lanes write eight rows: one chunk per bank group.
+template <int D>
+__device__ __forceinline__ void store_vt(const float (&vr)[Smem<D>::V_ITEMS][4],
+                                         float* vhi, float* vlo, int tid) {
+#pragma unroll
+  for (int r = 0; r < Smem<D>::V_ITEMS; ++r) {
+    const int idx = tid + THREADS * r;
+    const int n = idx % D, c = idx / D;
+    const int off = n * PANEL + ((c ^ (n % 8)) * 4);
+    const tf32x3::Split a = tf32x3::split(vr[r][0]), b = tf32x3::split(vr[r][1]),
+                        cc = tf32x3::split(vr[r][2]), e = tf32x3::split(vr[r][3]);
+    *reinterpret_cast<float4*>(vhi + off) =
+        make_float4(__uint_as_float(a.hi), __uint_as_float(b.hi),
+                    __uint_as_float(cc.hi), __uint_as_float(e.hi));
+    *reinterpret_cast<float4*>(vlo + off) =
+        make_float4(__uint_as_float(a.lo), __uint_as_float(b.lo),
+                    __uint_as_float(cc.lo), __uint_as_float(e.lo));
   }
 }
 
@@ -161,34 +283,39 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       float* __restrict__ out, long long osb, long long osh,
-                       long long ost, int H, int Hkv, int T, int S, float scale,
-                       int causal) {
+                       const float* __restrict__ v, long long vsb, long long vsh,
+                       long long vst, float* __restrict__ out, long long osb,
+                       long long osh, long long ost, int H, int Hkv, int T, int S,
+                       float scale, int causal) {
   using L = Smem<D>;
-  constexpr int NT = D / 8;                          // n-tiles of O
+  constexpr int NMAIN = D / 64;                      // hi*hi chains of 8 k-steps
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const float* qs = reinterpret_cast<const float*>(base);
   const uint32_t sq = smem_u32(base);
-  const uint32_t skv = sq + L::Q_BYTES;
+  const uint32_t sqlo = sq + L::QLO_OFF;
+  const uint32_t sk = sq + L::K_OFF, sklo = sq + L::KLO_OFF;
+  const uint32_t svhi = sq + L::VHI_OFF, svlo = sq + L::VLO_OFF;
   const uint32_t bar_q = sq + L::BAR_OFF;
-  const uint32_t bar_kv = bar_q + 8;                 // one per stage
+  const uint32_t bar_k = bar_q + 8;                  // one per stage
+  float* vhi = reinterpret_cast<float*>(base + L::VHI_OFF);
+  float* vlo = reinterpret_cast<float*>(base + L::VLO_OFF);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hkv = h / (H / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q tiles first
   const int kend = causal ? min(S, min(q0 + BQ, T)) : S;
   const int ntiles = (kend + BK - 1) / BK;
+  const float* vh = v + b * vsb + hkv * vsh;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < STAGES; ++s) mbar_init(bar_kv + 8 * s, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar_k + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -197,76 +324,104 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int p = 0; p < D / PANEL; ++p)
       tma_load(sq + p * BQ * 128, &tq, bar_q, p * PANEL, q0, h, b);
-    load_kv<D>(&tk, &tv, skv, bar_kv, 0, hkv, b);
+    mbar_expect_tx(bar_k, L::K_BYTES);
+#pragma unroll
+    for (int p = 0; p < D / PANEL; ++p)
+      tma_load(sk + p * BK * 128, &tk, bar_k, p * PANEL, 0, hkv, b);
   }
+  float vr[L::V_ITEMS][4];
+  load_v<D>(vr, vh, vst, 0, S, tid);
 
-  const int row0 = 16 * warp;                        // the warp's first row in the tile
-  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
-  const int warp_last = q0 + row0 + 15;
+  // this thread's rows (block-relative) and key pair within each 8 keys
+  const int r0 = 64 * wg + 16 * warp + lane / 4;
+  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+  const int cq = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
 
-  float o[NT][4];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
+  split_tile(reinterpret_cast<float4*>(base), reinterpret_cast<float4*>(base + L::QLO_OFF),
+             L::Q_BYTES / 16, tid);
   for (int j = 0; j < ntiles; ++j) {
     const int st = j % STAGES;
     const int k0 = j * BK;
-    // the stage of tile j + 1 was released by the __syncthreads closing
-    // iteration j - 1
-    if (tid == 0 && j + 1 < ntiles) load_kv<D>(&tk, &tv, skv, bar_kv, j + 1, hkv, b);
-    mbar_wait(bar_kv + 8 * st, (j / STAGES) & 1);
-    if (!causal || k0 <= warp_last) {                // else every score is masked
-      const float* ks = reinterpret_cast<const float*>(base + L::Q_BYTES +
-                                                       st * L::STAGE_BYTES);
-      const float* vs = ks + BK * D;
+    const uint32_t ks = sk + st * L::K_BYTES;
+    // ---- split K tile j in place (lo to its twin) and write V^T tile j ----
+    mbar_wait(bar_k + 8 * st, (j / STAGES) & 1);
+    split_tile(reinterpret_cast<float4*>(base + L::K_OFF + st * L::K_BYTES),
+               reinterpret_cast<float4*>(base + L::KLO_OFF), L::K_BYTES / 16, tid);
+    store_vt<D>(vr, vhi, vlo, tid);
+    fence_proxy_async();
+    __syncthreads();
+    // stage (j + 1) % 2 was last read by tile j - 1, whose products are done
+    if (tid == 0 && j + 1 < ntiles) {
+      const int sn = (j + 1) % STAGES;
+      mbar_expect_tx(bar_k + 8 * sn, L::K_BYTES);
+#pragma unroll
+      for (int p = 0; p < D / PANEL; ++p)
+        tma_load(sk + sn * L::K_BYTES + p * BK * 128, &tk, bar_k + 8 * sn, p * PANEL,
+                 k0 + BK, hkv, b);
+    }
+    if (j + 1 < ntiles) load_v<D>(vr, vh, vst, k0 + BK, S, tid);  // in flight meanwhile
 
-      // ---- S = Q K^T (16 x 32 per warp), one 32-wide panel of d at a time ----
-      float s[BK / 8][4] = {};
-#pragma unroll 1
-      for (int pn = 0; pn < D / PANEL; ++pn) {
-        const float* qp = qs + pn * BQ * PANEL;
-        const float* kp = ks + pn * BK * PANEL;
-        float part[BK / 8][4] = {};
-#pragma unroll 1
-        for (int kq = 0; kq < PANEL / 8; ++kq) {     // columns 8 kq + t and + 4
-          const int c0 = swz<BQ>(row0 + g, 8 * kq + t);
-          const int c1 = swz<BQ>(row0 + g, 8 * kq + t + 4);
-          const tf32x3::FragA fa = tf32x3::split_a(
-              qp[c0], qp[c0 + 8 * PANEL], qp[c1], qp[c1 + 8 * PANEL]);
-          tf32x3::Split b0[BK / 8], b1[BK / 8];
+    if (!causal || k0 <= wg_last) {                  // else every score is masked
+      // ---- S = Q K^T (64 x 32 per warpgroup): small passes, then hi*hi ----
+      float sc[BK / 2], sm[NMAIN][BK / 2];
+      fence_regs(sc);
 #pragma unroll
-          for (int n = 0; n < BK / 8; ++n) {
-            b0[n] = tf32x3::split(kp[swz<BK>(8 * n + g, 8 * kq + t)]);
-            b1[n] = tf32x3::split(kp[swz<BK>(8 * n + g, 8 * kq + t + 4)]);
-          }
-          tf32x3::mma3(part, fa, b0, b1);
-        }
+      for (int c = 0; c < NMAIN; ++c) fence_regs(sm[c]);
+      wgmma_fence();
+      // panel kk / 4, 32 bytes (8 values) along the swizzled row per step
+      const uint64_t dq = sw128_desc(sq + wg * 64 * 128);
+      const uint64_t dqlo = sw128_desc(sqlo + wg * 64 * 128);
+      const uint64_t dk = sw128_desc(ks), dklo = sw128_desc(sklo);
+#define QO(kk) ((((kk) / 4) * BQ * 128 + ((kk) % 4) * 32) >> 4)
+#define KO(kk) ((((kk) / 4) * BK * 128 + ((kk) % 4) * 32) >> 4)
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
+      for (int kk = 0; kk < D / 8; ++kk) {
+        wgmma_ss(sc, dqlo + QO(kk), dk + KO(kk), kk > 0);
+        wgmma_ss(sc, dq + QO(kk), dklo + KO(kk), 1);
+      }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_ss(sm[kk / 8], dq + QO(kk), dk + KO(kk), kk % 8 > 0);
+#undef QO
+#undef KO
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+#pragma unroll
+      for (int c = 0; c < NMAIN; ++c) fence_regs(sm[c]);
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = sm[0][i];
+#pragma unroll
+        for (int c = 1; c < NMAIN; ++c) x += sm[c][i];
+        s[i] = x + sc[i];
       }
 
       // ---- online softmax on the accumulator fragment ----
-      const bool need_mask = k0 + BK > S || (causal && k0 + BK - 1 > q0 + row0);
+      const bool need_mask = k0 + BK > S || (causal && k0 + BK - 1 > wg_first);
       float alpha[2];
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         float mx = -CUDART_INF_F;
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
+        for (int n8 = 0; n8 < BK / 8; ++n8)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float x = s[n][2 * hr + e] * scale;
+            const int i = 4 * n8 + 2 * hr + e;
+            float x = s[i] * scale;
             if (need_mask) {
-              const int kpos = k0 + 8 * n + 2 * t + e;
+              const int kpos = k0 + 8 * n8 + cq + e;
               if (kpos >= S || (causal && kpos > qpos[hr])) x = -CUDART_INF_F;
             }
-            s[n][2 * hr + e] = x;
+            s[i] = x;
             mx = fmaxf(mx, x);
           }
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -275,40 +430,54 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         alpha[hr] = expf(m[hr] - m_new);
         float rsum = 0.f;
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
+        for (int n8 = 0; n8 < BK / 8; ++n8)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float pv = expf(s[n][2 * hr + e] - m_new);   // exactly 0 where masked
-            s[n][2 * hr + e] = pv;
-            rsum += pv;
+            const int i = 4 * n8 + 2 * hr + e;
+            s[i] = expf(s[i] - m_new);          // exactly 0 where masked
+            rsum += s[i];
           }
-        l[hr] = l[hr] * alpha[hr] + rsum;    // this thread's columns; quad sum at the end
+        l[hr] = l[hr] * alpha[hr] + rsum;       // this thread's keys; quad sum at the end
         m[hr] = m_new;
       }
 
-      // ---- O = O * alpha + P V: A slot t <- key 2t, slot t + 4 <- key 2t + 1 ----
+      // ---- part = P V (three passes), o = o * alpha + part ----
+      // A slot t <- key 2t, slot t + 4 <- key 2t + 1: {s0, s2, s1, s3} per group
+      uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
-      for (int n0 = 0; n0 < NT; n0 += NG) {
-        float part[NG][4] = {};
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const int perm[4] = {0, 2, 1, 3};
 #pragma unroll
-        for (int kg = 0; kg < BK / 8; ++kg) {
-          const tf32x3::FragA pa = tf32x3::split_a(s[kg][0], s[kg][2], s[kg][1], s[kg][3]);
-          tf32x3::Split b0[NG], b1[NG];
-#pragma unroll
-          for (int n = 0; n < NG; ++n) {
-            b0[n] = tf32x3::split(vs[swz<BK>(8 * kg + 2 * t, 8 * (n0 + n) + g)]);
-            b1[n] = tf32x3::split(vs[swz<BK>(8 * kg + 2 * t + 1, 8 * (n0 + n) + g)]);
-          }
-          tf32x3::mma3(part, pa, b0, b1);
+        for (int e = 0; e < 4; ++e) {
+          const tf32x3::Split x = tf32x3::split(s[4 * kk + perm[e]]);
+          ph[kk][e] = x.hi;
+          pl[kk][e] = x.lo;
         }
-#pragma unroll
-        for (int n = 0; n < NG; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[n0 + n][e] = fmaf(o[n0 + n][e], alpha[e / 2], part[n][e]);
       }
+      float part[D / 2];
+      fence_regs(part);
+      fence_regs(ph);
+      fence_regs(pl);
+      const uint64_t dvhi = sw128_desc(svhi), dvlo = sw128_desc(svlo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)       // 8 k-slots (32 bytes) a step
+        wgmma_rs(part, pl[kk], dvhi + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wgmma_rs(part, ph[kk], dvlo + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wgmma_rs(part, ph[kk], dvhi + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(ph);
+      fence_regs(pl);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i / 2) % 2], part[i]);
     }
-    __syncthreads();                          // stage st is free for tile j + 2
+    __syncthreads();                          // K lo and V^T are free for tile j + 1
   }
 
   // ---- epilogue: o / l ----
@@ -321,9 +490,11 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     const float den = lt > 0.f ? lt : 1.f;
     float* orow = out + b * osb + h * osh + (long long)qpos[hr] * ost;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
-          make_float2(o[n][2 * hr] / den, o[n][2 * hr + 1] / den);
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int i = 4 * n8 + 2 * hr;
+      *reinterpret_cast<float2*>(orow + 8 * n8 + cq) =
+          make_float2(o[i] / den, o[i + 1] / den);
+    }
   }
 }
 
@@ -372,16 +543,18 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
 }
 
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* out, long long osb, long long osh, long long ost, int B, int H,
-           int Hkv, int T, int S, float scale, int causal, cudaStream_t stream) {
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const void* v,
+           long long vsb, long long vsh, long long vst, void* out, long long osb,
+           long long osh, long long ost, int B, int H, int Hkv, int T, int S,
+           float scale, int causal, cudaStream_t stream) {
   const int smem = Smem<D>::BYTES;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attn_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (T + BQ - 1) / BQ);
   flash_attn_tf32_kernel<D><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, (float*)out, osb, osh, ost, H, Hkv, T, S, scale, causal);
+      tq, tk, (const float*)v, vsb, vsh, vst, (float*)out, osb, osh, ost, H, Hkv,
+      T, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -401,13 +574,14 @@ extern "C" int flash_attn_tf32_launch(
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -999;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk;
   CUresult r = make_map(enc, &tq, q, d, T, H, B, qst, qsh, qsb, BQ);
   if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, d, S, Hkv, B, kst, ksh, ksb, BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, d, S, Hkv, B, vst, vsh, vsb, BK);
   if (r != CUDA_SUCCESS) return -(int)r;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64)
-    return launch<64>(tq, tk, tv, out, osb, osh, ost, B, H, Hkv, T, S, scale, causal, st);
-  return launch<128>(tq, tk, tv, out, osb, osh, ost, B, H, Hkv, T, S, scale, causal, st);
+    return launch<64>(tq, tk, v, vsb, vsh, vst, out, osb, osh, ost, B, H, Hkv, T, S,
+                      scale, causal, st);
+  return launch<128>(tq, tk, v, vsb, vsh, vst, out, osb, osh, ost, B, H, Hkv, T, S,
+                     scale, causal, st);
 }

@@ -36,7 +36,7 @@
 //   parent needs no restaging) and are split in registers.  The operator
 //   comes split: W_split (8, K, K, 4) holds [re_hi, re_lo, im_hi, im_lo]
 //   of each entry, made once per operator on the device (kernels/m2l.py:
-//   split_operator, cached beside the operator in kernels/ops.py), so a B
+//   split_operator, cached per operator tensor by cached_split), so a B
 //   element is one 8-byte load of its hi and lo.
 // - W_split streams through a 3-stage ring of pieces, each KC = 4 k-steps
 //   (16 rows a) of one offset, 17 KB at p = 17: one thread issues a bulk

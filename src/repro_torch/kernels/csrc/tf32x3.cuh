@@ -16,13 +16,14 @@
 // CPU model of this arithmetic is kernels/tf32.py.  Valid for finite
 // |x| < 2^128 (1 - 2^-12): above that hi would round to infinity.
 //
-// The products use the warp-level mma.sync.m16n8k8 TF32 instruction, whose
-// A and B fragments come from registers: each kernel loads them from shared
-// memory with its own addressing (shifted windows for M2L, a permuted V for
-// flash attention) and splits them in registers (M2L's operator, reused by
-// every block, comes split once).  The core's f32 accumulation truncates,
-// so the error grows with the passes summed in one fragment: the kernels
-// sum a few k-steps in a zeroed fragment and add it to f32 registers.
+// csrc/flash_attn_tf32.cu uses only split(): its products are wgmma, with
+// hi and lo tiles in shared memory.  M2L's products use the warp-level
+// mma.sync.m16n8k8 TF32 instruction below, whose A and B fragments come
+// from registers: the kernel loads them from shared memory at its shifted
+// windows and splits them in registers (the operator, reused by every
+// block, comes split once).  The core's f32 accumulation truncates, so the
+// error grows with the passes summed in one accumulator: both kernels sum
+// a few k-steps in a zeroed accumulator and add it to f32 registers.
 // Fragment layout, for g = lane / 4, t = lane % 4:
 //   A (16 x 8, row-major):  a0 = A[g][t],   a1 = A[g+8][t],
 //                           a2 = A[g][t+4], a3 = A[g+8][t+4]

@@ -17,9 +17,10 @@ tensor-core passes.  The kernel runs the complex product as one real
 product on the interleaved (re, im) view, on ``mma.sync`` TF32 tensor-core
 instructions with a 3xTF32 split (f32 accuracy, no single TF32 pass): a
 block stages its ``(8+2, 8+2, 4p)`` halo tile once and streams the split
-operator (:func:`split_operator`, made once per operator) through a ring
-of bulk async copies; the 8 offsets accumulate in registers.  See
-``csrc/m2l.cu``.
+operator (:func:`split_operator`) through a ring of bulk async copies; the
+8 offsets accumulate in registers.  See ``csrc/m2l.cu``.  The split is
+cached per operator tensor (:func:`cached_split`), so each operator that
+``ops.folded_operator`` caches is split once.
 
 ``m2l_plain`` is the same function in plain PyTorch.
 """
@@ -28,6 +29,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import expansions as ex
 from . import _build, tf32
@@ -36,6 +38,8 @@ MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_P = 32          # the kernel's register tile: 16 n-tiles per warp
 
 LAUNCHES = 0        # kernel launches since the last reset
+
+_SPLITS = WeakIdKeyDictionary()   # operator tensor -> its split_operator form
 
 
 def m2l_plain(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -54,6 +58,16 @@ def split_operator(W: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi[..., 0], lo[..., 0], hi[..., 1], lo[..., 1]], dim=-1)
 
 
+def cached_split(W: torch.Tensor) -> torch.Tensor:
+    """:func:`split_operator` of ``W``, made on the first call for this
+    tensor and kept while it lives.  Operators are never changed in place
+    (``ops.folded_operator`` shares one tensor among all its callers)."""
+    Ws = _SPLITS.get(W)
+    if Ws is None:
+        Ws = _SPLITS[W] = split_operator(W)
+    return Ws
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("m2l")
     if lib.m2l_launch.argtypes is None:
@@ -65,14 +79,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def m2l_cuda(stack: torch.Tensor, W: torch.Tensor,
-             W_split: torch.Tensor | None = None) -> torch.Tensor:
+def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`.
-
-    ``W_split`` is ``split_operator(W)``; a caller that applies one
-    operator many times passes it (``ops.split_operator`` caches it),
-    otherwise it is made here.
-    """
+    The kernel reads ``W`` in its split form, :func:`cached_split`."""
     global LAUNCHES
     for name, t in (("stack", stack), ("W", W)):
         if not t.is_cuda:
@@ -96,12 +105,7 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor,
     if smem < 0 or smem > MAX_SMEM:
         raise ValueError(f"p={p} exceeds the kernel's shared-memory limit: "
                          f"p <= {MAX_P}")
-    if W_split is None:
-        W_split = split_operator(W)
-    if (tuple(W_split.shape) != (8, K, K, 4) or W_split.dtype != torch.float32
-            or not W_split.is_contiguous() or W_split.device != stack.device):
-        raise ValueError(f"W_split must be the contiguous (8, {K}, {K}, 4) "
-                         f"float32 split of W on {stack.device}")
+    W_split = cached_split(W)
     PR, PC = stack.shape[0] - 2, stack.shape[1] - 2
     out = torch.empty((PR, PC, K), dtype=torch.complex64, device=stack.device)
     stream = torch.cuda.current_stream(stack.device).cuda_stream

@@ -34,13 +34,11 @@ def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, eq=None):
     return _p2p.p2p_cuda(z_halo, q_halo, mask_halo, sigma)
 
 
-def m2l_contract(stack: torch.Tensor, W: torch.Tensor,
-                 W_split: torch.Tensor | None = None) -> torch.Tensor:
-    """The folded contraction on the stack's device; ``W_split`` is the
-    kernel's form of ``W`` (made per call when not given)."""
+def m2l_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """The folded contraction on the stack's device."""
     if stack.device.type == "cpu":
         return _m2l.m2l_plain(stack, W)
-    return _m2l.m2l_cuda(stack, W, W_split)
+    return _m2l.m2l_cuda(stack, W)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,26 +48,16 @@ def folded_operator(eq, p: int, level: int, device: torch.device) -> torch.Tenso
                            device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def split_operator(eq, p: int, level: int, device: torch.device) -> torch.Tensor:
-    """The M2L kernel's 3xTF32 form of ``folded_operator``, made once."""
-    return _m2l.split_operator(folded_operator(eq, p, level, device))
-
-
 def m2l_apply_slab(me_halo, level: int, p: int, row0: int = 0,
                    halo: int = ex.M2L_HALO, col0: int = 0, col_halo: int = 0,
                    eq=None):
     """Parity-folded M2L over a halo'd row slab or 2-D tile; ``col_halo>0``
     means column ghosts are attached too."""
     eq = eqs.get_equation(eq)
-    dev = me_halo.device
-    contract = m2l_contract
-    if dev.type != "cpu":
-        contract = functools.partial(m2l_contract,
-                                     W_split=split_operator(eq, p, level, dev))
     return ex.m2l_folded(me_halo, level, p, row0=row0, halo=halo, col0=col0,
-                         col_halo=col_halo, op=folded_operator(eq, p, level, dev),
-                         scale=eq.m2l_scale(level), contract=contract)
+                         col_halo=col_halo,
+                         op=folded_operator(eq, p, level, me_halo.device),
+                         scale=eq.m2l_scale(level), contract=m2l_contract)
 
 
 def m2l_apply(me, level: int, p: int, eq=None):

@@ -46,7 +46,9 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def probe(x: torch.Tensor) -> torch.Tensor:
     """What one TF32 tensor-core pass reads of each element of the CUDA f32
-    vector ``x`` (``x[i] * 1`` through ``mma.sync``)."""
+    vector ``x`` (``x[i] * 1`` through ``mma.sync``).  The probe kernel is
+    ``tf32x3::probe_kernel``, exported by the M2L library (``csrc/m2l.cu``),
+    so this loads ``m2l``."""
     if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 1:
         raise ValueError("probe takes a 1-D float32 CUDA tensor")
     lib = _build.load("m2l")

@@ -160,7 +160,7 @@ def test_m2l_cuda_rejects_cpu_tensors():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("PR,PC", [(2, 2), (3, 3), (7, 9), (8, 8), (17, 5), (13, 11)])
-@pytest.mark.parametrize("p", [8, 17])
+@pytest.mark.parametrize("p", [8, 17, 24, 32])   # each register tile of the kernel
 def test_m2l_kernel_matches_plain(cuda, PR, PC, p):
     rng = np.random.default_rng(PR * 31 + PC + p)
     K = 4 * p
@@ -196,6 +196,9 @@ def test_m2l_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="complex64"):
         m2l.m2l_cuda(stack.to(torch.complex128),
                      torch.zeros((8, 32, 32), dtype=torch.complex64, device=cuda))
+    big = torch.zeros((4, 4, 4 * 33), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match=f"p <= {m2l.MAX_P}"):
+        m2l.m2l_cuda(big, torch.zeros((8, 132, 132), dtype=torch.complex64, device=cuda))
 
 
 @pytest.mark.gpu

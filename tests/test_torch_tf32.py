@@ -104,6 +104,18 @@ def test_split_operator_holds_each_entry_as_hi_and_lo():
         m2l.split_operator(W.to(torch.complex128))
 
 
+def test_cached_split_is_made_once_per_operator_tensor():
+    rng = np.random.default_rng(6)
+    W = torch.as_tensor(rng.normal(size=(8, 8, 8)) + 1j * rng.normal(size=(8, 8, 8)),
+                        dtype=torch.complex64)
+    Ws = m2l.cached_split(W)
+    assert m2l.cached_split(W) is Ws
+    assert torch.equal(Ws, m2l.split_operator(W))
+    other = W.clone()
+    assert m2l.cached_split(other) is not Ws
+    assert torch.equal(m2l.cached_split(other), Ws)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic, modelled, against the reference
 # ---------------------------------------------------------------------------
