@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
 2. kernels  — P2P and M2L (3xTF32 tensor cores) against their plain
               PyTorch versions on the card at the FMM path's shapes (N =
               765,625 Lamb-Oseen lattice, level 10 and level 2, p = 17, 8
-              slots), with CUDA-event times and the bound;
+              slots), with CUDA-event times and the bound; P2P also on the
+              same tree with holes punched in its masks, both routes timed;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
@@ -23,20 +24,23 @@ Phases, each printing one JSON line:
               memory;
 5. attn_vs_plain — the three flash-attention kernels against their
               plain version.  The bf16 tensor-core kernel at Yi-6B's
-              prefill shape (4, 32, 4, 2048, 128) causal and at ragged T = S
-              (77, 1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H,
-              d 64 and 128, T = 1; the 3xTF32 kernel in f32 at the prefill
+              prefill shape (4, 32, 4, 2048, 128) causal, at
+              recurrentgemma-2b's attention (4, 10, 1, 2048, 256) bf16
+              causal through ``ops.flash_attention`` (the d = 256 main path:
+              one ``tc`` launch and no other), and at ragged T = S (77,
+              1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H, d 64,
+              128 and 256, T = 1; the 3xTF32 kernel in f32 at the prefill
               shape, ragged T = S (1000, 2079), T < S, T > S, non-causal,
-              Hkv 1, d 64 and T = 1; the SIMT kernel at recurrentgemma-2b's attention (4, 10,
-              1, 2048, 256) bf16 causal through ``ops.flash_attention`` (its
-              main path: the launch counts of that one call are its
-              ``launches``), f32 at d 64 and 32 and a bf16 d = 40 case.  Rel
-              L2 gates 1e-5 (f32) and 5e-3 (bf16: output rounding alone is
-              2e-3, the tensor-core kernel's bf16 P about 2e-3).  At the
-              timed shapes: kernel, plain, bound and SDPA (yardstick)
-              milliseconds; both tensor-core kernels also on the model's
-              strided views (gated as the contiguous inputs are), and the
-              SIMT kernel on the same inputs (its time before the
+              Hkv 1, d 64 and T = 1; the SIMT kernel at recurrentgemma-2b's
+              attention in f32 through ``ops.flash_attention`` (its main
+              path: one ``simt`` launch and no other), the same attention
+              in bf16 on the kernel itself, f32 at d 64 and 32 and a bf16
+              d = 40 case.  Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
+              rounding alone is 2e-3, the tensor-core kernel's bf16 P about
+              2e-3).  At the timed shapes: kernel, plain, bound and SDPA
+              (yardstick) milliseconds; the tensor-core routes also on the
+              model's strided views (gated as the contiguous inputs are),
+              and the SIMT kernel on the same inputs (its time before the
               tensor-core routes);
 6. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
@@ -59,8 +63,9 @@ Phases, each printing one JSON line:
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, ``step_all`` in phases 6 and 7 for the tensor-core flash
-kernels, phase 5's recurrentgemma-2b call for the SIMT one) and read right
-after it: every kernel must have run there.  Then come the card's
+kernels, phase 5's two recurrentgemma-2b calls for the bf16 tensor-core
+kernel at d = 256 and the SIMT one) and read right after it: every kernel
+must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -113,10 +118,23 @@ SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# recurrentgemma-2b (arXiv:2402.19427; src/repro/configs/recurrentgemma_2b.py):
+# 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
+# 4 x 2048 tokens; the port's full-width head dim 256
+RG_ATTN = (4, 10, 1, 2048, 2048, 256, True)
 # (B, H, Hkv, T, S, d, causal, dtype); the first of each is the shape of its
-# main path, the only timed case: the serve phases' prefill (Yi-6B, 4 x 2048)
-# for the tensor-core kernels, recurrentgemma-2b's attention for the SIMT one
+# main path, timed: the serve phases' prefill (Yi-6B, 4 x 2048) for the
+# tensor-core kernels, recurrentgemma-2b's attention in f32 for the SIMT
+# one; the bf16 tensor-core kernel's second case, recurrentgemma-2b's
+# attention in bf16, is its d = 256 main path, timed too
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
+            (*RG_ATTN, torch.bfloat16),
+            (2, 4, 4, 77, 77, 256, True, torch.bfloat16),
+            (1, 4, 1, 2079, 2079, 256, True, torch.bfloat16),
+            (1, 4, 2, 100, 300, 256, True, torch.bfloat16),
+            (1, 4, 2, 300, 100, 256, True, torch.bfloat16),
+            (2, 4, 4, 200, 333, 256, False, torch.bfloat16),
+            (1, 2, 2, 1, 1, 256, True, torch.bfloat16),
             (2, 4, 4, 77, 77, 128, True, torch.bfloat16),
             (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),
             (1, 4, 1, 2079, 2079, 128, True, torch.bfloat16),
@@ -132,10 +150,8 @@ TF32_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
               (1, 4, 2, 300, 100, 64, True, torch.float32),
               (2, 4, 4, 200, 333, 128, False, torch.float32),
               (1, 2, 2, 1, 1, 64, True, torch.float32)]
-# recurrentgemma-2b (arXiv:2402.19427; src/repro/configs/recurrentgemma_2b.py):
-# 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
-# 4 x 2048 tokens; the first full-width head dim the port's SIMT kernel serves
-SIMT_CASES = [(4, 10, 1, 2048, 2048, 256, True, torch.bfloat16),
+SIMT_CASES = [(*RG_ATTN, torch.float32),
+              (*RG_ATTN, torch.bfloat16),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
               (1, 2, 2, 64, 192, 32, False, torch.float32),
               (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
@@ -202,27 +218,37 @@ def live_pairs(z_halo, mask_halo) -> int:
     return total
 
 
-def check_p2p(tree, sigma):
+def punch_holes(mask: torch.Tensor, share: float = 0.1) -> torch.Tensor:
+    """``mask`` with about ``share`` of its live slots emptied (seeded), so
+    the live slots of a box are no longer a prefix."""
+    gen = torch.Generator(device=mask.device)
+    gen.manual_seed(1)
+    return mask & (torch.rand(mask.shape, generator=gen, device=mask.device) >= share)
+
+
+def check_p2p(tree, sigma, holes: bool = False):
     pad = (0, 0, 1, 1, 1, 1)
-    zh, qh, mh = F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(tree.mask, pad)
+    m = punch_holes(tree.mask) if holes else tree.mask
+    zh, qh, mh = F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(m, pad)
     got = p2p.p2p_cuda(zh, qh, mh, sigma)
     want = p2p.p2p_plain(zh, qh, mh, sigma)
     torch.cuda.synchronize()
-    m = tree.mask
     err = rel_l2(got[m], want[m])
     max_abs = float((got[m] - want[m]).abs().max())
-    require(bool(torch.isfinite(torch.view_as_real(got[m])).all()), "p2p: non-finite output")
-    require(err <= KERNEL_TOL, f"p2p sigma={sigma}: rel L2 {err} > {KERNEL_TOL}")
+    name = f"p2p sigma={sigma}{' with holes' if holes else ''}"
+    require(bool(torch.isfinite(torch.view_as_real(got[m])).all()), f"{name}: non-finite output")
+    require(bool((got[~m] == 0).all()), f"{name}: a masked target is not 0")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
     ms = cuda_ms(lambda: p2p.p2p_cuda(zh, qh, mh, sigma), iters=20)
     plain_ms = cuda_ms(lambda: p2p.p2p_plain(zh, qh, mh, sigma), iters=3, warmup=1)
     nbytes = 2 * zh.numel() * 8 + mh.numel() + got.numel() * 8
     pairs = live_pairs(zh, mh)
     ops_ = pairs * (P2P_OPS_SINGULAR if sigma is None else P2P_OPS_REGULARIZED)
     b_ms, b_by = bound_ms(nbytes, ops_)
-    return dict(name="p2p", sigma=sigma, shape=list(zh.shape), rel_l2=err,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, live_pairs=pairs, bytes=nbytes, ops=ops_,
-                library_ms=None)
+    return dict(name="p2p", sigma=sigma, holes=holes, live=int(m.sum()),
+                shape=list(zh.shape), rel_l2=err, max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, live_pairs=pairs,
+                bytes=nbytes, ops=ops_, library_ms=None)
 
 
 def check_m2l(me, level, p):
@@ -394,7 +420,7 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
     ve = v.repeat_interleave(H // Hkv, dim=1)
     lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
-    if kernel in (flash_attn.flash_attention_tc, flash_attn.flash_attention_tf32):
+    if flash_attn.route(q, k) in ("tc", "tf32"):
         # the model's (B, T, H, d) -> (B, H, T, d) views, and the SIMT kernel
         # on the same inputs (its time before the tensor-core routes)
         qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
@@ -549,7 +575,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln or "arning" in ln]
+                 if "registers" in ln or "spill" in ln or "arning" in ln
+                 or "entry function" in ln]
              for k, v in reports.items()}
     # what one TF32 pass reads of an operand's low 13 bits (the split's lo
     # goes in with them set)
@@ -570,7 +597,8 @@ def main() -> None:
     n_particles = len(gamma)
     require(n_particles == CONFIG.num_particles, "lattice size mismatch")
     tree0, _ = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
-    p2p_rows = [check_p2p(tree0, sigma), check_p2p(tree0, None)]
+    p2p_rows = [check_p2p(tree0, sigma), check_p2p(tree0, None),
+                check_p2p(tree0, sigma, holes=True), check_p2p(tree0, None, holes=True)]
     me0 = fmm.upward_sweep(tree0, p)
     m2l_rows = [check_m2l(me0[level], level, p), check_m2l(me0[2], 2, p)]
     del me0
@@ -642,23 +670,34 @@ def main() -> None:
     require(TC_CASES[0][:7] == TF32_CASES[0][:7] == prefill_shape
             and (F32_BATCH, F32_PROMPT) == (SERVE_BATCH, SERVE_PROMPT),
             f"timed flash cases differ from the prefill shape {prefill_shape}")
+    require(TC_CASES[1][:7] == SIMT_CASES[0][:7] == SIMT_CASES[1][:7] == RG_ATTN,
+            "recurrentgemma-2b's attention is not the d = 256 cases' shape")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
-                           gen=gen, timed=(i == 0)) for i, case in enumerate(TC_CASES)]
+    # recurrentgemma-2b's attention through the dispatcher, counted: in bf16
+    # the tensor-core kernel's d = 256 main path, in f32 the SIMT kernel's;
+    # the other cases run on each kernel itself
+    tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *TC_CASES[0],
+                           gen=gen, timed=True),
+               check_flash("flash_attn", ops.flash_attention, *TC_CASES[1],
+                           gen=gen, timed=True, main_path=True)]
+    tc_rows += [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
+                            gen=gen, timed=False) for case in TC_CASES[2:]]
     tf32_rows = [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
                              gen=gen, timed=(i == 0)) for i, case in enumerate(TF32_CASES)]
-    # the SIMT kernel's main path: recurrentgemma-2b's attention through
-    # the dispatcher, counted; then its other cases on the kernel itself
     simt_rows = [check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[0],
                              gen=gen, timed=True, main_path=True)]
     simt_rows += [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
                               gen=gen, timed=False) for case in SIMT_CASES[1:]]
     for row in tc_rows + tf32_rows + simt_rows:
         emit({"phase": "attn_vs_plain", **row})
+    require(tc_rows[1]["launches"] == {"tc": 1, "tf32": 0, "simt": 0},
+            f"recurrentgemma-2b attention in bf16 launched {tc_rows[1]['launches']}, "
+            f"expected one tensor-core launch and no other")
     require(simt_rows[0]["launches"] == {"tc": 0, "tf32": 0, "simt": 1},
-            f"recurrentgemma-2b attention launched {simt_rows[0]['launches']}, "
+            f"recurrentgemma-2b attention in f32 launched {simt_rows[0]['launches']}, "
             f"expected one SIMT launch and no other")
+    launches["flash_attn_d256"] = tc_rows[1]["launches"]["tc"]
     launches["flash_attn_simt"] = simt_rows[0]["launches"]["simt"]
     torch.cuda.empty_cache()
 
@@ -703,7 +742,16 @@ def main() -> None:
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43"),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
-              "src/repro/kernels/flash_attn.py:32"),
+              "src/repro/kernels/flash_attn.py:32",
+              launches_counted_in="phase 6: step_all of bf16 Yi-6B (d = 128)",
+              head_dim_256={
+                  k: tc_rows[1][k] for k in (
+                      "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "simt_ms_same_inputs", "strided_ms", "rel_l2", "strided_rel_l2",
+                      "max_abs_err")}
+              | {"launches": launches["flash_attn_d256"],
+                 "launches_counted_in": "phase 5: one ops.flash_attention call at "
+                                        "recurrentgemma-2b's attention, bf16"}),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
               "src/repro/kernels/flash_attn.py:32",
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"]),
@@ -711,7 +759,7 @@ def main() -> None:
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 5: one ops.flash_attention call at "
                                   "recurrentgemma-2b's attention shape "
-                                  "(4, 10, 1, 2048, 2048, 256) bf16 causal"),
+                                  "(4, 10, 1, 2048, 2048, 256) f32 causal"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

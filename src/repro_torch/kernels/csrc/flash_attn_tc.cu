@@ -2,7 +2,8 @@
 // operands, f32 accumulation, GQA, TMA-fed tiles.
 //
 // Replaces the TPU kernel _fa_kernel / flash_attention in
-// src/repro/kernels/flash_attn.py for bf16 q, k, v with head dim 64 or 128.
+// src/repro/kernels/flash_attn.py for bf16 q, k, v with head dim 64, 128 or
+// 256.
 // It computes what csrc/flash_attn.cu and flash_attention_plain compute:
 // out = softmax(q k^T / sqrt(d) + mask) v, where query head h of batch b
 // reads key/value head h / (H / Hkv) (kv_row = (bh / H) * Hkv + (bh % H) /
@@ -16,11 +17,16 @@
 // Bound on an H100 at Yi-6B's prefill shape (B 4, H 32, Hkv 4, T = S = 2048,
 // d 128, causal): 137.5 GFLOP over the visible (query, key) pairs and 151 MB
 // of q, k, v and out, so 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak
-// and 0.045 ms by bytes: operations bound it.  Design, simple first:
+// and 0.045 ms by bytes: operations bound it.  At recurrentgemma-2b's
+// attention (4, 10, 1, 2048, d 256, causal) 85.9 GFLOP, 0.0869 ms.  Design,
+// simple first:
 // - One block of two warpgroups (256 threads) owns one (b, h, 128-row q
 //   tile); each warpgroup owns 64 query rows, wgmma's M.  q tiles launch
-//   heaviest first.  The block loops over 128-key tiles and skips the tiles
-//   wholly above the diagonal.
+//   heaviest first.  The block loops over key tiles of BK = 128 keys (64 at
+//   d = 256, where Q's 64 KB and two stages of 128-key K and V tiles would
+//   be 320 KB of the 227 KB a block may use; 64-key tiles make it 192 KB)
+//   and skips the tiles wholly above the diagonal; with 64-key tiles the
+//   first warpgroup also skips the last tile, which lies above its rows.
 // - TMA loads Q once and K, V tile by tile through 4-D tensor maps over
 //   (d, seq, heads, batch) built from the tensors' own strides, so strided
 //   views need no copy and a ragged T or S is zero-filled per head.  Rows
@@ -28,8 +34,8 @@
 //   go through a 2-stage ring, one mbarrier per stage with its phase bit;
 //   thread 0 issues tile j + 1 before the block computes on tile j.  No
 //   producer warpgroup and no setmaxnreg yet: warp specialisation and
-//   ping-pong scheduling are later work.
-// - S = Q K^T is wgmma m64n128k16 with Q and K read from shared memory,
+//   ping-pong scheduling are later work.  At d = 256 a row is four panels.
+// - S = Q K^T is wgmma m64nBKk16 with Q and K read from shared memory,
 //   both K-major.  The online softmax runs on the accumulator fragment in
 //   f32 with IEEE expf (built without fast math): a thread holds column
 //   pairs of rows warp*16 + lane/4 and + 8, and a row's max takes a quad
@@ -38,12 +44,18 @@
 // - O += P V is wgmma with P from registers: the f32 accumulator layout of
 //   S is the bf16 A-fragment layout, so P packs pairs of floats in place.
 //   V is (keys, d), MN-major for the product: the B-transpose bit is set.
-//   O stays in f32 registers, scaled by alpha per tile; the epilogue divides
+//   At d = 256 the product is two m64n128k16 per 16 keys, one per pair of
+//   V's 64-wide panels (the second at two panels' offset).  O stays in f32
+//   registers (128 a thread at d = 256, with S's 32 and P's 16: no room
+//   for more keys a tile), scaled by alpha per tile; the epilogue divides
 //   by l once, rounds to bf16 and stores rows < T.
 //
 // Layouts: q (B, H, T, d), k and v (B, Hkv, S, d), out (B, H, T, d), each
 // with unit stride in d and any other strides that are multiples of 8
-// elements (16 bytes), 16-byte aligned; bf16; d 64 or 128.
+// elements (16 bytes), 16-byte aligned; bf16; d 64, 128 or 256.  The
+// launch takes the key tile and the shared-memory size that the wrapper
+// computes (kernels/flash_attn.py:tc_launch_config) and refuses a pair that
+// differs from Smem<d>'s.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +65,6 @@
 namespace {
 
 constexpr int BQ = 128;          // query rows per block: two warpgroups of 64
-constexpr int BK = 128;          // keys per tile
 constexpr int THREADS = 256;
 constexpr int PANEL = 64;        // bf16 values per 128-byte swizzled row
 constexpr int STAGES = 2;        // K/V ring depth
@@ -61,6 +72,9 @@ constexpr float NEG_BIG = -1e30f;
 
 template <int D>
 struct Smem {
+  static constexpr int BK = D == 256 ? 64 : 128;       // keys per tile
+  static constexpr int ON = D < 128 ? D : 128;         // O columns per P V product
+  static constexpr int NO = D / ON;                    // P V products per 16 keys
   static constexpr int NP = D / PANEL;                 // panels per row
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;          // one tile of K or of V
@@ -132,6 +146,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -153,10 +172,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
     "%60, %61, %62, %63}"
 
-// d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 128, shared,
+// d (64 x N, f32) (+)= A (64 x 16, shared, K-major) * B (16 x N, shared,
 // K-major); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32 : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
@@ -208,8 +235,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
   mbar_expect_tx(bar, L::STAGE_BYTES);
 #pragma unroll
   for (int p = 0; p < L::NP; ++p) {
-    tma_load(ks + p * BK * 128, tk, bar, p * PANEL, j * BK, hkv, b);
-    tma_load(vs + p * BK * 128, tv, bar, p * PANEL, j * BK, hkv, b);
+    tma_load(ks + p * L::BK * 128, tk, bar, p * PANEL, j * L::BK, hkv, b);
+    tma_load(vs + p * L::BK * 128, tv, bar, p * PANEL, j * L::BK, hkv, b);
   }
 }
 
@@ -222,6 +249,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
                      long long osh, long long ost, int H, int Hkv, int T, int S,
                      float scale, int causal) {
   using L = Smem<D>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -261,9 +289,11 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const int wg_first_row = q0 + 64 * wg;
 
-  float o[D / 2];
+  float o[L::NO][L::ON / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int hh = 0; hh < L::NO; ++hh)
+#pragma unroll
+    for (int i = 0; i < L::ON / 2; ++i) o[hh][i] = 0.f;
   float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
@@ -275,8 +305,14 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && j + 1 < ntiles) load_kv<D>(&tk, &tv, skv, bar_kv, j + 1, hkv, b);
     mbar_wait(bar_kv + 8 * st, (j / STAGES) & 1);
     const uint32_t ks = skv + st * L::STAGE_BYTES, vs = ks + L::KV_BYTES;
+    // a tile wholly above this warpgroup's rows adds nothing (only 64-key
+    // tiles can be: BK == BQ compiles the test away)
+    if (BK < BQ && causal && k0 > wg_first_row + 63) {
+      __syncthreads();                        // stage st is free for tile j + 2
+      continue;
+    }
 
-    // ---- S = Q K^T (64 x 128 per warpgroup) ----
+    // ---- S = Q K^T (64 x BK per warpgroup) ----
     float s[BK / 2];
     fence_regs(s);
     wgmma_fence();
@@ -287,7 +323,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const uint64_t da =
           sw128_desc(sq + (kk / 4) * BQ * 128 + wg * 64 * 128 + off, 16, 1024);
       const uint64_t db = sw128_desc(ks + (kk / 4) * BK * 128 + off, 16, 1024);
-      wgmma_ss_n128(s, da, db, kk > 0);
+      wgmma_ss(s, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -327,10 +363,12 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
       l[hr] = l[hr] * alpha + rsum;           // this thread's columns; quad sum at the end
       m[hr] = m_new;
 #pragma unroll
-      for (int n8 = 0; n8 < D / 8; ++n8) {
-        o[4 * n8 + 2 * hr] *= alpha;
-        o[4 * n8 + 2 * hr + 1] *= alpha;
-      }
+      for (int hh = 0; hh < L::NO; ++hh)
+#pragma unroll
+        for (int n8 = 0; n8 < L::ON / 8; ++n8) {
+          o[hh][4 * n8 + 2 * hr] *= alpha;
+          o[hh][4 * n8 + 2 * hr + 1] *= alpha;
+        }
     }
 
     // ---- O += P V, P from registers in the A-fragment layout ----
@@ -347,7 +385,11 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)   // 16 keys a step; panels BK * 128 B apart
-      wgmma_rs(o, pa[kk], sw128_desc(vs + kk * 16 * 128, BK * 128, 1024), 1);
+#pragma unroll
+      for (int hh = 0; hh < L::NO; ++hh)   // O columns hh * ON.. : panel hh * ON / 64
+        wgmma_rs(o[hh], pa[kk],
+                 sw128_desc(vs + kk * 16 * 128 + hh * (L::ON / PANEL) * BK * 128,
+                            BK * 128, 1024), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -365,11 +407,13 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float den = lt > 0.f ? lt : 1.f;
     __nv_bfloat16* orow = out + b * osb + h * osh + (long long)qpos[hr] * ost;
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8) {
-      const int i = 4 * n8 + 2 * hr;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n8 + cq) =
-          __floats2bfloat162_rn(o[i] / den, o[i + 1] / den);
-    }
+    for (int hh = 0; hh < L::NO; ++hh)
+#pragma unroll
+      for (int n8 = 0; n8 < L::ON / 8; ++n8) {
+        const int i = 4 * n8 + 2 * hr;
+        *reinterpret_cast<__nv_bfloat162*>(orow + hh * L::ON + 8 * n8 + cq) =
+            __floats2bfloat162_rn(o[hh][i] / den, o[hh][i + 1] / den);
+      }
   }
 }
 
@@ -418,10 +462,20 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
 }
 
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* out, long long osb, long long osh, long long ost, int B, int H,
-           int Hkv, int T, int S, float scale, int causal, cudaStream_t stream) {
-  const int smem = Smem<D>::BYTES;
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
+           int Hkv, int T, int S, long long qsb, long long qsh, long long qst,
+           long long ksb, long long ksh, long long kst, long long vsb,
+           long long vsh, long long vst, long long osb, long long osh,
+           long long ost, int bk, int smem, float scale, int causal,
+           cudaStream_t stream) {
+  if (bk != Smem<D>::BK || smem != Smem<D>::BYTES) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return -999;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(enc, &tq, q, D, T, H, B, qst, qsh, qsb, BQ);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, D, S, Hkv, B, kst, ksh, ksb, bk);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, D, S, Hkv, B, vst, vsh, vsb, bk);
+  if (r != CUDA_SUCCESS) return -(int)r;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attn_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -434,26 +488,25 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 }  // namespace
 
 // Strides are in elements, (batch, head, seq) for each tensor; the unit
-// stride of d is implied.  Returns 0, a cudaError_t, or -(CUresult) when a
-// tensor map cannot be encoded (-999: cuTensorMapEncodeTiled is unavailable).
+// stride of d is implied.  bk and smem are the wrapper's key tile and
+// shared-memory bytes, checked against the kernel's.  Returns 0, a
+// cudaError_t, or -(CUresult) when a tensor map cannot be encoded (-999:
+// cuTensorMapEncodeTiled is unavailable).
 extern "C" int flash_attn_tc_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int Hkv, int T, int S, int d, long long qsb, long long qsh, long long qst,
     long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
-    long long vst, long long osb, long long osh, long long ost, float scale,
-    int causal, void* stream) {
-  if ((d != 64 && d != 128) || B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv ||
-      T <= 0 || S <= 0 || (T + BQ - 1) / BQ > 65535 || (long long)B * H > 0x7fffffff)
+    long long vst, long long osb, long long osh, long long ost, int bk,
+    int smem, float scale, int causal, void* stream) {
+  if ((d != 64 && d != 128 && d != 256) || B <= 0 || H <= 0 || Hkv <= 0 ||
+      H % Hkv || T <= 0 || S <= 0 || (T + BQ - 1) / BQ > 65535 ||
+      (long long)B * H > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return -999;
-  CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, d, T, H, B, qst, qsh, qsb, BQ);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, d, S, Hkv, B, kst, ksh, ksb, BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, d, S, Hkv, B, vst, vsh, vsb, BK);
-  if (r != CUDA_SUCCESS) return -(int)r;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return launch<64>(tq, tk, tv, out, osb, osh, ost, B, H, Hkv, T, S, scale, causal, st);
-  return launch<128>(tq, tk, tv, out, osb, osh, ost, B, H, Hkv, T, S, scale, causal, st);
+#define ARGS q, k, v, out, B, H, Hkv, T, S, qsb, qsh, qst, ksb, ksh, kst, vsb, \
+             vsh, vst, osb, osh, ost, bk, smem, scale, causal, st
+  if (d == 64) return launch<64>(ARGS);
+  if (d == 128) return launch<128>(ARGS);
+  return launch<256>(ARGS);
+#undef ARGS
 }

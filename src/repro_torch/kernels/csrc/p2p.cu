@@ -6,95 +6,258 @@
 //   q_j (z_k - z_j) / |z_k - z_j|^2 * (1 - exp(-|z_k - z_j|^2 / (2 sigma^2)))
 // in explicit real/imag arithmetic (EquationSpec.p2p_terms), skipping empty
 // source slots and coincident pairs (r2 > 0).  singular != 0 drops the
-// mollifier.
+// mollifier.  Masked target slots get 0.
 //
-// Bound on an H100: bytes (z, q, mask read once and the output written once,
-// about 210 MB at the paper's size); the arithmetic, one division and one
-// expf per live pair, is far smaller because most slots are empty.  Design:
-// a block owns a BY x BX tile of target boxes and stages the (BY+2) x (BX+2)
-// x s halo tile of z, q and mask into shared memory once, so each source is
-// read from device memory about once instead of nine times; one thread per
-// (target box, slot) accumulates re/im in registers and writes once.  Built
-// without fast math, so expf and the division are the IEEE-accurate forms.
+// Bound on an H100: bytes.  z, q and the mask read once and the output
+// written once are 210 MB at the paper's size (1026 x 1026 halo'd boxes, 8
+// slots), 0.063 ms at 3.35 TB/s; the arithmetic, about 18 FP32 operations
+// on each of the 7.3M live pairs, is a few microseconds, because only 9% of
+// the slots are live (765,625 particles in 8.4M slots).
 //
-// Layouts: z, q complex64 (rows+2, cols+2, s) as float2; mask uint8 (same);
-// out complex64 (rows, cols, s).  Masked target slots get don't-care values.
+// Design: work only on live slots, read each byte about once.
+// - A block owns TY x TX target boxes (16 x 16 at s = 8, smaller tiles for
+//   more slots: kernels/p2p.py:launch_config) and one thread per box of
+//   its (TY+2) x (TX+2) halo tile.  A thread reads its box's mask (8 slots
+//   as one 8-byte load at s = 8) and the z and q of its live slots, so a
+//   dead slot costs no load; a block-wide exclusive scan of the live counts
+//   (warp shuffles, then the warps' sums) gives each box its start, and the
+//   live sources are packed into shared memory as float4 records (x, y,
+//   q.re, q.im) in box order, with each box's start and a (box, slot) tag.
+//   The halo staging reads 1.27x the tile's boxes (1.56x with 8 x 8).
+// - Threads then take only live targets: thread i takes record i of the
+//   tile's inner rows, skips the ghost columns (2 of 18 boxes a row), and
+//   walks the live sources of the 3 neighbour rows of boxes, each row's 3
+//   boxes one contiguous range of records, one 16-byte shared load a source.
+//   Sums stay in registers and go to an output tile in shared memory.
+// - The output tile, zeros in the dead slots, is written in one coalesced
+//   pass (16-byte stores at s = 8), so every element of the output is
+//   written once.
+// The common s = 8, 16 x 16 tile is a template instance with the slot count
+// and the halo width as constants; any other s (up to 256) and tile run the
+// same code with them at run time.  Built without fast math, so expf and
+// the division are the IEEE-accurate forms; each sum visits its sources in
+// stencil order (neighbour rows, boxes, slots).
+//
+// Layouts: z, q complex64 (rows+2, cols+2, s) as float2, 16-byte aligned;
+// mask uint8 (same), 8-byte aligned; out complex64 (rows, cols, s).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void p2p_kernel(const float2* __restrict__ z,
-                           const float2* __restrict__ q,
-                           const uint8_t* __restrict__ m,
-                           float2* __restrict__ out,
-                           int rows, int cols, int s, int BY, int BX,
-                           float two_s2, int singular) {
-  extern __shared__ float2 smem[];
-  const int HX = BX + 2;
-  const int T = (BY + 2) * HX * s;
-  float2* sz = smem;
-  float2* sq = smem + T;
-  uint8_t* sm = reinterpret_cast<uint8_t*>(smem + 2 * T);
+namespace {
 
-  const int r0 = blockIdx.y * BY, c0 = blockIdx.x * BX;
-  const int W = cols + 2;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const int k = t % s, b = t / s;
-    const int gy = r0 + b / HX, gx = c0 + b % HX;
-    float2 zz = make_float2(0.f, 0.f), qq = make_float2(0.f, 0.f);
-    uint8_t mm = 0;
-    if (gy < rows + 2 && gx < W) {
-      const size_t g = ((size_t)gy * W + gx) * s + k;
-      zz = z[g];
-      qq = q[g];
-      mm = m[g];
+constexpr int MAX_WARPS = 32;
+constexpr int MAX_SLOTS = 256;    // a record's tag keeps the slot in 8 bits
+
+// Shared memory of a TY x TX tile with s slots: live-source records sized
+// for every slot live, the output tile, the tags, the boxes' starts and the
+// scan's warp sums.  kernels/p2p.py:smem_bytes is the same sum.
+constexpr int smem_bytes(int ty, int tx, int s) {
+  return (ty + 2) * (tx + 2) * s * 16 + ty * tx * s * 8 +
+         (ty + 2) * (tx + 2) * s * 4 + ((ty + 2) * (tx + 2) + 1) * 4 +
+         MAX_WARPS * 4;
+}
+
+constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+// Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
+// total gets the block's sum.  Leaves the warp sums free for the next call.
+__device__ __forceinline__ int block_excl_scan(int v, int* wsum, int& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
     }
-    sz[t] = zz;
-    sq[t] = qq;
-    sm[t] = mm;
+    wsum[lane] = w;
   }
   __syncthreads();
+  const int before = warp > 0 ? wsum[warp - 1] : 0;
+  total = wsum[nwarps - 1];
+  __syncthreads();
+  return before + x - v;
+}
 
-  const int NT = BY * BX * s;
-  for (int t = threadIdx.x; t < NT; t += blockDim.x) {
-    const int k = t % s, b = t / s;
-    const int by = b / BX, bx = b % BX;
-    const int ty = r0 + by, tx = c0 + bx;
-    if (ty >= rows || tx >= cols) continue;
-    const float2 zt = sz[((by + 1) * HX + (bx + 1)) * s + k];
-    float re = 0.f, im = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const int base = ((by + dy) * HX + (bx + dx)) * s;
-        for (int j = 0; j < s; ++j) {
-          if (!sm[base + j]) continue;
-          const float2 zs = sz[base + j];
-          const float ddx = zt.x - zs.x, ddy = zt.y - zs.y;
-          const float r2 = ddx * ddx + ddy * ddy;
-          if (!(r2 > 0.f)) continue;
-          float inv = 1.f / r2;
-          if (!singular) inv *= 1.f - expf(-r2 / two_s2);
-          const float2 qs = sq[base + j];
-          re += (qs.x * ddx + qs.y * ddy) * inv;
-          im += (qs.y * ddx - qs.x * ddy) * inv;
+// 8 mask bytes -> one bit per nonzero byte, in bit 8j for slot j.
+__device__ __forceinline__ uint64_t live_bytes(uint64_t m8) {
+  m8 |= m8 >> 4;
+  m8 |= m8 >> 2;
+  m8 |= m8 >> 1;
+  return m8 & 0x0101010101010101ull;
+}
+
+// S_, TY_, TX_ > 0: compile-time slots and tile (the s = 8, 16 x 16 case);
+// 0: taken from the arguments.
+template <int S_, int TY_, int TX_>
+__global__ void __launch_bounds__(TY_ ? round32((TY_ + 2) * (TX_ + 2)) : 1024,
+                                  TY_ ? 3 : 1)
+p2p_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
+           const uint8_t* __restrict__ m, float2* __restrict__ out, int rows,
+           int cols, int s_arg, int ty_arg, int tx_arg, float two_s2,
+           int singular) {
+  static_assert(S_ == 0 || S_ == 8, "the compile-time mask load reads 8 slots");
+  const int s = S_ ? S_ : s_arg;
+  const int TY = TY_ ? TY_ : ty_arg, TX = TX_ ? TX_ : tx_arg;
+  const int HX = TX + 2, NB = (TY + 2) * HX;
+  extern __shared__ float4 smem[];
+  float4* rec = smem;                                        // NB * s
+  float2* obuf = reinterpret_cast<float2*>(rec + NB * s);    // TY * TX * s
+  uint32_t* tag = reinterpret_cast<uint32_t*>(obuf + TY * TX * s);
+  int* start = reinterpret_cast<int*>(tag + NB * s);         // NB + 1
+  int* wsum = start + NB + 1;
+
+  const int tid = threadIdx.x;
+  // the tile's first target box; halo row r0, column c0 is its corner ghost
+  const int r0 = blockIdx.y * TY, c0 = blockIdx.x * TX;
+  const int W = cols + 2;
+
+  for (int e = tid; e < TY * TX * s; e += blockDim.x) obuf[e] = make_float2(0.f, 0.f);
+
+  // ---- stage the halo tile's live sources, packed in box order ----
+  int running = 0;
+  for (int base = 0; base < NB; base += blockDim.x) {
+    const int b = base + tid;
+    size_t g = 0;
+    int cnt = 0;
+    uint64_t bits = 0;                   // S_ == 8: bit 8j set if slot j is live
+    float2 zz[S_ ? S_ : 1], qq[S_ ? S_ : 1];
+    if (b < NB) {
+      const int gy = r0 + b / HX, gx = c0 + b % HX;
+      if (gy < rows + 2 && gx < W) {
+        g = ((size_t)gy * W + gx) * s;
+        if constexpr (S_ == 8) {
+          bits = live_bytes(*reinterpret_cast<const unsigned long long*>(m + g));
+          cnt = __popcll(bits);
+        } else {
+          for (int j = 0; j < s; ++j) cnt += m[g + j] != 0;
         }
       }
     }
-    out[((size_t)ty * cols + tx) * s + k] = make_float2(re, im);
+    if constexpr (S_ > 0) {              // issue the loads before the scan
+#pragma unroll
+      for (int j = 0; j < S_; ++j)
+        if ((bits >> (8 * j)) & 1) {
+          zz[j] = z[g + j];
+          qq[j] = q[g + j];
+        }
+    }
+    int total;
+    int k = running + block_excl_scan(cnt, wsum, total);
+    if (b < NB) start[b] = k;
+    if (cnt) {
+      if constexpr (S_ > 0) {
+#pragma unroll
+        for (int j = 0; j < S_; ++j)
+          if ((bits >> (8 * j)) & 1) {
+            rec[k] = make_float4(zz[j].x, zz[j].y, qq[j].x, qq[j].y);
+            tag[k++] = (uint32_t)b << 8 | j;
+          }
+      } else {
+        for (int j = 0; j < s; ++j)
+          if (m[g + j]) {
+            const float2 zj = z[g + j], qj = q[g + j];
+            rec[k] = make_float4(zj.x, zj.y, qj.x, qj.y);
+            tag[k++] = (uint32_t)b << 8 | j;
+          }
+      }
+    }
+    running += total;
+  }
+  if (tid == 0) start[NB] = running;
+  __syncthreads();
+
+  // ---- one thread per live target of the inner rows ----
+  const int lo = start[HX], hi = start[(TY + 1) * HX];
+  for (int k = lo + tid; k < hi; k += blockDim.x) {
+    const uint32_t t = tag[k];
+    const int b = t >> 8, j = t & 0xff;
+    const int hy = b / HX, hx = b - hy * HX;
+    if (hx == 0 || hx == HX - 1) continue;             // a ghost column: source only
+    if (r0 + hy - 1 >= rows || c0 + hx - 1 >= cols) continue;   // past the ragged edge
+    const float4 zt = rec[k];
+    float re = 0.f, im = 0.f;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int row = b + dy * HX;                     // boxes row-1 .. row+1
+      const int end = start[row + 2];
+      for (int i = start[row - 1]; i < end; ++i) {
+        const float4 src = rec[i];
+        const float ddx = zt.x - src.x, ddy = zt.y - src.y;
+        const float r2 = ddx * ddx + ddy * ddy;
+        if (!(r2 > 0.f)) continue;
+        float inv = 1.f / r2;
+        if (!singular) inv *= 1.f - expf(-r2 / two_s2);
+        re += (src.z * ddx + src.w * ddy) * inv;
+        im += (src.w * ddx - src.z * ddy) * inv;
+      }
+    }
+    obuf[((hy - 1) * TX + hx - 1) * s + j] = make_float2(re, im);
+  }
+  __syncthreads();
+
+  // ---- every output element of the tile, coalesced ----
+  const int row_elems = TX * s;                          // per tile row
+  const int ncol = min(TX, cols - c0) * s;               // of them inside the grid
+  if constexpr (S_ > 0 && S_ % 2 == 0) {                 // two slots a 16-byte store
+    const float4* o4 = reinterpret_cast<const float4*>(obuf);
+    for (int e = tid; e < TY * row_elems / 2; e += blockDim.x) {
+      const int ty = 2 * e / row_elems, rem = 2 * e - ty * row_elems;
+      if (r0 + ty < rows && rem < ncol)
+        *reinterpret_cast<float4*>(out + ((size_t)(r0 + ty) * cols + c0) * s + rem) = o4[e];
+    }
+  } else {
+    for (int e = tid; e < TY * row_elems; e += blockDim.x) {
+      const int ty = e / row_elems, rem = e - ty * row_elems;
+      if (r0 + ty < rows && rem < ncol)
+        out[((size_t)(r0 + ty) * cols + c0) * s + rem] = obuf[e];
+    }
   }
 }
 
-extern "C" int p2p_launch(const void* z, const void* q, const void* m, void* out,
-                          int rows, int cols, int s, int BY, int BX,
-                          float two_s2, int singular, int threads,
-                          int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+template <int S_, int TY_, int TX_>
+int launch(const void* z, const void* q, const void* m, void* out, int rows,
+           int cols, int s, int ty, int tx, float two_s2, int singular,
+           int threads, int smem, cudaStream_t stream) {
+  auto kernel = p2p_kernel<S_, TY_, TX_>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((cols + BX - 1) / BX, (rows + BY - 1) / BY);
-  p2p_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+  const dim3 grid((cols + tx - 1) / tx, (rows + ty - 1) / ty);
+  kernel<<<grid, threads, smem, stream>>>(
       (const float2*)z, (const float2*)q, (const uint8_t*)m, (float2*)out,
-      rows, cols, s, BY, BX, two_s2, singular);
+      rows, cols, s, ty, tx, two_s2, singular);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ty x tx target boxes a block, threads and smem as kernels/p2p.py's
+// launch_config gives them; returns 0 or a cudaError_t.
+extern "C" int p2p_launch(const void* z, const void* q, const void* m, void* out,
+                          int rows, int cols, int s, int ty, int tx,
+                          float two_s2, int singular, int threads,
+                          int smem, void* stream) {
+  const int nb = (ty + 2) * (tx + 2);
+  if (rows <= 0 || cols <= 0 || s <= 0 || s > MAX_SLOTS || ty <= 0 || tx <= 0 ||
+      threads % 32 || threads < 32 || threads > 1024 || nb > (1 << 24) ||
+      smem != smem_bytes(ty, tx, s) || (rows + ty - 1) / ty > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s == 8 && ty == 16 && tx == 16 && threads == round32(18 * 18))
+    return launch<8, 16, 16>(z, q, m, out, rows, cols, s, ty, tx, two_s2,
+                             singular, threads, smem, st);
+  return launch<0, 0, 0>(z, q, m, out, rows, cols, s, ty, tx, two_s2, singular,
+                         threads, smem, st);
 }

@@ -10,14 +10,14 @@ q's dtype.  :func:`route` picks one by device, dtype and head dim alone:
 
 - ``"tc"``: ``flash_attention_tc`` launches ``csrc/flash_attn_tc.cu`` on
   Hopper's tensor cores (bf16 ``wgmma``, TMA-fed K/V) for bf16 with
-  d 64 or 128, strided inputs included;
+  d 64, 128 or 256, strided inputs included;
 - ``"tf32"``: ``flash_attention_tf32`` launches
   ``csrc/flash_attn_tf32.cu`` on the TF32 tensor cores with a 3xTF32
   split (f32 accuracy; no single TF32 pass) for f32 with d 64 or 128,
   strided inputs included;
 - ``"simt"``: ``flash_attention_cuda`` launches ``csrc/flash_attn.cu``
-  (FP32 SIMT FMAs) for every other CUDA case: other head dims up to 256,
-  in bf16 or f32;
+  (FP32 SIMT FMAs) for every other CUDA case: other head dims up to 256
+  in bf16 or f32, and f32 at d 256;
 - ``"plain"``: ``flash_attention_plain`` for a CPU tensor.
 
 The causal mask is the TPU kernel's **top-left** one: key ``kpos`` is hidden
@@ -30,6 +30,8 @@ Bound on an H100 at Yi-6B's prefill shape (4, 32, 4, 2048, 128), causal:
 operations, 137.5 GFLOP against 151 MB of traffic in bf16 (302 MB in f32):
 0.139 ms on the bf16 tensor cores, 0.833 ms for the three TF32 passes of
 an f32 product at 495 TFLOP/s (2.05 ms at the 67 TFLOP/s FP32 SIMT peak).
+At recurrentgemma-2b's attention (4, 10, 1, 2048, 256), causal: 85.9
+GFLOP, 0.0869 ms in bf16.
 Design: see the notes in the CUDA sources.
 
 ``flash_attention_plain`` is the same function in plain PyTorch; the CPU
@@ -47,7 +49,9 @@ from . import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-TC_HEAD_DIMS = (64, 128)   # head dims of both tensor-core kernels
+TC_HEAD_DIMS = (64, 128, 256)   # head dims of the bf16 tensor-core kernel
+TF32_HEAD_DIMS = (64, 128)      # head dims of the 3xTF32 tensor-core kernel
+MAX_SMEM = 232_448              # bytes of shared memory one block may use on Hopper
 
 LAUNCHES = 0        # SIMT kernel launches since the last reset
 TC_LAUNCHES = 0     # bf16 tensor-core kernel launches since the last reset
@@ -55,17 +59,31 @@ TF32_LAUNCHES = 0   # 3xTF32 tensor-core kernel launches since the last reset
 
 
 def route(q: torch.Tensor, k: torch.Tensor) -> str:
-    """``"plain"`` for a CPU tensor; for CUDA q and k with d in
-    ``TC_HEAD_DIMS``, ``"tc"`` if both are bf16 and ``"tf32"`` if both are
-    f32; ``"simt"`` for every other CUDA case."""
+    """``"plain"`` for a CPU tensor; for CUDA q and k, ``"tc"`` if both are
+    bf16 with d in ``TC_HEAD_DIMS``, ``"tf32"`` if both are f32 with d in
+    ``TF32_HEAD_DIMS``; ``"simt"`` for every other CUDA case."""
     if q.device.type == "cpu":
         return "plain"
-    if q.shape[-1] in TC_HEAD_DIMS:
-        if q.dtype == k.dtype == torch.bfloat16:
-            return "tc"
-        if q.dtype == k.dtype == torch.float32:
-            return "tf32"
+    d = q.shape[-1]
+    if q.dtype == k.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc"
+    if q.dtype == k.dtype == torch.float32 and d in TF32_HEAD_DIMS:
+        return "tf32"
     return "simt"
+
+
+def tc_launch_config(d: int) -> tuple[int, int, int]:
+    """``(keys per tile, threads, shared-memory bytes)`` of the bf16
+    tensor-core kernel at head dim ``d``, as ``csrc/flash_attn_tc.cu``'s
+    ``Smem<d>`` lays it out (the launch refuses any other pair): a 128-row
+    Q tile and two stages of K and V tiles in bf16, 128 keys a tile (64 at
+    d = 256, where 128 would need 320 KB), 64 bytes of barriers and 1 KB
+    of alignment slack; two warpgroups."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the tensor-core kernel takes d in "
+                         f"{TC_HEAD_DIMS}")
+    bk = 64 if d == 256 else 128
+    return bk, 256, 128 * d * 2 + 2 * (2 * bk * d * 2) + 64 + 1024
 
 
 def _check_shapes(q, k, v):
@@ -154,13 +172,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _tma_lib(name: str) -> ctypes.CDLL:
+def _tma_lib(name: str, n_config: int) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, *[i64] * 12,
-                       ctypes.c_float, i, vp]
+                       *[i] * n_config, ctypes.c_float, i, vp]
         fn.restype = i
     return lib
 
@@ -181,17 +199,18 @@ def _tma_strides(name: str, t: torch.Tensor) -> list[int]:
     return strides
 
 
-def _launch_tma(kind: str, name: str, dtype: torch.dtype, q, k, v,
-                causal: bool) -> torch.Tensor:
+def _launch_tma(kind: str, name: str, dtype: torch.dtype, head_dims, q, k, v,
+                causal: bool, extra: tuple[int, ...] = ()) -> torch.Tensor:
     """Check q, k, v for a TMA-fed tensor-core kernel, launch
-    ``csrc/<name>.cu`` and return its output, a ``(B, H, T, d)`` view of
-    ``(B, T, H, d)`` memory."""
+    ``csrc/<name>.cu`` with the launch arguments ``extra`` before the scale
+    and return its output, a ``(B, H, T, d)`` view of ``(B, T, H, d)``
+    memory."""
     _check_shapes(q, k, v)
     B, H, T, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if d not in TC_HEAD_DIMS:
+    if d not in head_dims:
         raise ValueError(f"head dim {d}: the {kind} kernel takes d in "
-                         f"{TC_HEAD_DIMS}")
+                         f"{head_dims}")
     if T == 0 or S == 0:
         raise ValueError(f"empty sequence: T={T}, S={S}")
     strides = []
@@ -211,10 +230,10 @@ def _launch_tma(kind: str, name: str, dtype: torch.dtype, q, k, v,
             raise ValueError(f"{tname} on {t.device}, q on {q.device}")
     out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(_tma_lib(name), f"{name}_launch")(
+    err = getattr(_tma_lib(name, len(extra)), f"{name}_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, T,
-        S, d, *strides, *_tma_strides("out", out), 1.0 / d ** 0.5, int(causal),
-        stream)
+        S, d, *strides, *_tma_strides("out", out), *extra, 1.0 / d ** 0.5,
+        int(causal), stream)
     if err:
         raise RuntimeError(f"{kind} flash attention launch failed: "
                            f"{'CUresult' if err < 0 else 'CUDA error'} {abs(err)}")
@@ -224,7 +243,7 @@ def _launch_tma(kind: str, name: str, dtype: torch.dtype, q, k, v,
 def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True) -> torch.Tensor:
     """Launch the bf16 tensor-core flash-attention kernel; same contract as
-    :func:`flash_attention_plain` for bf16 with d 64 or 128.
+    :func:`flash_attention_plain` for bf16 with d 64, 128 or 256.
 
     q, k and v may be strided views (a unit stride in d, every other stride
     a multiple of 8 elements).  The output lies in ``(B, T, H, d)`` memory
@@ -232,7 +251,9 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out.transpose(1, 2).reshape(B, T, H * d)`` is free.
     """
     global TC_LAUNCHES
-    out = _launch_tma("tensor-core", "flash_attn_tc", torch.bfloat16, q, k, v, causal)
+    bk, _, smem = tc_launch_config(q.shape[-1])
+    out = _launch_tma("tensor-core", "flash_attn_tc", torch.bfloat16, TC_HEAD_DIMS,
+                      q, k, v, causal, extra=(bk, smem))
     TC_LAUNCHES += 1
     return out
 
@@ -248,6 +269,7 @@ def flash_attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_tc`'s.
     """
     global TF32_LAUNCHES
-    out = _launch_tma("3xTF32", "flash_attn_tf32", torch.float32, q, k, v, causal)
+    out = _launch_tma("3xTF32", "flash_attn_tf32", torch.float32, TF32_HEAD_DIMS,
+                      q, k, v, causal)
     TF32_LAUNCHES += 1
     return out

@@ -9,11 +9,12 @@ ghost rows/cols attached, the vortex kernel's pair sum over the 3x3
 
 Bound on an H100: bytes — z, q and mask read once and the output written
 once (about 210 MB at the paper's size, level 10 with 8 slots); the
-arithmetic, about 18 FP32 operations per live pair, is some 30x smaller
-there because most slots are empty.  The kernel stages each block's
-``(BY+2, BX+2, s)`` halo tile into shared memory once, so every source is
-read from device memory about once rather than nine times, keeps the sums
-in registers (one thread per target slot) and writes once.
+arithmetic, about 18 FP32 operations per live pair, is far smaller
+because only 9% of the slots are live.  The kernel works on live slots
+only: a block packs its halo tile's live sources into shared memory
+(a scan of the mask), gives one thread to each live target, and writes
+its whole output tile, zeros in the dead slots, in one coalesced pass.
+:func:`launch_config` sizes the tile for the slot count.
 
 ``p2p_plain`` is the same function in plain PyTorch, with the formula of
 ``EquationSpec.p2p_terms``; the CPU path and the kernel's checks use it.
@@ -28,17 +29,42 @@ from ..core.equations import VORTEX
 from ..core.quadtree import P2P_OFFSETS
 from . import _build
 
-TILE = (8, 8)       # target boxes per block (BY, BX)
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+MAX_THREADS = 1024
+MAX_SLOTS = 256     # the kernel tags a record's slot in 8 bits
+# target-box tiles (TY, TX), largest first: 16 x 16 stages 1.27x its boxes
+TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+SMEM_TARGET = 72 * 1024   # three blocks an SM
 
 LAUNCHES = 0        # kernel launches since the last reset
+
+
+def smem_bytes(ty: int, tx: int, s: int) -> int:
+    """Shared memory of a ``ty x tx``-box tile with ``s`` slots, as
+    ``csrc/p2p.cu:smem_bytes`` lays it out: 16-byte records and 4-byte
+    tags for every slot of the halo tile, the 8-byte output tile, the
+    boxes' starts and 32 warp sums."""
+    nb = (ty + 2) * (tx + 2)
+    return nb * s * 16 + ty * tx * s * 8 + nb * s * 4 + (nb + 1) * 4 + 32 * 4
+
+
+def launch_config(s: int) -> tuple[int, int, int, int]:
+    """``(TY, TX, threads, smem bytes)`` of the kernel's launch for ``s``
+    slots: the largest tile of ``TILES`` within ``SMEM_TARGET`` (else the
+    largest within ``MAX_SMEM``), one thread per halo box."""
+    if not 1 <= s <= MAX_SLOTS:
+        raise ValueError(f"s={s} slots: the P2P kernel takes 1 to {MAX_SLOTS}")
+    fits = [t for t in TILES if smem_bytes(*t, s) <= MAX_SMEM]
+    ty, tx = next((t for t in fits if smem_bytes(*t, s) <= SMEM_TARGET), fits[0])
+    threads = min(MAX_THREADS, -(-(ty + 2) * (tx + 2) // 32) * 32)
+    return ty, tx, threads, smem_bytes(ty, tx, s)
 
 
 def p2p_plain(z_halo: torch.Tensor, q_halo: torch.Tensor,
               mask_halo: torch.Tensor, sigma: float | None) -> torch.Tensor:
     """(rows+2, cols+2, s) halo'd z/q/mask -> (rows, cols, s) complex W.
 
-    Masked target slots carry don't-care values, as in the kernel.
+    Masked target slots get 0, as in the kernel.
     """
     rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
     zt = z_halo[1:1 + rows, 1:1 + cols]
@@ -61,7 +87,8 @@ def p2p_plain(z_halo: torch.Tensor, q_halo: torch.Tensor,
                                         qs.imag[..., None, :], moll)
         re = re + tre.sum(dim=-1)
         im = im + tim.sum(dim=-1)
-    return torch.complex(re, im)
+    live = mask_halo[1:1 + rows, 1:1 + cols]
+    return torch.where(live, torch.complex(re, im), 0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,13 +121,10 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
                              f"match z_halo {tuple(z_halo.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     rows, cols, s = z_halo.shape[0] - 2, z_halo.shape[1] - 2, z_halo.shape[2]
-    BY, BX = TILE
-    smem = (BY + 2) * (BX + 2) * s * 17      # z, q as float2 + mask byte
-    if smem > MAX_SMEM:
-        raise ValueError(f"s={s} slots need {smem} bytes of shared memory "
-                         f"per block; at most {MAX_SMEM}")
-    threads = min(512, -(-BY * BX * s // 32) * 32)
+    ty, tx, threads, smem = launch_config(s)
     out = torch.empty((rows, cols, s), dtype=torch.complex64,
                       device=z_halo.device)
     singular = sigma is None
@@ -108,7 +132,7 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
     stream = torch.cuda.current_stream(z_halo.device).cuda_stream
     err = _lib().p2p_launch(z_halo.data_ptr(), q_halo.data_ptr(),
                             mask_halo.data_ptr(), out.data_ptr(), rows, cols,
-                            s, BY, BX, two_s2, int(singular), threads, smem,
+                            s, ty, tx, two_s2, int(singular), threads, smem,
                             stream)
     if err:
         raise RuntimeError(f"p2p kernel launch failed: CUDA error {err}")

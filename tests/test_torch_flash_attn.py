@@ -155,9 +155,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain version, on the card; each case counts one
-# launch of the kernel that ``route`` names (d 64 or 128 takes the bf16
-# tensor-core kernel in bf16 and the 3xTF32 kernel in f32, the others the
-# SIMT kernel)
+# launch of the kernel that ``route`` names (d 64, 128 or 256 in bf16 takes
+# the bf16 tensor-core kernel, d 64 or 128 in f32 the 3xTF32 kernel, the
+# others the SIMT kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -188,11 +188,20 @@ GPU_CASES = [
     (1, 6, 2, 256, 512, 64, False, torch.bfloat16),    # whole tiles, not causal
     (1, 2, 2, 1, 1, 64, True, torch.bfloat16),         # one token
     (1, 4, 2, 1, 50, 128, False, torch.bfloat16),      # one query
+    # tensor-core route at d 256 (64-key tiles)
+    (1, 10, 1, 256, 256, 256, True, torch.bfloat16),   # recurrentgemma-2b's heads
+    (2, 4, 4, 77, 77, 256, True, torch.bfloat16),      # ragged T = S
+    (1, 4, 1, 2079, 2079, 256, True, torch.bfloat16),  # teacher-forced T, Hkv 1
+    (1, 4, 2, 100, 300, 256, True, torch.bfloat16),    # T < S, top-left mask
+    (1, 4, 2, 300, 100, 256, True, torch.bfloat16),    # T > S
+    (2, 4, 4, 200, 333, 256, False, torch.bfloat16),   # not causal
+    (1, 2, 2, 1, 1, 256, True, torch.bfloat16),        # one token
     # SIMT route
     (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention
     (1, 2, 1, 33, 100, 8, True, torch.float32),        # T < S, top-left
     (1, 4, 2, 100, 33, 40, True, torch.bfloat16),      # T > S, 10 column chunks
     (1, 4, 1, 130, 130, 256, True, torch.float32),     # widest head
+    (1, 10, 1, 300, 300, 256, True, torch.float32),    # f32 at d 256
     (2, 2, 1, 65, 65, 200, False, torch.bfloat16),     # 50 column chunks
     (1, 1, 1, 1, 1, 16, True, torch.float32),          # one token
 ]

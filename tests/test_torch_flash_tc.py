@@ -75,11 +75,11 @@ def cuda():
     ("cuda", torch.float32, torch.float32, 128, "tf32"),   # f32: 3xTF32 split
     ("cuda", torch.float32, torch.float32, 64, "tf32"),
     ("cuda", torch.float32, torch.float32, 32, "simt"),    # other f32 head dims
-    ("cuda", torch.float32, torch.float32, 256, "simt"),
+    ("cuda", torch.float32, torch.float32, 256, "simt"),   # f32 at 256: SIMT
     ("cuda", torch.float32, torch.bfloat16, 64, "simt"),   # mixed: SIMT raises
     ("cuda", torch.bfloat16, torch.bfloat16, 16, "simt"),  # other head dims
     ("cuda", torch.bfloat16, torch.bfloat16, 96, "simt"),
-    ("cuda", torch.bfloat16, torch.bfloat16, 256, "simt"),
+    ("cuda", torch.bfloat16, torch.bfloat16, 256, "tc"),   # bf16 at 256: tensor cores
     ("cuda", torch.bfloat16, torch.float32, 128, "simt"),  # mixed: SIMT raises
     ("cuda", torch.float16, torch.float16, 128, "simt"),
 ])
@@ -91,7 +91,8 @@ def test_route_by_device_dtype_and_head_dim(device, q_dtype, k_dtype, d, want):
     (lambda: _qkv(1, 4, 2, 16, 16, 64, 0), "CUDA tensor"),
     (lambda: _qkv(1, 4, 2, 16, 16, 64, 0, dtype=torch.float32), "bfloat16"),
     (lambda: _qkv(1, 4, 2, 16, 16, 32, 0), "head dim 32"),
-    (lambda: _qkv(1, 4, 2, 16, 16, 256, 0), "head dim 256"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 96, 0), "head dim 96"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 256, 0, dtype=torch.float32), "bfloat16"),
     (lambda: tuple(t[..., ::2] for t in _qkv(1, 4, 2, 16, 16, 128, 0)), "unit stride"),
     (lambda: tuple(t[..., :64] for t in _qkv(1, 4, 2, 16, 16, 68, 0)), "multiple of 8"),
     (lambda: (torch.zeros(1, 3, 16, 64, dtype=torch.bfloat16),)
@@ -118,6 +119,30 @@ def test_tc_wrapper_rejects_what_the_kernel_does_not_take(make, match):
 def test_tf32_wrapper_rejects_what_the_kernel_does_not_take(make, match):
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_tf32(*make())
+
+
+@pytest.mark.parametrize("d", [256, 128, 64])
+def test_tc_wrapper_takes_head_dim_256_up_to_the_device_check(d):
+    """d = 256 passes every check of the wrapper but the device's."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_tc(*_qkv(1, 4, 2, 16, 16, d, 0))
+
+
+@pytest.mark.parametrize("d", fa.TC_HEAD_DIMS)
+def test_tc_launch_fits_a_hopper_block(d):
+    """The tensor-core launch's shared memory and threads fit one block of
+    the card (232,448 bytes, 1024 threads) at every head dim it takes, and
+    its key tile divides into 16-key wgmma steps."""
+    bk, threads, smem = fa.tc_launch_config(d)
+    assert smem <= fa.MAX_SMEM and threads <= 1024 and threads % 128 == 0
+    assert bk % 16 == 0 and bk in (64, 128)
+    assert smem >= 128 * d * 2 + 2 * 2 * bk * d * 2
+
+
+@pytest.mark.parametrize("d", [32, 96, 512])
+def test_tc_launch_config_rejects_other_head_dims(d):
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        fa.tc_launch_config(d)
 
 
 def test_tf32_wrapper_rejects_a_misaligned_start():
@@ -166,7 +191,7 @@ def test_dispatch_on_cpu_launches_neither_kernel(dtype, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tc_kernel_reads_strided_views(cuda, d):
     """The (B, T, H, d) -> (B, H, T, d) views of the model, as they are; the
     output lies in (B, T, H, d) memory."""

@@ -31,6 +31,17 @@ def _particles(ny, nx, s, seed):
     return z, q, mask
 
 
+def _holed(ny, nx, s, seed):
+    """Slots filled as a prefix, as ``rebuild_tree`` fills them, then about a
+    quarter of the live slots emptied again (the holes a fault leaves); dead
+    slots keep random z and q, which must be ignored."""
+    rng = np.random.default_rng(seed)
+    z, q, _ = _particles(ny, nx, s, seed)
+    fill = rng.integers(0, s + 1, size=(ny, nx, 1))
+    mask = (np.arange(s) < fill) & (rng.uniform(size=(ny, nx, s)) > 0.25)
+    return z, q, mask
+
+
 def _halo(*arrays):
     return [np.pad(a, ((1, 1), (1, 1), (0, 0))) for a in arrays]
 
@@ -76,6 +87,45 @@ def test_p2p_plain_matches_reference(jx, ny, nx, s, sigma):
     assert _rel(np.where(mask, tref, 0), np.where(mask, grid, 0)) < 1e-5
 
 
+@pytest.mark.parametrize("ny,nx,s", [(5, 7, 1), (6, 6, 3), (9, 8, 8), (4, 5, 16)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_plain_matches_reference_on_masks_with_holes(jx, ny, nx, s, sigma):
+    """Prefix-filled slots with holes punched in them; the plain version
+    writes 0 at every masked target (the reference leaves them don't-care)."""
+    jnp = jx.jnp
+    zh, qh, mh = _halo(*_holed(ny, nx, s, ny * 1000 + nx * 10 + s))
+    out = p2p.p2p_plain(torch.as_tensor(zh), torch.as_tensor(qh),
+                        torch.as_tensor(mh), sigma).numpy()
+    slab = np.asarray(jx.fmm.p2p_slab_reference(jnp.asarray(zh), jnp.asarray(qh),
+                                              jnp.asarray(mh), sigma))
+    live = mh[1:-1, 1:-1]
+    assert 0 < live.sum() < live.size
+    assert _rel(np.where(live, out, 0), np.where(live, slab, 0)) < 1e-5
+    assert np.all(out[~live] == 0)
+
+
+def test_p2p_launch_fits_a_hopper_block():
+    """Every slot count the wrapper takes launches within one block's
+    232,448 bytes of shared memory and 1024 threads, one thread per halo
+    box, with the tile's records sized for every slot live."""
+    for s in range(1, p2p.MAX_SLOTS + 1):
+        ty, tx, threads, smem = p2p.launch_config(s)
+        assert (ty, tx) in p2p.TILES
+        assert smem == p2p.smem_bytes(ty, tx, s) <= p2p.MAX_SMEM, s
+        assert threads % 32 == 0 and (ty + 2) * (tx + 2) <= threads <= 1024, s
+        assert smem >= (ty + 2) * (tx + 2) * s * 16 + ty * tx * s * 8, s
+
+
+def test_p2p_launch_config_takes_the_large_tile_at_the_papers_slots():
+    assert p2p.launch_config(8)[:3] == (16, 16, 352)
+
+
+@pytest.mark.parametrize("s", [0, p2p.MAX_SLOTS + 1])
+def test_p2p_launch_config_rejects_slot_counts_out_of_range(s):
+    with pytest.raises(ValueError, match="slots"):
+        p2p.launch_config(s)
+
+
 def test_p2p_dispatch_takes_plain_on_cpu():
     z, q, mask = _particles(6, 6, 4, 3)
     zh, qh, mh = (torch.as_tensor(a) for a in _halo(z, q, mask))
@@ -106,6 +156,28 @@ def test_p2p_kernel_matches_plain(cuda, ny, nx, s, sigma):
     want = p2p.p2p_plain(zh, qh, mh, sigma)
     m = torch.as_tensor(mask, device=cuda)
     assert _rel(got[m].cpu(), want[m].cpu()) < 1e-5
+    assert bool((got[~m] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ny,nx,s", [(40, 40, 1), (23, 37, 3), (64, 48, 8),
+                                     (37, 70, 8), (19, 21, 16)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_kernel_matches_plain_on_masks_with_holes(cuda, ny, nx, s, sigma):
+    """Holes in prefix-filled slots, ragged grids (not a multiple of the
+    tile), ghost rows and columns that hold live sources (the slab form);
+    masked targets get exactly 0."""
+    z, q, mask = _holed(ny + 2, nx + 2, s, ny * 7 + nx + s)
+    zh, qh, mh = (torch.as_tensor(a, device=cuda) for a in (z, q, mask))
+    before = p2p.LAUNCHES
+    got = p2p.p2p_cuda(zh, qh, mh, sigma)
+    torch.cuda.synchronize()
+    assert p2p.LAUNCHES == before + 1
+    want = p2p.p2p_plain(zh, qh, mh, sigma)
+    live = mh[1:-1, 1:-1]
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
 
 
 @pytest.mark.gpu
