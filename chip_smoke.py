@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
               PyTorch versions on the card at the FMM path's shapes (N =
               765,625 Lamb-Oseen lattice, level 10 and level 2, p = 17, 8
               slots), with CUDA-event times and the bound; P2P also on the
-              same tree with holes punched in its masks, both routes timed;
+              same tree with holes punched in its masks, both routes timed,
+              and through the kernel's run-time instance (the code of every
+              slot count but 8), checked and timed beside the s = 8 one;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
@@ -226,6 +228,22 @@ def punch_holes(mask: torch.Tensor, share: float = 0.1) -> torch.Tensor:
     return mask & (torch.rand(mask.shape, generator=gen, device=mask.device) >= share)
 
 
+def p2p_runtime_instance(zh, qh, mh, sigma) -> torch.Tensor:
+    """P2P through the kernel's run-time instance, the code every slot count
+    but 8 runs: the launch asks for one warp more than the s = 8, 16 x 16
+    instance is built for, so ``csrc/p2p.cu:p2p_launch`` passes it over."""
+    rows, cols, s = zh.shape[0] - 2, zh.shape[1] - 2, zh.shape[2]
+    ty, tx, threads, smem = p2p.launch_config(s)
+    out = torch.empty((rows, cols, s), dtype=torch.complex64, device=zh.device)
+    singular = sigma is None
+    err = p2p._lib().p2p_launch(
+        zh.data_ptr(), qh.data_ptr(), mh.data_ptr(), out.data_ptr(), rows, cols, s,
+        ty, tx, 1.0 if singular else 2.0 * sigma * sigma, int(singular), threads + 32,
+        smem, torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"p2p run-time instance: CUDA error {err}")
+    return out
+
+
 def check_p2p(tree, sigma, holes: bool = False):
     pad = (0, 0, 1, 1, 1, 1)
     m = punch_holes(tree.mask) if holes else tree.mask
@@ -240,15 +258,25 @@ def check_p2p(tree, sigma, holes: bool = False):
     require(bool((got[~m] == 0).all()), f"{name}: a masked target is not 0")
     require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
     ms = cuda_ms(lambda: p2p.p2p_cuda(zh, qh, mh, sigma), iters=20)
+    # the run-time instance on the same inputs, beside the s = 8 one
+    rt = p2p_runtime_instance(zh, qh, mh, sigma)
+    torch.cuda.synchronize()
+    rt_err = rel_l2(rt[m], want[m])
+    require(rt_err <= KERNEL_TOL and bool((rt[~m] == 0).all()),
+            f"{name}, run-time instance: rel L2 {rt_err} or a masked target not 0")
+    rt_ms = cuda_ms(lambda: p2p_runtime_instance(zh, qh, mh, sigma), iters=20)
     plain_ms = cuda_ms(lambda: p2p.p2p_plain(zh, qh, mh, sigma), iters=3, warmup=1)
-    nbytes = 2 * zh.numel() * 8 + mh.numel() + got.numel() * 8
+    # the mask read whole, z and q (16 bytes) of live slots only, the output
+    # written whole
+    nbytes = mh.numel() + int(mh.sum()) * 16 + got.numel() * 8
     pairs = live_pairs(zh, mh)
     ops_ = pairs * (P2P_OPS_SINGULAR if sigma is None else P2P_OPS_REGULARIZED)
     b_ms, b_by = bound_ms(nbytes, ops_)
     return dict(name="p2p", sigma=sigma, holes=holes, live=int(m.sum()),
                 shape=list(zh.shape), rel_l2=err, max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, live_pairs=pairs,
-                bytes=nbytes, ops=ops_, library_ms=None)
+                bytes=nbytes, ops=ops_, library_ms=None,
+                runtime_instance_ms=rt_ms, runtime_instance_rel_l2=rt_err)
 
 
 def check_m2l(me, level, p):
@@ -738,7 +766,8 @@ def main() -> None:
     print(card, flush=True)
     emit({"kernels": [
         entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
-              "src/repro/kernels/p2p.py:46"),
+              "src/repro/kernels/p2p.py:46",
+              runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"]),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43"),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",

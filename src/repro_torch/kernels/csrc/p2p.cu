@@ -8,11 +8,12 @@
 // source slots and coincident pairs (r2 > 0).  singular != 0 drops the
 // mollifier.  Masked target slots get 0.
 //
-// Bound on an H100: bytes.  z, q and the mask read once and the output
-// written once are 210 MB at the paper's size (1026 x 1026 halo'd boxes, 8
-// slots), 0.063 ms at 3.35 TB/s; the arithmetic, about 18 FP32 operations
-// on each of the 7.3M live pairs, is a few microseconds, because only 9% of
-// the slots are live (765,625 particles in 8.4M slots).
+// Bound on an H100: bytes.  The mask read whole (8.4 MB at the paper's size,
+// 1026 x 1026 halo'd boxes, 8 slots), the z and q of the 765,625 live slots
+// read once (12.3 MB) and the output written whole (67.1 MB) are 88 MB,
+// 0.026 ms at 3.35 TB/s; the arithmetic, about 18 FP32 operations on each
+// of the 7.3M live pairs, is a few microseconds, because only 9% of the
+// slots are live.
 //
 // Design: work only on live slots, read each byte about once.
 // - A block owns TY x TX target boxes (16 x 16 at s = 8, smaller tiles for
@@ -33,7 +34,7 @@
 //   pass (16-byte stores at s = 8), so every element of the output is
 //   written once.
 // The common s = 8, 16 x 16 tile is a template instance with the slot count
-// and the halo width as constants; any other s (up to 256) and tile run the
+// and the halo width as constants; any other s (up to 136) and tile run the
 // same code with them at run time.  Built without fast math, so expf and
 // the division are the IEEE-accurate forms; each sum visits its sources in
 // stencil order (neighbour rows, boxes, slots).
@@ -46,7 +47,7 @@
 namespace {
 
 constexpr int MAX_WARPS = 32;
-constexpr int MAX_SLOTS = 256;    // a record's tag keeps the slot in 8 bits
+constexpr int MAX_SLOTS = 136;    // kernels/p2p.py:MAX_SLOTS; a tag keeps the slot in 8 bits
 
 // Shared memory of a TY x TX tile with s slots: live-source records sized
 // for every slot live, the output tile, the tags, the boxes' starts and the

@@ -7,10 +7,11 @@ ghost rows/cols attached, the vortex kernel's pair sum over the 3x3
 ``P2P_OFFSETS`` stencil with the Gaussian mollifier (or singular for
 ``sigma=None``), masking empty sources and self pairs.
 
-Bound on an H100: bytes — z, q and mask read once and the output written
-once (about 210 MB at the paper's size, level 10 with 8 slots); the
-arithmetic, about 18 FP32 operations per live pair, is far smaller
-because only 9% of the slots are live.  The kernel works on live slots
+Bound on an H100: bytes — the mask read whole, the z and q of live slots
+read once and the output written whole (about 88 MB at the paper's size,
+level 10 with 8 slots, of which the output is 67 MB); the arithmetic,
+about 18 FP32 operations per live pair, is far smaller because only 9% of
+the slots are live.  The kernel works on live slots
 only: a block packs its halo tile's live sources into shared memory
 (a scan of the mask), gives one thread to each live target, and writes
 its whole output tile, zeros in the dead slots, in one coalesced pass.
@@ -31,9 +32,10 @@ from . import _build
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_THREADS = 1024
-MAX_SLOTS = 256     # the kernel tags a record's slot in 8 bits
-# target-box tiles (TY, TX), largest first: 16 x 16 stages 1.27x its boxes
-TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+MAX_SLOTS = 136     # as the PR 11 kernel's 8 x 8 tile allowed
+# target-box tiles (TY, TX), largest first, each the choice for some s up to
+# MAX_SLOTS: 16 x 16 stages 1.27x its boxes
+TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
 SMEM_TARGET = 72 * 1024   # three blocks an SM
 
 LAUNCHES = 0        # kernel launches since the last reset

@@ -4,11 +4,11 @@ The reference's layers in PyTorch, with its ``(B, H, T, d)`` attention
 layout.  ``attention_core`` runs a hand-written flash-attention kernel on
 a CUDA tensor in exactly the case the kernels compute (causal, no window,
 no query offset, ``T == S``, f32 scores), where the kernels' top-left
-causal mask is the model's mask: the tensor-core kernel for bf16 with head
-dim 64 or 128 (on the transposed views as they are), the SIMT kernel
-otherwise (``kernels.flash_attn.route``).  Every other case, and every CPU
-tensor, takes ``attention_core_plain``: the reference's q-chunked exact
-softmax.  The choice follows the arguments alone; nothing falls back on a
+causal mask is the model's mask.  The dtype and head dim pick the kernel
+(``kernels.flash_attn.route``; the README's route table); the tensor-core
+kernels read the transposed views as they are.  Every other case, and
+every CPU tensor, takes ``attention_core_plain``: the reference's
+q-chunked exact softmax.  The choice follows the arguments alone; nothing falls back on a
 failure.
 """
 from __future__ import annotations

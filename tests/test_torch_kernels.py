@@ -120,6 +120,17 @@ def test_p2p_launch_config_takes_the_large_tile_at_the_papers_slots():
     assert p2p.launch_config(8)[:3] == (16, 16, 352)
 
 
+def _first_slots_of(tile):
+    """The least slot count whose launch takes ``tile``, else None."""
+    return next((s for s in range(1, p2p.MAX_SLOTS + 1)
+                 if p2p.launch_config(s)[:2] == tile), None)
+
+
+@pytest.mark.parametrize("tile", p2p.TILES)
+def test_p2p_every_tile_is_the_launch_of_some_slot_count(tile):
+    assert _first_slots_of(tile) is not None
+
+
 @pytest.mark.parametrize("s", [0, p2p.MAX_SLOTS + 1])
 def test_p2p_launch_config_rejects_slot_counts_out_of_range(s):
     with pytest.raises(ValueError, match="slots"):
@@ -177,6 +188,21 @@ def test_p2p_kernel_matches_plain_on_masks_with_holes(cuda, ny, nx, s, sigma):
     live = mh[1:-1, 1:-1]
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
     assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", p2p.TILES)
+def test_p2p_kernel_matches_plain_on_every_tile(cuda, tile):
+    """Each tile at the least slot count that takes it, on a grid ragged
+    in both directions, with holes in the masks."""
+    s = _first_slots_of(tile)
+    ny, nx = 2 * tile[0] + 1, 2 * tile[1] + 3
+    z, q, mask = _holed(ny + 2, nx + 2, s, s)
+    zh, qh, mh = (torch.as_tensor(a, device=cuda) for a in (z, q, mask))
+    got = p2p.p2p_cuda(zh, qh, mh, 0.05)
+    want = p2p.p2p_plain(zh, qh, mh, 0.05)
+    assert bool((got[~mh[1:-1, 1:-1]] == 0).all())
     assert _rel(got.cpu(), want.cpu()) < 1e-5
 
 
