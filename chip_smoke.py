@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
-and Yi-6B serving at full width.
+(vortex steps, Laplace and tracer evaluations, the host-side planner) and
+Yi-6B serving at full width.
 
 Run from the repository root with no arguments:
 
@@ -19,12 +20,29 @@ Phases, each printing one JSON line:
               same tree with holes punched in its masks, both routes timed,
               and through the kernel's run-time instance (the code of every
               slot count but 8), checked and timed beside the s = 8 one;
+              P2P's two other modes: Laplace's two channels on the lattice
+              with real charges (mollified, singular, with holes), and the
+              base formula at the passive targets of a 2048 x 2048
+              cell-centred probe grid (4 a leaf box; mollified, singular,
+              with holes in the target mask);
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
               conserved particle count, per-step and per-stage times, peak
               memory;
-5. attn_vs_plain — the three flash-attention kernels against their
+5. equations — ``fmm_evaluate(eq=LAPLACE)`` at p = 16 on the lattice with
+              real charges, and ``fmm_evaluate(eq=TRACER, targets=probe
+              grid)`` at p = 17, singular, each held to a float64 direct sum
+              at 2048 sampled targets (potential and field for Laplace);
+              exactly one P2P launch of the evaluation's mode and 9 M2L
+              launches each; host ms, finiteness, peak memory; the
+              regularized errors as information;
+6. plan     — ``plan_from_counts`` and ``autotune_plan`` at 64 parts on the
+              lattice's level-10 leaf counts (one and two output channels):
+              the autotuned plan's kind and grid, the Eq-20 load balance of
+              the model, uniform and autotuned plans, host ms; the model
+              slab plan's balance must be no lower than the uniform plan's;
+7. attn_vs_plain — the three flash-attention kernels against their
               plain version.  The bf16 tensor-core kernel at Yi-6B's
               prefill shape (4, 32, 4, 2048, 128) causal, at
               recurrentgemma-2b's attention (4, 10, 1, 2048, 256) bf16
@@ -44,7 +62,7 @@ Phases, each printing one JSON line:
               model's strided views (gated as the contiguous inputs are),
               and the SIMT kernel on the same inputs (its time before the
               tensor-core routes);
-6. serve    — Yi-6B at full width (random weights from a seeded generator)
+8. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
               greedy tokens each.  Gates: every logit finite; exactly 32
               tensor-core flash launches inside ``step_all`` (one per layer
@@ -54,18 +72,19 @@ Phases, each printing one JSON line:
               card.  Prints prefill ms, decode ms per step, tokens per
               second, the flash kernel's and the copies' share of prefill
               device time (torch.profiler), and peak device memory;
-7. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the 3xTF32
+9. serve_f32 — Yi-6B at full width in f32, cut to 2 layers: the 3xTF32
               kernel's path (f32 attention at f32 accuracy), 4 prompts of
               2048 tokens, so prefill gives the kernel the shape that phase
-              5 checks and times.  Gates: every logit finite, exactly 2
+              7 checks and times.  Gates: every logit finite, exactly 2
               3xTF32 launches inside ``step_all`` and no other flash launch,
               decode within 2e-2 of teacher-forced.  After the counted run,
               one prefill is timed on the 3xTF32 route and on the SIMT
               kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, ``step_all`` in phases 6 and 7 for the tensor-core flash
-kernels, phase 5's two recurrentgemma-2b calls for the bf16 tensor-core
+the FMM kernels, each gated evaluation of phase 5 for P2P's Laplace and
+passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
+kernels, phase 7's two recurrentgemma-2b calls for the bf16 tensor-core
 kernel at d = 256 and the SIMT one) and read right after it: every kernel
 must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
@@ -91,7 +110,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.petfmm_vortex import CONFIG  # noqa: E402
 from repro_torch.core import expansions as ex  # noqa: E402
 from repro_torch.core import fmm, health as hw  # noqa: E402
-from repro_torch.core.equations import VORTEX  # noqa: E402
+from repro_torch.core.cost_model import ModelParams  # noqa: E402
+from repro_torch.core.equations import LAPLACE, TRACER, VORTEX  # noqa: E402
+from repro_torch.core import plan as fmm_plan  # noqa: E402
+from repro_torch.core.quadtree import Tree  # noqa: E402
 from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noqa: E402
                                        gather_particle_values, rebuild_tree)
 from repro_torch.core.stepper import rk2_step  # noqa: E402
@@ -112,8 +134,19 @@ TF32_FLOP_PER_S = 495e12
 # mollifier 4 more (divide, exp, subtract, multiply) when sigma is finite.
 P2P_OPS_SINGULAR = 14
 P2P_OPS_REGULARIZED = 18
+# Laplace's two channels (csrc/p2p.cu:stencil_sums) per live pair, the logf
+# counting as one: deltas 2, r2 3, the potential 3 (log, two products), the
+# field's weight 1, channel 0 4, channel 1 10; the mollifier 3 more
+# (divide, exp, subtract) when sigma is finite.
+P2P_OPS_LAPLACE_SINGULAR = 23
+P2P_OPS_LAPLACE_REGULARIZED = 26
 
 SLOTS = 8
+LAPLACE_P = LAPLACE.default_p    # 16: the log expansion's order
+PROBE_SIDE = 2048                # a cell-centred probe grid, 4 probes a leaf box
+PROBE_SLOTS = 4
+PLAN_PARTS = 64                  # the paper's largest processor count
+PLAN_CUT = 4
 DT = 1e-3
 STEPS = 3
 SAMPLES = 2048
@@ -205,10 +238,12 @@ def f32_product_bound(nbytes: float, ops: float) -> dict:
     return dict(bound_ms=b_ms, bound_by=b_by, fp32_simt_bound_ms=ops / FP32_FLOP_PER_S * 1e3)
 
 
-def live_pairs(z_halo, mask_halo) -> int:
-    """Pairs (live target, live source, r2 > 0) over the 3x3 stencil."""
+def live_pairs(z_halo, mask_halo, zt=None, mt=None) -> int:
+    """Pairs (live target, live source, r2 > 0) over the 3x3 stencil; the
+    targets are the sources unless ``zt``/``mt`` give passive ones."""
     rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
-    zt, mt = z_halo[1:1 + rows, 1:1 + cols], mask_halo[1:1 + rows, 1:1 + cols]
+    if zt is None:
+        zt, mt = z_halo[1:1 + rows, 1:1 + cols], mask_halo[1:1 + rows, 1:1 + cols]
     total = 0
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
@@ -237,9 +272,9 @@ def p2p_runtime_instance(zh, qh, mh, sigma) -> torch.Tensor:
     out = torch.empty((rows, cols, s), dtype=torch.complex64, device=zh.device)
     singular = sigma is None
     err = p2p._lib().p2p_launch(
-        zh.data_ptr(), qh.data_ptr(), mh.data_ptr(), out.data_ptr(), rows, cols, s,
-        ty, tx, 1.0 if singular else 2.0 * sigma * sigma, int(singular), threads + 32,
-        smem, torch.cuda.current_stream().cuda_stream)
+        zh.data_ptr(), qh.data_ptr(), mh.data_ptr(), None, None, out.data_ptr(), rows,
+        cols, s, s, 1, ty, tx, 1.0 if singular else 2.0 * sigma * sigma, int(singular),
+        threads + 32, smem, torch.cuda.current_stream().cuda_stream)
     require(err == 0, f"p2p run-time instance: CUDA error {err}")
     return out
 
@@ -279,6 +314,57 @@ def check_p2p(tree, sigma, holes: bool = False):
                 runtime_instance_ms=rt_ms, runtime_instance_rel_l2=rt_err)
 
 
+def check_p2p_mode(tree, sigma, mode: str, targets=None, holes: bool = False):
+    """One of the P2P kernel's new modes against its plain version at the
+    main path's shapes: Laplace's two channels at the sources (``mode
+    "laplace"``), or the base formula at the passive ``targets`` tree's
+    slots; ``holes`` punches holes in the target mask (the source mask for
+    Laplace)."""
+    pad = (0, 0, 1, 1, 1, 1)
+    zt = mt = None
+    m = tree.mask
+    if targets is None:
+        m = punch_holes(m) if holes else m
+    else:
+        zt = targets.z
+        mt = punch_holes(targets.mask) if holes else targets.mask
+    zh, qh, mh = F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(m, pad)
+    call = lambda fn: fn(zh, qh, mh, sigma, zt, mt, mode)  # noqa: E731
+    got = call(p2p.p2p_cuda)
+    want = call(p2p.p2p_plain)
+    torch.cuda.synchronize()
+    live = m if mt is None else mt
+    live = live if got.ndim == 3 else live[..., None].expand(got.shape)
+    err = rel_l2(got[live], want[live])
+    max_abs = float((got[live] - want[live]).abs().max())
+    name = (f"p2p {mode}{' passive' if mt is not None else ''} sigma={sigma}"
+            f"{' with holes' if holes else ''}")
+    require(bool(torch.isfinite(torch.view_as_real(got[live])).all()),
+            f"{name}: non-finite output")
+    require(bool((got[~live] == 0).all()), f"{name}: a masked target is not 0")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: call(p2p.p2p_cuda), iters=20)
+    plain_ms = cuda_ms(lambda: call(p2p.p2p_plain), iters=3, warmup=1)
+    # the source mask read whole, z and q (16 bytes) of live sources only;
+    # passive targets: their mask whole and z (8 bytes) of live ones; the
+    # output written whole
+    nbytes = mh.numel() + int(mh.sum()) * 16 + got.numel() * 8
+    if mt is not None:
+        nbytes += mt.numel() + int(mt.sum()) * 8
+    pairs = live_pairs(zh, mh, zt, mt)
+    per_pair = {("base", True): P2P_OPS_SINGULAR, ("base", False): P2P_OPS_REGULARIZED,
+                ("laplace", True): P2P_OPS_LAPLACE_SINGULAR,
+                ("laplace", False): P2P_OPS_LAPLACE_REGULARIZED}[mode, sigma is None]
+    b_ms, b_by = bound_ms(nbytes, pairs * per_pair)
+    return dict(name="p2p", mode=mode, passive=mt is not None, sigma=sigma,
+                holes=holes, live_targets=int(live.sum()), shape=list(got.shape),
+                launch=list(p2p.launch_config(zh.shape[2], got.shape[2],
+                                              p2p.MODES[mode].nout)[:3]),
+                rel_l2=err, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, live_pairs=pairs, bytes=nbytes,
+                ops=pairs * per_pair, library_ms=None)
+
+
 def check_m2l(me, level, p):
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     stack, (PR, _), (PC, _) = ex.m2l_slab_stack(me_halo, p, 0, ex.M2L_HALO)
@@ -311,21 +397,140 @@ def check_m2l(me, level, p):
                 bytes=nbytes, ops=ops_)
 
 
-def direct_sum_f64(pos, gamma, targets, sigma, chunk=128):
-    """Float64 direct sum on the card at ``targets`` (indices into pos)."""
+def direct_f64(pos, strength, z_tgt, sigma, laplace: bool = False, chunk=128):
+    """Float64 direct sum on the card at the points ``z_tgt`` (complex,
+    host): the velocity kernel's one channel, (T,), or with ``laplace``
+    the potential and field, (T, 2), as ``equations.direct_sum`` computes
+    them.  Coincident pairs are excluded."""
     dev = torch.device("cuda")
     z = torch.as_tensor(pos[:, 0] + 1j * pos[:, 1], dtype=torch.complex128, device=dev)
-    q = torch.as_tensor(gamma / (2j * np.pi), dtype=torch.complex128, device=dev)
-    tgt = torch.as_tensor(targets, device=dev)
+    scale = LAPLACE.charge_scale if laplace else 1 / (2j * np.pi)
+    q = torch.as_tensor(strength * scale, dtype=torch.complex128, device=dev)
+    zt = torch.as_tensor(z_tgt, dtype=torch.complex128, device=dev)
     out = []
-    for start in range(0, len(targets), chunk):
-        dz = z[tgt[start:start + chunk]][:, None] - z[None, :]
+    for start in range(0, len(zt), chunk):
+        dz = zt[start:start + chunk][:, None] - z[None, :]
         r2 = dz.real * dz.real + dz.imag * dz.imag
         inv = torch.where(r2 > 0, 1.0 / torch.where(r2 > 0, dz, 1.0), 0.0)
-        if sigma is not None:
-            inv = inv * (1.0 - torch.exp(-r2 / (2.0 * sigma * sigma)))
-        out.append(inv @ q)
+        w = None if sigma is None else 1.0 - torch.exp(-r2 / (2.0 * sigma * sigma))
+        if w is not None:
+            inv = inv * w
+        if not laplace:
+            out.append(inv @ q)
+            continue
+        pot = 0.5 * torch.log(torch.where(r2 > 0, r2, 1.0)) * (r2 > 0)
+        if w is not None:
+            pot = pot * w
+        out.append(torch.stack([pot.to(q.dtype) @ q, -(inv @ q)], dim=-1))
     return torch.cat(out)
+
+
+def direct_sum_f64(pos, gamma, targets, sigma):
+    """Float64 velocity direct sum on the card at ``targets`` (indices into
+    pos)."""
+    return direct_f64(pos, gamma, pos[targets, 0] + 1j * pos[targets, 1], sigma)
+
+
+def zero_fmm_counts() -> None:
+    p2p.LAUNCHES = m2l.LAUNCHES = 0
+    for mode in p2p.LAUNCHES_BY_MODE:
+        p2p.LAUNCHES_BY_MODE[mode] = 0
+
+
+def fmm_counts() -> dict:
+    """The FMM kernels' launches since ``zero_fmm_counts``: P2P by mode
+    (only the modes that launched) and M2L."""
+    return {"p2p": {k: v for k, v in p2p.LAUNCHES_BY_MODE.items() if v},
+            "m2l": m2l.LAUNCHES}
+
+
+def equations_phase(dev, pos, gamma, sigma, p, tree0, index0, sample, tree_lap,
+                    probes, probe_pos, probe_index) -> dict:
+    """Laplace (p = 16) at the lattice's own particles and the vortex kernel
+    as a tracer (p) at the probe grid, each through ``fmm.fmm_evaluate``,
+    singular, held to a float64 direct sum at ``SAMPLES`` sampled targets;
+    the launch counters are zeroed before each gated call and must show one
+    P2P launch of the evaluation's mode and one M2L launch per level 2..L.
+    Returns each evaluation's launches."""
+    level = tree0.level
+    probe_sample = np.sort(np.random.default_rng(1).choice(len(probe_pos), SAMPLES,
+                                                           replace=False))
+    cases = {
+        "laplace": (LAPLACE, LAPLACE_P, tree_lap, None, index0, pos[sample], "laplace"),
+        "tracer": (TRACER, p, tree0, probes, probe_index, probe_pos[probe_sample],
+                   "base_passive")}
+    launches = {}
+    for name, (eq, order, reg, targets, idx, at_pos, mode) in cases.items():
+        sing = Tree(z=reg.z, q=reg.q, mask=reg.mask, level=level, sigma=None)
+        evaluate = lambda t: fmm.fmm_evaluate(t, order, eq=eq, targets=targets,  # noqa: E731
+                                              device=dev)
+        picked = torch.as_tensor(sample if targets is None else probe_sample, device=dev)
+        z_at = at_pos[:, 0] + 1j * at_pos[:, 1]
+        laplace = eq.nout == 2
+
+        def errors(out, sig):
+            exact = direct_f64(pos, gamma, z_at, sig, laplace=laplace)
+            at = lambda x: gather_particle_values(x, idx)[picked]  # noqa: E731
+            if not laplace:
+                return {"velocity": rel_l2(at(out).to(torch.complex128), exact)}
+            return {"potential": rel_l2(at(out[..., 0]).real.double(), exact[:, 0].real),
+                    "field": rel_l2(at(out[..., 1]).to(torch.complex128), exact[:, 1])}
+
+        evaluate(sing)                                   # warm: operators to the card
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_fmm_counts()
+        t0 = time.perf_counter()
+        out = evaluate(sing)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = fmm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        out_mask = sing.mask if targets is None else targets.mask
+        want_shape = tuple(out_mask.shape) + ((eq.nout,) if laplace else ())
+        require(tuple(out.shape) == want_shape, f"{name}: output shape {tuple(out.shape)}")
+        finite = bool(torch.isfinite(torch.view_as_real(out[out_mask])).all())
+        require(finite, f"{name}: non-finite output at a live slot")
+        want_counts = {"p2p": {mode: 1}, "m2l": level - 1}
+        require(counts == want_counts, f"{name}: launches {counts}, expected {want_counts}")
+        errs = errors(out, None)
+        reg_errs = errors(evaluate(reg), sigma)
+        launches[name] = counts
+        emit({"phase": "equations", "equation": name, "p": order,
+              "n_sources": int(reg.mask.sum()), "targets": int(out_mask.sum()),
+              "target_slots": out_mask.shape[-1], "output_shape": list(out.shape),
+              "host_ms": host_ms, "finite_at_live_slots": finite, "peak_bytes": peak,
+              "launches": counts, "rel_l2_singular_vs_f64": errs, "gate": FMM_TOL,
+              "rel_l2_regularized_vs_f64_info": reg_errs})
+        for channel, err in errs.items():
+            require(err < FMM_TOL, f"{name} {channel}: rel L2 {err} >= {FMM_TOL}")
+    return launches
+
+
+def plan_phase(counts, level, p) -> None:
+    """``plan_from_counts`` and ``autotune_plan`` at ``PLAN_PARTS`` parts on
+    the leaf counts, for one and two output channels; the model slab plan's
+    Eq-20 load balance must be no lower than the uniform plan's."""
+    uniform = fmm_plan.uniform_plan(level, PLAN_PARTS)
+    for nout in (VORTEX.nout, LAPLACE.nout):
+        params = ModelParams(level=level, cut=PLAN_CUT, p=p, slots=SLOTS, nout=nout)
+        t0 = time.perf_counter()
+        slab = fmm_plan.plan_from_counts(counts, params, PLAN_PARTS)
+        slab_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        auto = fmm_plan.autotune_plan(counts, params, PLAN_PARTS)
+        auto_ms = (time.perf_counter() - t0) * 1e3
+        lb = {k: fmm_plan.plan_stats(pl, counts, params)["load_balance"]
+              for k, pl in (("model_slab", slab), ("uniform_slab", uniform),
+                            ("autotuned", auto))}
+        emit({"phase": "plan", "nparts": PLAN_PARTS, "level": level, "cut": PLAN_CUT,
+              "p": p, "slots": SLOTS, "nout": nout, "load_balance": lb,
+              "autotuned_kind": type(auto).__name__,
+              "autotuned_grid": list(getattr(auto, "grid", (PLAN_PARTS, 1))),
+              "plan_from_counts_host_ms": slab_ms, "autotune_plan_host_ms": auto_ms})
+        require(lb["model_slab"] >= lb["uniform_slab"],
+                f"nout {nout}: model plan balance {lb['model_slab']} < uniform "
+                f"{lb['uniform_slab']}")
 
 
 def stage_ms(tree, p) -> dict:
@@ -624,19 +829,33 @@ def main() -> None:
                                              spacing_ratio=CONFIG.spacing_ratio)
     n_particles = len(gamma)
     require(n_particles == CONFIG.num_particles, "lattice size mismatch")
-    tree0, _ = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
+    tree0, index0 = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
     p2p_rows = [check_p2p(tree0, sigma), check_p2p(tree0, None),
                 check_p2p(tree0, sigma, holes=True), check_p2p(tree0, None, holes=True)]
+    # the two new modes: Laplace on the same lattice with real charges, and
+    # the base formula at a probe grid's passive targets
+    tree_lap, _ = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS,
+                             charge_scale=LAPLACE.charge_scale)
+    side = (np.arange(PROBE_SIDE) + 0.5) / PROBE_SIDE
+    probe_pos = np.stack(np.meshgrid(side, side), axis=-1).reshape(-1, 2)
+    probes, probe_index = build_tree(probe_pos, np.zeros(len(probe_pos)), level=level,
+                                     sigma=sigma, slots=PROBE_SLOTS)
+    require(bool(probes.mask.all()), "the probe grid does not fill every slot")
+    lap_rows = [check_p2p_mode(tree_lap, sigma, "laplace"),
+                check_p2p_mode(tree_lap, None, "laplace"),
+                check_p2p_mode(tree_lap, sigma, "laplace", holes=True)]
+    passive_rows = [check_p2p_mode(tree0, sigma, "base", targets=probes),
+                    check_p2p_mode(tree0, None, "base", targets=probes),
+                    check_p2p_mode(tree0, sigma, "base", targets=probes, holes=True)]
     me0 = fmm.upward_sweep(tree0, p)
     m2l_rows = [check_m2l(me0[level], level, p), check_m2l(me0[2], 2, p)]
     del me0
-    for row in p2p_rows + m2l_rows:
+    for row in p2p_rows + lap_rows + passive_rows + m2l_rows:
         emit({"phase": "kernel_vs_plain", **row})
 
     # -- 3. main path: build_tree -> fmm on the card, vs float64 ----------
-    p2p.LAUNCHES = 0
-    m2l.LAUNCHES = 0
     torch.cuda.synchronize()
+    zero_fmm_counts()
     t0 = time.perf_counter()
     tree, index = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS)
     torch.cuda.synchronize()
@@ -681,15 +900,27 @@ def main() -> None:
     launches = {"p2p": p2p.LAUNCHES, "m2l": m2l.LAUNCHES}
     require(launches["p2p"] >= 2 * STEPS and launches["m2l"] >= 18 * STEPS,
             f"main path launches {launches}")
+    require(fmm_counts()["p2p"] == {"base": launches["p2p"]},
+            f"vortex path P2P launches by mode {fmm_counts()['p2p']}")
     stage_ms(tree, p)                      # warm
     stages = stage_ms(tree, p)
     emit({"phase": "steps", "dt": DT, "steps": steps, "peak_bytes": peak,
           "stage_ms": stages, "launches": launches,
           "profile": device_profile(lambda: rk2_step(tree, DT, p=p, guard=True))})
-    del tree, index, w_sing, w_reg, tree0
+    del tree, index, w_sing, w_reg
     torch.cuda.empty_cache()
 
-    # -- 5. flash attention against its plain version ------------------------
+    # -- 5. main path: Laplace and tracer evaluations on the card, vs f64 ----
+    equations = equations_phase(dev, pos, gamma, sigma, p, tree0, index0, sample,
+                                tree_lap, probes, probe_pos, probe_index)
+    del tree_lap, probes
+    torch.cuda.empty_cache()
+
+    # -- 6. the host-side planner at the paper's counts and processor count -
+    plan_phase(index0.counts, level, p)
+    del tree0
+
+    # -- 7. flash attention against its plain version ------------------------
     # the tensor-core kernels' timed cases are the shape the serve phases'
     # prefills give them
     cfg = get_config(SERVE_ARCH)
@@ -729,7 +960,7 @@ def main() -> None:
     launches["flash_attn_simt"] = simt_rows[0]["launches"]["simt"]
     torch.cuda.empty_cache()
 
-    # -- 6. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
+    # -- 8. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
     serve, serve_launches = serve_phase(dev, cfg, SERVE_BATCH, SERVE_PROMPT,
                                         SERVE_NEW, SERVE_MAX_LEN, profile=True)
     emit({"phase": "serve", **serve})
@@ -739,7 +970,7 @@ def main() -> None:
     launches["flash_attn"] = serve_launches["tc"]
     torch.cuda.empty_cache()
 
-    # -- 7. main path: Yi-6B in f32, cut to 2 layers, on the 3xTF32 kernel -
+    # -- 9. main path: Yi-6B in f32, cut to 2 layers, on the 3xTF32 kernel -
     cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
     serve32, f32_launches = serve_phase(dev, cfg32, F32_BATCH, F32_PROMPT, F32_NEW,
                                         F32_PROMPT + F32_NEW, profile=False,
@@ -750,7 +981,7 @@ def main() -> None:
             f"{F32_LAYERS} 3xTF32 launches and no other")
     launches["flash_attn_tf32"] = f32_launches["tf32"]
 
-    # -- 8. card, kernels line, result ---------------------------------------
+    # -- 10. card, kernels line, result --------------------------------------
     def entry(rows, name, source, replaces, **extra):
         r = rows[0]
         e = {"name": name, "route": "cuda", "source": source,
@@ -763,30 +994,45 @@ def main() -> None:
             e["fp32_simt_bound_ms"] = r["fp32_simt_bound_ms"]
         return {**e, **extra}
 
+    def mode_entry(rows, counts, mode, counted_in):
+        r = rows[0]
+        return {"shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "rel_l2": max(x["rel_l2"] for x in rows),
+                "max_abs_err": max(x["max_abs_err"] for x in rows),
+                "launches": counts["p2p"][mode], "launches_counted_in": counted_in,
+                "library_ms": None}
+
     print(card, flush=True)
     emit({"kernels": [
         entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
               "src/repro/kernels/p2p.py:46",
-              runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"]),
+              runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"],
+              modes={"laplace": mode_entry(lap_rows, equations["laplace"], "laplace",
+                                           "phase 5: fmm_evaluate(eq=LAPLACE), singular"),
+                     "passive_targets": mode_entry(
+                         passive_rows, equations["tracer"], "base_passive",
+                         "phase 5: fmm_evaluate(eq=TRACER, targets=probe grid), "
+                         "singular")}),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43"),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
-              launches_counted_in="phase 6: step_all of bf16 Yi-6B (d = 128)",
+              launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",
               head_dim_256={
                   k: tc_rows[1][k] for k in (
                       "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                       "simt_ms_same_inputs", "strided_ms", "rel_l2", "strided_rel_l2",
                       "max_abs_err")}
               | {"launches": launches["flash_attn_d256"],
-                 "launches_counted_in": "phase 5: one ops.flash_attention call at "
+                 "launches_counted_in": "phase 7: one ops.flash_attention call at "
                                         "recurrentgemma-2b's attention, bf16"}),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
               "src/repro/kernels/flash_attn.py:32",
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"]),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:32",
-              launches_counted_in="phase 5: one ops.flash_attention call at "
+              launches_counted_in="phase 7: one ops.flash_attention call at "
                                   "recurrentgemma-2b's attention shape "
                                   "(4, 10, 1, 2048, 2048, 256) f32 causal"),
     ]})

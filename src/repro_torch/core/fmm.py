@@ -7,8 +7,10 @@ level grids.  M2L and P2P go through one slab-oriented path each
 kernels on the card, their plain PyTorch versions on the CPU.
 
 Every kernel-specific piece comes from an
-:class:`~repro_torch.core.equations.EquationSpec`; ``fmm_velocity`` is the
-vortex-kernel wrapper over the generic ``fmm_evaluate``.
+:class:`~repro_torch.core.equations.EquationSpec`; the drivers never branch
+on an equation's name.  ``fmm_velocity`` is the vortex-kernel wrapper over
+the generic ``fmm_evaluate``; passing ``targets`` evaluates the sources'
+field at a separate batch of passive target points (the ``tracer`` mode).
 """
 from __future__ import annotations
 
@@ -53,13 +55,17 @@ def m2l_grid_fn(p: int, eq=None):
     return fn
 
 
-def p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, eq=None):
+def p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
+                       eq=None):
     """Plain P2P over a slab with ±1 ghost rows/cols attached, through the
     spec's :meth:`pairwise` (the complex-division form for the vortex
-    kernel) — a second route beside the kernel's plain version."""
+    kernel) — a second route beside the kernel's plain version, and the
+    only one for a spec whose formula the kernel lacks.  ``z_tgt``
+    (rows, cols, st) evaluates the sources' field at separate target
+    points; None keeps source == target."""
     eq = eqs.get_equation(eq)
     rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
-    zt = z_halo[1:1 + rows, 1:1 + cols]
+    zt = z_halo[1:1 + rows, 1:1 + cols] if z_tgt is None else z_tgt
     out = None
     for (dx, dy) in P2P_OFFSETS:
         zs = z_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
@@ -71,13 +77,15 @@ def p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, eq=None):
 
 
 def p2p_slab_fn(eq=None):
-    """Returns ``fn(z_halo, q_halo, mask_halo, sigma) -> w`` over a slab
-    with ±1 ghost rows/cols attached, through the CUDA kernel for CUDA
-    tensors."""
+    """Returns ``fn(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
+    mask_tgt=None) -> w`` over a slab with ±1 ghost rows/cols attached,
+    through the CUDA kernel for CUDA tensors; ``z_tgt``/``mask_tgt``
+    select passive-target evaluation."""
     eq = eqs.get_equation(eq)
 
-    def fn(z_halo, q_halo, mask_halo, sigma):
-        return kops.p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, eq=eq)
+    def fn(z_halo, q_halo, mask_halo, sigma, z_tgt=None, mask_tgt=None):
+        return kops.p2p_apply_slab(z_halo, q_halo, mask_halo, sigma,
+                                   z_tgt=z_tgt, mask_tgt=mask_tgt, eq=eq)
     return fn
 
 
@@ -122,12 +130,17 @@ def downward_sweep(me: list[torch.Tensor], p: int,
     return le
 
 
-def near_field(tree: Tree, p2p_fn=None) -> torch.Tensor:
-    """P2P over the 3x3 stencil (the tree's sigma; None is singular)."""
+def near_field(tree: Tree, p2p_fn=None, z_tgt=None,
+               mask_tgt=None) -> torch.Tensor:
+    """P2P over the 3x3 stencil (the tree's sigma; None is singular).
+
+    ``z_tgt``/``mask_tgt`` (n, n, st) evaluate at passive targets instead
+    of the sources.  Returns (n, n, s|st[, C]).
+    """
     slab = p2p_fn or p2p_slab_fn()
     pad = (0, 0, 1, 1, 1, 1)
     return slab(F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(tree.mask, pad),
-                tree.sigma)
+                tree.sigma, z_tgt, mask_tgt)
 
 
 def _mask_channels(mask, out):
@@ -136,41 +149,59 @@ def _mask_channels(mask, out):
     return torch.where(m, out, 0)
 
 
-def fmm_evaluate(tree: Tree, p: int, eq=None, with_health: bool = False,
-                 device=None):
+def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
+                 with_health: bool = False, device=None):
     """Complete FMM evaluation of a registered equation.
 
     Returns (n, n, s) complex for single-channel equations, or
-    (n, n, s, eq.nout).  ``device`` (None: the CUDA card) must hold the
-    tree.  ``with_health=True`` additionally returns a ``health.N_FIELDS``
-    int32 health word (non-finite sentinels on the leaf expansion
-    coefficients and the masked output), as ``(out, health)``.
+    (n, n, s, eq.nout) in the spec's channel order (Laplace: potential,
+    field).  ``targets``, a second :class:`Tree` at the same level holding
+    passive target points (charges ignored), switches to source != target
+    evaluation: the output is per target slot, (n, n, st[, C]).
+    ``device`` (None: the CUDA card) must hold both trees.
+    ``with_health=True`` additionally returns a ``health.N_FIELDS`` int32
+    health word (non-finite sentinels on the leaf expansion coefficients
+    and the masked output), as ``(out, health)``.
     """
     eq = eqs.get_equation(eq)
+    if targets is None and eq.needs_targets:
+        raise ValueError(f"equation {eq.name!r} requires a targets tree")
+    if targets is not None and targets.level != tree.level:
+        raise ValueError("targets tree level != source tree level")
     dev = resolve_device(device)
     check_on(dev, tree.z, tree.q, tree.mask)
+    if targets is not None:
+        check_on(dev, targets.z, targets.mask)
+    if eq.q_is_real:
+        # real-charge equations read only Re q, as the reference does
+        tree = Tree(z=tree.z, q=torch.complex(tree.q.real,
+                                              torch.zeros_like(tree.q.real)),
+                    mask=tree.mask, level=tree.level, sigma=tree.sigma)
     L = tree.level
     p2p = p2p_slab_fn(eq)
+    zt = None if targets is None else targets.z
+    mt = None if targets is None else targets.mask
+    out_mask = tree.mask if targets is None else targets.mask
     if L < 2:
         # Tiny trees are all near field.
-        out = _mask_channels(tree.mask, near_field(tree, p2p_fn=p2p))
+        out = _mask_channels(out_mask, near_field(tree, p2p, zt, mt))
         if not with_health:
             return out
         return out, hw.with_flag(hw.empty(tree.device), hw.F_VEL,
-                                 hw.nonfinite(out, tree.mask))
+                                 hw.nonfinite(out, out_mask))
     me = upward_sweep(tree, p, eq)
     le = downward_sweep(me, p, m2l_fn=m2l_grid_fn(p, eq))
-    far = ex.l2p_eval(le[L], tree.z, _centers_on(L, tree.device), box_size(L),
-                      p, eq.l2p_modes)
-    near = near_field(tree, p2p_fn=p2p)
-    out = _mask_channels(tree.mask, far + near)
+    far = ex.l2p_eval(le[L], tree.z if zt is None else zt,
+                      _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes)
+    near = near_field(tree, p2p, zt, mt)
+    out = _mask_channels(out_mask, far + near)
     if not with_health:
         return out
     health = hw.empty(tree.device)
     health = hw.with_flag(health, hw.F_COEFF,
                           torch.maximum(hw.nonfinite(me[L]),
                                         hw.nonfinite(le[L])))
-    health = hw.with_flag(health, hw.F_VEL, hw.nonfinite(out, tree.mask))
+    health = hw.with_flag(health, hw.F_VEL, hw.nonfinite(out, out_mask))
     return out, health
 
 

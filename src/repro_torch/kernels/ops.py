@@ -22,16 +22,34 @@ from . import m2l as _m2l
 from . import p2p as _p2p
 
 
-def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, eq=None):
-    """P2P over a slab with ±1 ghost rows/cols attached -> (rows, cols, s)."""
+def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
+                   mask_tgt=None, eq=None):
+    """P2P over a slab with ±1 ghost rows/cols attached -> (rows, cols, st)
+    or (rows, cols, st, eq.nout); ``z_tgt``/``mask_tgt`` (rows, cols, st)
+    are passive targets (None: the sources, ``st = s``).  Masked targets
+    get 0.
+
+    A spec whose ``p2p_terms`` the kernel computes (``equations.p2p_mode``)
+    goes to the kernel or its plain version; any other runs on the CPU
+    through its own ``pairwise`` (``fmm.p2p_slab_reference``) and raises on
+    the card.
+    """
     eq = eqs.get_equation(eq)
-    if not eqs.uses_base_p2p(eq):
-        raise NotImplementedError(
-            f"the P2P kernel implements the vortex pair formula; equation "
-            f"{eq.name!r} overrides it")
+    mode = eqs.p2p_mode(eq)
+    if mode is None:
+        if z_halo.device.type != "cpu":
+            raise NotImplementedError(
+                f"the P2P kernel computes the base and Laplace pair formulas; "
+                f"equation {eq!r} defines its own")
+        from ..core.fmm import p2p_slab_reference
+        out = p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, z_tgt=z_tgt,
+                                 eq=eq)
+        live = mask_halo[1:-1, 1:-1] if z_tgt is None else mask_tgt
+        return torch.where(live if out.ndim == 3 else live[..., None], out, 0)
     if z_halo.device.type == "cpu":
-        return _p2p.p2p_plain(z_halo, q_halo, mask_halo, sigma)
-    return _p2p.p2p_cuda(z_halo, q_halo, mask_halo, sigma)
+        return _p2p.p2p_plain(z_halo, q_halo, mask_halo, sigma, z_tgt, mask_tgt,
+                              mode)
+    return _p2p.p2p_cuda(z_halo, q_halo, mask_halo, sigma, z_tgt, mask_tgt, mode)
 
 
 def m2l_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

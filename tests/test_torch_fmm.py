@@ -9,7 +9,7 @@ from repro.core import health as jhw
 from repro.core import quadtree as jqt
 from repro_torch.core import equations as eqs
 from repro_torch.core import fmm, health as hw, vortex
-from repro_torch.core.quadtree import build_tree, gather_particle_values
+from repro_torch.core.quadtree import build_tree, gather_particle_values, tree_from_numpy
 
 
 def _rel(a, b):
@@ -137,10 +137,56 @@ def test_equation_registry():
 
     with pytest.raises(ValueError, match="already registered"):
         eqs.register(Other())
-    assert eqs.uses_base_p2p(eqs.VORTEX)
+    assert eqs.p2p_mode(eqs.VORTEX) == "base"
 
 
 def test_fmm_rejects_a_tree_on_another_device():
     _, _, _, tt, _ = _random_case(100, 0, 2)
     with pytest.raises(ValueError, match="expected"):
         fmm.fmm_velocity(tt, 8, device="meta")
+
+
+def _doubled(base):
+    """A spec whose near field is twice the base formula's: a ``p2p_terms``
+    the CUDA kernel does not compute."""
+
+    class Doubled(base):
+        name = "doubled-p2p"
+
+        def p2p_terms(self, *args):
+            return [(2 * re, 2 * im) for re, im in super().p2p_terms(*args)]
+
+    return Doubled()
+
+
+def test_spec_without_a_kernel_formula_runs_its_pairwise_route_on_cpu():
+    """A registered equation whose ``p2p_terms`` the kernel lacks runs on
+    the CPU through its own ``pairwise`` (``fmm.p2p_slab_reference``), as
+    the reference's plain route does, and matches it."""
+    from repro.core import equations as jeqs
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0.05, 0.95, size=(300, 2))
+    gamma = rng.normal(size=300)
+    jt, _ = jqt.build_tree(pos, gamma, level=3, sigma=0.02)
+    tt = tree_from_numpy(np.asarray(jt.z), np.asarray(jt.q), np.asarray(jt.mask),
+                         3, 0.02, device="cpu")
+    spec = _doubled(eqs.EquationSpec)
+    assert eqs.p2p_mode(spec) is None
+    got = fmm.fmm_evaluate(tt, 8, eq=spec, device="cpu").numpy()
+    want = np.asarray(jfmm.fmm_evaluate(jt, 8, eq=_doubled(jeqs.EquationSpec),
+                                        use_kernels=False))
+    assert got.shape == want.shape == (8, 8, tt.slots)
+    assert np.isfinite(got).all()
+    mask = np.asarray(jt.mask)
+    assert _rel(np.where(mask, got, 0), np.where(mask, want, 0)) < 1e-5
+    # the doubling shows: the vortex near field differs
+    base = fmm.fmm_evaluate(tt, 8, device="cpu").numpy()
+    assert _rel(got, base) > 1e-2
+
+
+def test_spec_without_a_kernel_formula_raises_off_the_cpu():
+    from repro_torch.kernels import ops
+    zh = torch.zeros((6, 6, 2), dtype=torch.complex64, device="meta")
+    mh = torch.zeros((6, 6, 2), dtype=torch.bool, device="meta")
+    with pytest.raises(NotImplementedError, match="doubled-p2p"):
+        ops.p2p_apply_slab(zh, zh, mh, 0.02, eq=_doubled(eqs.EquationSpec))

@@ -50,9 +50,10 @@ def _halo(*arrays):
 def jx():
     """The reference package's jnp routes (imported here, not at the top)."""
     import jax.numpy as jnp
-    from repro.core import expansions, fmm
+    from repro.core import equations, expansions, fmm
     from repro.kernels import ref as jref
-    return SimpleNamespace(jnp=jnp, ex=expansions, fmm=fmm, ref=jref)
+    return SimpleNamespace(jnp=jnp, eqs=equations, ex=expansions, fmm=fmm,
+                           ref=jref)
 
 
 @pytest.fixture
@@ -216,6 +217,181 @@ def test_p2p_kernel_rejects_bad_inputs(cuda):
         p2p.p2p_cuda(zh.transpose(0, 1), qh.transpose(0, 1), mh.transpose(0, 1), 0.05)
     with pytest.raises(ValueError, match="match"):
         p2p.p2p_cuda(zh, qh[:-1].contiguous(), mh, 0.05)
+
+
+# ---------------------------------------------------------------------------
+# P2P's two-channel (Laplace) and passive-target modes
+# ---------------------------------------------------------------------------
+
+# (mode, passive): the kernel's formulas and target modes beside the vortex
+# kernel at the sources
+NEW_MODES = [("laplace", False), ("base", True), ("laplace", True)]
+NOUT = {"base": 1, "laplace": 2}
+
+
+def _targets(ny, nx, st, seed):
+    """Passive targets: random points, about a third of the slots masked
+    (dead slots keep random z, which must be ignored), and a few probes
+    placed on a source to hit the r2 > 0 exclusion."""
+    rng = np.random.default_rng(seed)
+    zt = (rng.uniform(size=(ny, nx, st)) + 1j * rng.uniform(size=(ny, nx, st))).astype(np.complex64)
+    mt = rng.uniform(size=(ny, nx, st)) > 0.3
+    return zt, mt
+
+
+def _mode_inputs(ny, nx, s, st, passive, seed, device="cpu"):
+    """Halo'd sources with holes in prefix-filled slots, on a grid whose
+    ghost rows and columns hold live sources (the slab form), and passive
+    targets or None."""
+    zh, qh, mh = _holed(ny + 2, nx + 2, s, seed)
+    zt = mt = None
+    if passive:
+        zt, mt = _targets(ny, nx, st, seed + 1)
+        zt[0, 0, 0] = zh[1, 1, 0]          # a probe on a source (if live)
+    put = lambda a: None if a is None else torch.as_tensor(a, device=device)  # noqa: E731
+    return tuple(put(a) for a in (zh, qh, mh, zt, mt))
+
+
+def _live(mh, mt, out):
+    m = mh[1:-1, 1:-1] if mt is None else mt
+    return m if out.ndim == 3 else m[..., None]
+
+
+@pytest.mark.parametrize("mode,passive", NEW_MODES)
+@pytest.mark.parametrize("ny,nx,s,st", [(4, 4, 3, 5), (9, 8, 8, 4), (5, 7, 1, 2),
+                                        (6, 6, 8, 8), (4, 5, 16, 3)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_plain_modes_match_reference(jx, mode, passive, ny, nx, s, st, sigma):
+    """The plain version's new modes against the reference's
+    ``p2p_slab_reference(..., z_tgt=, eq=)``: rel 1e-5 over live targets,
+    exact zeros at masked ones, ``st != s`` and ragged grids."""
+    jnp = jx.jnp
+    zh, qh, mh, zt, mt = _mode_inputs(ny, nx, s, st, passive, ny * 97 + nx + s)
+    out = p2p.p2p_plain(zh, qh, mh, sigma, zt, mt, mode).numpy()
+    jeq = jx.eqs.LAPLACE if mode == "laplace" else jx.eqs.VORTEX
+    want = np.asarray(jx.fmm.p2p_slab_reference(
+        jnp.asarray(zh.numpy()), jnp.asarray(qh.numpy()), jnp.asarray(mh.numpy()),
+        sigma, z_tgt=None if zt is None else jnp.asarray(zt.numpy()), eq=jeq))
+    tgt = (ny, nx, st if passive else s)
+    assert out.shape == want.shape == tgt + ((2,) if mode == "laplace" else ())
+    live = _live(mh, mt, out).numpy()
+    live = np.broadcast_to(live, out.shape)
+    assert 0 < live.sum() < live.size
+    assert _rel(np.where(live, out, 0), np.where(live, want, 0)) < 1e-5
+    assert np.all(out[~live] == 0)
+
+
+def test_p2p_laplace_plain_channels_are_the_spec_formula():
+    """Channel 1 is the field ``-q/dz``: for real charges, minus the vortex
+    formula with the same charges."""
+    zh, qh, mh, _, _ = _mode_inputs(6, 7, 4, 4, False, 5)
+    qh = torch.complex(qh.real, torch.zeros_like(qh.real))
+    lap = p2p.p2p_plain(zh, qh, mh, 0.05, mode="laplace")
+    vor = p2p.p2p_plain(zh, qh, mh, 0.05)
+    assert _rel(lap[..., 1].numpy(), -vor.numpy()) < 1e-6
+
+
+def test_p2p_launch_fits_a_hopper_block_in_every_mode():
+    """Every (s, st, nout) the wrapper takes launches within one block's
+    shared memory and threads; the vortex launch at the paper's slots is
+    the one the compile-time instance is built for."""
+    for nout in (1, 2):
+        for s in range(1, p2p.MAX_SLOTS + 1):
+            for st in range(1, p2p.MAX_SLOTS + 1):
+                ty, tx, threads, smem = p2p.launch_config(s, st, nout)
+                assert (ty, tx) in p2p.TILES
+                assert smem == p2p.smem_bytes(ty, tx, s, st, nout) <= p2p.MAX_SMEM
+                assert threads % 32 == 0 and (ty + 2) * (tx + 2) <= threads <= 1024
+                assert smem >= (ty + 2) * (tx + 2) * s * 16 + ty * tx * st * nout * 8
+    assert p2p.launch_config(8) == p2p.launch_config(8, 8, 1)
+    assert p2p.launch_config(8, 8, 2)[:2] == (8, 16)      # Laplace, paper's slots
+    assert p2p.launch_config(8, 4, 1)[:2] == (16, 16)     # probes, 4 a box
+    with pytest.raises(ValueError, match="channels"):
+        p2p.launch_config(8, 8, 3)
+    with pytest.raises(ValueError, match="slots"):
+        p2p.launch_config(8, p2p.MAX_SLOTS + 1)
+
+
+@pytest.mark.parametrize("mode,passive", NEW_MODES)
+def test_p2p_dispatch_takes_plain_modes_on_cpu(mode, passive):
+    from repro_torch.core import equations as eqs
+    zh, qh, mh, zt, mt = _mode_inputs(5, 6, 4, 3, passive, 9)
+    eq = eqs.LAPLACE if mode == "laplace" else eqs.TRACER
+    before = dict(p2p.LAUNCHES_BY_MODE), p2p.LAUNCHES
+    out = ops.p2p_apply_slab(zh, qh, mh, 0.05, z_tgt=zt, mask_tgt=mt, eq=eq)
+    assert (dict(p2p.LAUNCHES_BY_MODE), p2p.LAUNCHES) == before
+    assert torch.equal(out, p2p.p2p_plain(zh, qh, mh, 0.05, zt, mt, mode))
+
+
+def _first_shape_of(tile, nout, passive):
+    """The least (s, st) whose launch takes ``tile`` in a mode; passive
+    targets take st = 2s (at most MAX_SLOTS)."""
+    for s in range(1, p2p.MAX_SLOTS + 1):
+        st = min(2 * s, p2p.MAX_SLOTS) if passive else s
+        if p2p.launch_config(s, st, nout)[:2] == tile:
+            return s, st
+    return None
+
+
+@pytest.mark.parametrize("mode,passive", NEW_MODES)
+@pytest.mark.parametrize("tile", p2p.TILES)
+def test_p2p_every_tile_is_the_launch_of_some_shape_in_every_mode(mode, passive, tile):
+    assert _first_shape_of(tile, NOUT[mode], passive) is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,passive", NEW_MODES)
+@pytest.mark.parametrize("ny,nx,s,st", [(4, 4, 3, 5), (13, 11, 5, 5), (40, 40, 1, 4),
+                                        (23, 37, 3, 7), (64, 48, 8, 4),
+                                        (37, 70, 8, 8), (19, 21, 16, 2)])
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_kernel_modes_match_plain(cuda, mode, passive, ny, nx, s, st, sigma):
+    """Each new mode of the kernel against its plain version on the card:
+    holes in the source masks, masked targets, ragged grids, live ghost
+    rows and columns; masked targets get exactly 0."""
+    zh, qh, mh, zt, mt = _mode_inputs(ny, nx, s, st, passive, ny * 7 + nx + s, cuda)
+    key = mode + ("_passive" if passive else "")
+    before, total = p2p.LAUNCHES_BY_MODE[key], p2p.LAUNCHES
+    got = p2p.p2p_cuda(zh, qh, mh, sigma, zt, mt, mode)
+    torch.cuda.synchronize()
+    assert (p2p.LAUNCHES_BY_MODE[key], p2p.LAUNCHES) == (before + 1, total + 1)
+    want = p2p.p2p_plain(zh, qh, mh, sigma, zt, mt, mode)
+    live = _live(mh, mt, got).expand(got.shape)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,passive", NEW_MODES)
+@pytest.mark.parametrize("tile", p2p.TILES)
+def test_p2p_kernel_modes_match_plain_on_every_tile(cuda, mode, passive, tile):
+    """Each tile at the least shape that takes it in each mode, on a grid
+    ragged in both directions, with holes in the masks."""
+    s, st = _first_shape_of(tile, NOUT[mode], passive)
+    ny, nx = 2 * tile[0] + 1, 2 * tile[1] + 3
+    zh, qh, mh, zt, mt = _mode_inputs(ny, nx, s, st, passive, s, cuda)
+    assert p2p.launch_config(s, st, NOUT[mode])[:2] == tile
+    got = p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt, mode)
+    want = p2p.p2p_plain(zh, qh, mh, 0.05, zt, mt, mode)
+    live = _live(mh, mt, got).expand(got.shape)
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_p2p_kernel_rejects_bad_mode_inputs(cuda):
+    zh, qh, mh, zt, mt = _mode_inputs(4, 4, 2, 3, True, 0, cuda)
+    with pytest.raises(ValueError, match="mode"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, mode="stokes")
+    with pytest.raises(ValueError, match="together"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt, None)
+    with pytest.raises(ValueError, match="z_tgt"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt[:-1].contiguous(), mt[:-1].contiguous())
+    with pytest.raises(ValueError, match="mask_tgt"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt[..., :-1].contiguous())
+    with pytest.raises(ValueError, match="complex64"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt.to(torch.complex128), mt)
 
 
 # ---------------------------------------------------------------------------
