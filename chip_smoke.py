@@ -50,12 +50,16 @@ Phases, each printing one JSON line:
               one ``tc`` launch and no other), and at ragged T = S (77,
               1000, 2079), T < S, T > S, non-causal, Hkv 1, 4 and H, d 64,
               128 and 256, T = 1; the 3xTF32 kernel in f32 at the prefill
-              shape, ragged T = S (1000, 2079), T < S, T > S, non-causal,
-              Hkv 1, d 64 and T = 1; the SIMT kernel at recurrentgemma-2b's
-              attention in f32 through ``ops.flash_attention`` (its main
-              path: one ``simt`` launch and no other), the same attention
-              in bf16 on the kernel itself, f32 at d 64 and 32 and a bf16
-              d = 40 case.  Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
+              shape, at recurrentgemma-2b's attention in f32 through
+              ``ops.flash_attention`` (its d = 256 main path: one ``tf32``
+              launch and no other), ragged T = S (77, 1000, 2079), T < S,
+              T > S, non-causal, Hkv 1, d 64 and 256 and T = 1; the SIMT
+              kernel itself at recurrentgemma-2b's attention in f32 (timed:
+              its time before the 3xTF32 route took d = 256), at f32 d = 32
+              through ``ops.flash_attention`` (its main path, a head dim
+              only it takes: one ``simt`` launch and no other), and the
+              d = 256 attention in bf16, f32 at d 64 and a bf16 d = 40
+              case.  Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
               rounding alone is 2e-3, the tensor-core kernel's bf16 P about
               2e-3).  At the timed shapes: kernel, plain, bound and SDPA
               (yardstick) milliseconds; the tensor-core routes also on the
@@ -84,9 +88,9 @@ Phases, each printing one JSON line:
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
-kernels, phase 7's two recurrentgemma-2b calls for the bf16 tensor-core
-kernel at d = 256 and the SIMT one) and read right after it: every kernel
-must have run there.  Then come the card's
+kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
+kernels at d = 256 and its f32 d = 32 call for the SIMT one) and read
+right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -157,11 +161,13 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 # 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
 # 4 x 2048 tokens; the port's full-width head dim 256
 RG_ATTN = (4, 10, 1, 2048, 2048, 256, True)
-# (B, H, Hkv, T, S, d, causal, dtype); the first of each is the shape of its
-# main path, timed: the serve phases' prefill (Yi-6B, 4 x 2048) for the
-# tensor-core kernels, recurrentgemma-2b's attention in f32 for the SIMT
-# one; the bf16 tensor-core kernel's second case, recurrentgemma-2b's
-# attention in bf16, is its d = 256 main path, timed too
+# (B, H, Hkv, T, S, d, causal, dtype); the first of each is timed: the
+# serve phases' prefill (Yi-6B, 4 x 2048) for the tensor-core kernels,
+# their main path at d = 128; recurrentgemma-2b's attention in f32 for the
+# SIMT kernel, its time before the 3xTF32 route took d = 256.  The second:
+# recurrentgemma-2b's attention is each tensor-core kernel's d = 256 main
+# path, timed too; f32 at d = 32, a head dim only the SIMT kernel takes, is
+# its main path
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (*RG_ATTN, torch.bfloat16),
             (2, 4, 4, 77, 77, 256, True, torch.bfloat16),
@@ -179,6 +185,13 @@ TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (1, 8, 8, 129, 129, 64, True, torch.bfloat16),
             (1, 2, 2, 1, 1, 64, True, torch.bfloat16)]
 TF32_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
+              (*RG_ATTN, torch.float32),
+              (2, 4, 4, 77, 77, 256, True, torch.float32),
+              (1, 4, 1, 2079, 2079, 256, True, torch.float32),
+              (1, 4, 2, 100, 300, 256, True, torch.float32),
+              (1, 4, 2, 300, 100, 256, True, torch.float32),
+              (2, 4, 4, 200, 333, 256, False, torch.float32),
+              (1, 2, 2, 1, 1, 256, True, torch.float32),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
               (1, 4, 1, 2079, 2079, 128, True, torch.float32),
               (1, 4, 2, 100, 300, 128, True, torch.float32),
@@ -186,9 +199,9 @@ TF32_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
               (2, 4, 4, 200, 333, 128, False, torch.float32),
               (1, 2, 2, 1, 1, 64, True, torch.float32)]
 SIMT_CASES = [(*RG_ATTN, torch.float32),
+              (1, 2, 2, 64, 192, 32, False, torch.float32),
               (*RG_ATTN, torch.bfloat16),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
-              (1, 2, 2, 64, 192, 32, False, torch.float32),
               (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
@@ -653,9 +666,10 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
     ve = v.repeat_interleave(H // Hkv, dim=1)
     lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
-    if flash_attn.route(q, k) in ("tc", "tf32"):
-        # the model's (B, T, H, d) -> (B, H, T, d) views, and the SIMT kernel
-        # on the same inputs (its time before the tensor-core routes)
+    if kernel is not flash_attn.flash_attention_cuda:
+        # a tensor-core route: the model's (B, T, H, d) -> (B, H, T, d)
+        # views, and the SIMT kernel on the same inputs (its time before
+        # the tensor-core routes)
         qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
         got_v = kernel(qv, kv, vv, causal=causal)
         torch.cuda.synchronize()
@@ -929,35 +943,45 @@ def main() -> None:
     require(TC_CASES[0][:7] == TF32_CASES[0][:7] == prefill_shape
             and (F32_BATCH, F32_PROMPT) == (SERVE_BATCH, SERVE_PROMPT),
             f"timed flash cases differ from the prefill shape {prefill_shape}")
-    require(TC_CASES[1][:7] == SIMT_CASES[0][:7] == SIMT_CASES[1][:7] == RG_ATTN,
+    require(TC_CASES[1][:7] == TF32_CASES[1][:7] == SIMT_CASES[0][:7]
+            == SIMT_CASES[2][:7] == RG_ATTN,
             "recurrentgemma-2b's attention is not the d = 256 cases' shape")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    # recurrentgemma-2b's attention through the dispatcher, counted: in bf16
-    # the tensor-core kernel's d = 256 main path, in f32 the SIMT kernel's;
-    # the other cases run on each kernel itself
+    # through the dispatcher, counted: recurrentgemma-2b's attention, the
+    # d = 256 main path of the bf16 tensor-core kernel and of the 3xTF32
+    # one, and f32 at d = 32, the SIMT kernel's; the other cases run on
+    # each kernel itself
     tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *TC_CASES[0],
                            gen=gen, timed=True),
                check_flash("flash_attn", ops.flash_attention, *TC_CASES[1],
                            gen=gen, timed=True, main_path=True)]
     tc_rows += [check_flash("flash_attn", flash_attn.flash_attention_tc, *case,
                             gen=gen, timed=False) for case in TC_CASES[2:]]
-    tf32_rows = [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
-                             gen=gen, timed=(i == 0)) for i, case in enumerate(TF32_CASES)]
-    simt_rows = [check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[0],
+    tf32_rows = [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32,
+                             *TF32_CASES[0], gen=gen, timed=True),
+                 check_flash("flash_attn_tf32", ops.flash_attention, *TF32_CASES[1],
                              gen=gen, timed=True, main_path=True)]
+    tf32_rows += [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
+                              gen=gen, timed=False) for case in TF32_CASES[2:]]
+    simt_rows = [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda,
+                             *SIMT_CASES[0], gen=gen, timed=True),
+                 check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[1],
+                             gen=gen, timed=False, main_path=True)]
     simt_rows += [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
-                              gen=gen, timed=False) for case in SIMT_CASES[1:]]
+                              gen=gen, timed=False) for case in SIMT_CASES[2:]]
     for row in tc_rows + tf32_rows + simt_rows:
         emit({"phase": "attn_vs_plain", **row})
-    require(tc_rows[1]["launches"] == {"tc": 1, "tf32": 0, "simt": 0},
-            f"recurrentgemma-2b attention in bf16 launched {tc_rows[1]['launches']}, "
-            f"expected one tensor-core launch and no other")
-    require(simt_rows[0]["launches"] == {"tc": 0, "tf32": 0, "simt": 1},
-            f"recurrentgemma-2b attention in f32 launched {simt_rows[0]['launches']}, "
-            f"expected one SIMT launch and no other")
+    for rows, route, what in ((tc_rows, "tc", "recurrentgemma-2b attention in bf16"),
+                              (tf32_rows, "tf32", "recurrentgemma-2b attention in f32"),
+                              (simt_rows, "simt", "f32 attention at d = 32")):
+        want = {r: int(r == route) for r in ("tc", "tf32", "simt")}
+        require(rows[1]["launches"] == want,
+                f"{what} launched {rows[1]['launches']}, expected one {route} "
+                f"launch and no other")
     launches["flash_attn_d256"] = tc_rows[1]["launches"]["tc"]
-    launches["flash_attn_simt"] = simt_rows[0]["launches"]["simt"]
+    launches["flash_attn_tf32_d256"] = tf32_rows[1]["launches"]["tf32"]
+    launches["flash_attn_simt"] = simt_rows[1]["launches"]["simt"]
     torch.cuda.empty_cache()
 
     # -- 8. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
@@ -994,6 +1018,15 @@ def main() -> None:
             e["fp32_simt_bound_ms"] = r["fp32_simt_bound_ms"]
         return {**e, **extra}
 
+    def d256_block(r, counted, dtype):
+        return {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "fp32_simt_bound_ms",
+            "library_ms", "simt_ms_same_inputs", "strided_ms", "rel_l2",
+            "strided_rel_l2", "max_abs_err")} | {
+            "launches": launches[counted],
+            "launches_counted_in": "phase 7: one ops.flash_attention call at "
+                                   f"recurrentgemma-2b's attention, {dtype}"}
+
     def mode_entry(rows, counts, mode, counted_in):
         r = rows[0]
         return {"shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1019,22 +1052,18 @@ def main() -> None:
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",
-              head_dim_256={
-                  k: tc_rows[1][k] for k in (
-                      "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                      "simt_ms_same_inputs", "strided_ms", "rel_l2", "strided_rel_l2",
-                      "max_abs_err")}
-              | {"launches": launches["flash_attn_d256"],
-                 "launches_counted_in": "phase 7: one ops.flash_attention call at "
-                                        "recurrentgemma-2b's attention, bf16"}),
+              head_dim_256=d256_block(tc_rows[1], "flash_attn_d256", "bf16")),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
               "src/repro/kernels/flash_attn.py:32",
-              simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"]),
+              launches_counted_in="phase 9: step_all of 2-layer f32 Yi-6B (d = 128)",
+              simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"],
+              head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:32",
+              shape=simt_rows[0]["shape"],
               launches_counted_in="phase 7: one ops.flash_attention call at "
-                                  "recurrentgemma-2b's attention shape "
-                                  "(4, 10, 1, 2048, 2048, 256) f32 causal"),
+                                  "(1, 2, 2, 64, 192, 32) f32 non-causal, a head "
+                                  "dim only the SIMT kernel takes"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,11 @@ q's dtype.  :func:`route` picks one by device, dtype and head dim alone:
   d 64, 128 or 256, strided inputs included;
 - ``"tf32"``: ``flash_attention_tf32`` launches
   ``csrc/flash_attn_tf32.cu`` on the TF32 tensor cores with a 3xTF32
-  split (f32 accuracy; no single TF32 pass) for f32 with d 64 or 128,
-  strided inputs included;
+  split (f32 accuracy; no single TF32 pass) for f32 with d 64, 128 or
+  256, strided inputs included;
 - ``"simt"``: ``flash_attention_cuda`` launches ``csrc/flash_attn.cu``
-  (FP32 SIMT FMAs) for every other CUDA case: other head dims up to 256
-  in bf16 or f32, and f32 at d 256;
+  (FP32 SIMT FMAs) for every other CUDA case: the other head dims up to
+  256, in bf16 or f32;
 - ``"plain"``: ``flash_attention_plain`` for a CPU tensor.
 
 The causal mask is the TPU kernel's **top-left** one: key ``kpos`` is hidden
@@ -31,7 +31,9 @@ operations, 137.5 GFLOP against 151 MB of traffic in bf16 (302 MB in f32):
 0.139 ms on the bf16 tensor cores, 0.833 ms for the three TF32 passes of
 an f32 product at 495 TFLOP/s (2.05 ms at the 67 TFLOP/s FP32 SIMT peak).
 At recurrentgemma-2b's attention (4, 10, 1, 2048, 256), causal: 85.9
-GFLOP, 0.0869 ms in bf16.
+GFLOP, 0.0869 ms in bf16; in f32 0.521 ms for the three TF32 passes
+against 185 MB of traffic (0.055 ms), so operations bound it (1.283 ms at
+the FP32 SIMT peak).
 Design: see the notes in the CUDA sources.
 
 ``flash_attention_plain`` is the same function in plain PyTorch; the CPU
@@ -50,7 +52,7 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
 TC_HEAD_DIMS = (64, 128, 256)   # head dims of the bf16 tensor-core kernel
-TF32_HEAD_DIMS = (64, 128)      # head dims of the 3xTF32 tensor-core kernel
+TF32_HEAD_DIMS = (64, 128, 256)  # head dims of the 3xTF32 tensor-core kernel
 MAX_SMEM = 232_448              # bytes of shared memory one block may use on Hopper
 
 LAUNCHES = 0        # SIMT kernel launches since the last reset
@@ -84,6 +86,25 @@ def tc_launch_config(d: int) -> tuple[int, int, int]:
                          f"{TC_HEAD_DIMS}")
     bk = 64 if d == 256 else 128
     return bk, 256, 128 * d * 2 + 2 * (2 * bk * d * 2) + 64 + 1024
+
+
+def tf32_launch_config(d: int) -> tuple[int, int, int, int]:
+    """``(query rows per block, keys per tile, threads, shared-memory
+    bytes)`` of the 3xTF32 kernel at head dim ``d``, as
+    ``csrc/flash_attn_tf32.cu``'s ``Smem<d>`` lays it out (the launch
+    refuses any other triple), all f32, two warpgroups, 32-key tiles, 64
+    bytes of barriers and 1 KB of alignment slack.  At d 64 and 128 a
+    block owns 128 rows, 64 a warpgroup: Q's hi and lo, a 2-stage ring of
+    raw K tiles, K's lo and V^T's hi and lo.  At d = 256, where Q alone
+    would be 256 KB, it owns 64 rows and the warpgroups split O's columns:
+    Q's hi and lo, one raw tile that TMA lands K and then V in, and a
+    K-tile-sized region per warpgroup that holds in turn its half of K's
+    hi and lo, its partial S and its V^T's hi and lo."""
+    if d not in TF32_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the 3xTF32 kernel takes d in "
+                         f"{TF32_HEAD_DIMS}")
+    bq, k_tiles = (64, 3) if d == 256 else (128, 5)
+    return bq, 32, 256, 2 * bq * d * 4 + k_tiles * 32 * d * 4 + 64 + 1024
 
 
 def _check_shapes(q, k, v):
@@ -261,15 +282,16 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """Launch the 3xTF32 tensor-core flash-attention kernel; same contract
-    as :func:`flash_attention_plain` for f32 with d 64 or 128, held to f32
-    accuracy (three TF32 passes per product, no single pass).
+    as :func:`flash_attention_plain` for f32 with d 64, 128 or 256, held to
+    f32 accuracy (three TF32 passes per product, no single pass).
 
     q, k and v may be strided views (a unit stride in d, every other stride
     a multiple of 4 elements); the output is laid out as
     :func:`flash_attention_tc`'s.
     """
     global TF32_LAUNCHES
+    bq, bk, _, smem = tf32_launch_config(q.shape[-1])
     out = _launch_tma("3xTF32", "flash_attn_tf32", torch.float32, TF32_HEAD_DIMS,
-                      q, k, v, causal)
+                      q, k, v, causal, extra=(bq, bk, smem))
     TF32_LAUNCHES += 1
     return out

@@ -156,8 +156,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain version, on the card; each case counts one
 # launch of the kernel that ``route`` names (d 64, 128 or 256 in bf16 takes
-# the bf16 tensor-core kernel, d 64 or 128 in f32 the 3xTF32 kernel, the
-# others the SIMT kernel)
+# the bf16 tensor-core kernel, in f32 the 3xTF32 kernel, the others the SIMT
+# kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -177,6 +177,16 @@ GPU_CASES = [
     (1, 2, 2, 1, 1, 64, True, torch.float32),           # one token
     (1, 2, 2, 1, 1, 128, True, torch.float32),
     (1, 4, 2, 1, 50, 128, False, torch.float32),        # one query
+    # 3xTF32 route at d 256 (64-row blocks, the warpgroups split O's columns)
+    (1, 4, 1, 130, 130, 256, True, torch.float32),      # two row blocks and two rows
+    (1, 10, 1, 300, 300, 256, True, torch.float32),     # recurrentgemma-2b's heads
+    (2, 4, 4, 77, 77, 256, True, torch.float32),        # ragged T = S
+    (1, 4, 1, 2079, 2079, 256, True, torch.float32),    # teacher-forced T, Hkv 1
+    (1, 4, 2, 100, 300, 256, True, torch.float32),      # T < S, top-left mask
+    (1, 4, 2, 300, 100, 256, True, torch.float32),      # T > S
+    (2, 4, 4, 200, 333, 256, False, torch.float32),     # not causal
+    (1, 2, 2, 1, 1, 256, True, torch.float32),          # one token
+    (1, 4, 2, 1, 50, 256, False, torch.float32),        # one query
     # tensor-core route
     (2, 4, 4, 77, 77, 128, True, torch.bfloat16),      # ragged T = S, Hkv = H
     (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),   # ragged, GQA 4:1
@@ -200,8 +210,6 @@ GPU_CASES = [
     (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention
     (1, 2, 1, 33, 100, 8, True, torch.float32),        # T < S, top-left
     (1, 4, 2, 100, 33, 40, True, torch.bfloat16),      # T > S, 10 column chunks
-    (1, 4, 1, 130, 130, 256, True, torch.float32),     # widest head
-    (1, 10, 1, 300, 300, 256, True, torch.float32),    # f32 at d 256
     (2, 2, 1, 65, 65, 200, False, torch.bfloat16),     # 50 column chunks
     (1, 1, 1, 1, 1, 16, True, torch.float32),          # one token
 ]
@@ -223,6 +231,26 @@ def test_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal, dtype):
     assert bool(torch.isfinite(got).all())
     tol = 1e-5 if dtype == torch.float32 else 5e-3
     assert _rel(got.cpu(), want.cpu()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,S,causal", [
+    (1, 4, 1, 130, 130, True),      # widest head
+    (1, 10, 1, 300, 300, True),     # recurrentgemma-2b's heads
+    (1, 4, 2, 100, 300, False),     # T < S, not causal
+])
+def test_simt_kernel_at_f32_head_dim_256(cuda, B, H, Hkv, T, S, causal):
+    """The SIMT kernel itself at f32 d = 256, which the dispatcher now sends
+    to the 3xTF32 route: still within 1e-5 of the plain version."""
+    q, k, v = (torch.tensor(a, device=cuda)
+               for a in _qkv(B, H, Hkv, T, S, 256, T * 7 + 256))
+    before = fa.LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
 
 
 @pytest.mark.gpu

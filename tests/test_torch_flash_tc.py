@@ -75,7 +75,7 @@ def cuda():
     ("cuda", torch.float32, torch.float32, 128, "tf32"),   # f32: 3xTF32 split
     ("cuda", torch.float32, torch.float32, 64, "tf32"),
     ("cuda", torch.float32, torch.float32, 32, "simt"),    # other f32 head dims
-    ("cuda", torch.float32, torch.float32, 256, "simt"),   # f32 at 256: SIMT
+    ("cuda", torch.float32, torch.float32, 256, "tf32"),   # f32 at 256: 3xTF32 split
     ("cuda", torch.float32, torch.bfloat16, 64, "simt"),   # mixed: SIMT raises
     ("cuda", torch.bfloat16, torch.bfloat16, 16, "simt"),  # other head dims
     ("cuda", torch.bfloat16, torch.bfloat16, 96, "simt"),
@@ -107,7 +107,7 @@ def test_tc_wrapper_rejects_what_the_kernel_does_not_take(make, match):
     (lambda: _qkv(1, 4, 2, 16, 16, 64, 0, dtype=torch.float32), "CUDA tensor"),
     (lambda: _qkv(1, 4, 2, 16, 16, 64, 0), "float32"),
     (lambda: _qkv(1, 4, 2, 16, 16, 32, 0, dtype=torch.float32), "head dim 32"),
-    (lambda: _qkv(1, 4, 2, 16, 16, 256, 0, dtype=torch.float32), "head dim 256"),
+    (lambda: _qkv(1, 4, 2, 16, 16, 96, 0, dtype=torch.float32), "head dim 96"),
     (lambda: tuple(t[..., ::2] for t in _qkv(1, 4, 2, 16, 16, 128, 0, dtype=torch.float32)),
      "unit stride"),
     (lambda: tuple(t[..., :64] for t in _qkv(1, 4, 2, 16, 16, 66, 0, dtype=torch.float32)),
@@ -143,6 +143,41 @@ def test_tc_launch_fits_a_hopper_block(d):
 def test_tc_launch_config_rejects_other_head_dims(d):
     with pytest.raises(ValueError, match=f"head dim {d}"):
         fa.tc_launch_config(d)
+
+
+@pytest.mark.parametrize("d", [256, 128, 64])
+def test_tf32_wrapper_takes_head_dim_256_up_to_the_device_check(d):
+    """f32 at d = 256 passes every check of the 3xTF32 wrapper but the
+    device's."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_tf32(*_qkv(1, 4, 2, 16, 16, d, 0, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("d", fa.TF32_HEAD_DIMS)
+def test_tf32_launch_fits_a_hopper_block(d):
+    """The 3xTF32 launch fits one block of the card at every head dim it
+    takes: shared memory within 232,448 bytes, and 256 threads, so the
+    SM's 65,536 registers leave each thread the 255 it may have (the
+    kernel is built for one block an SM).  Each warpgroup owns 64 rows of
+    O and ``cols`` of its columns (all of d when the block's rows are
+    split, half at d = 256); O and a tile's part take ``cols`` registers
+    a thread, P's hi and lo ``bk``: no more than at d = 128 (231 registers
+    in ptxas's report; the d = 256 instance takes 255)."""
+    bq, bk, threads, smem = fa.tf32_launch_config(d)
+    assert smem <= fa.MAX_SMEM and threads == 256
+    assert 65536 // threads >= 255
+    warpgroups = threads // 128
+    cols = d if bq == 64 * warpgroups else d // warpgroups
+    assert bq * d == 64 * cols * warpgroups          # O is shared out whole
+    assert bk % 8 == 0 and cols % 8 == 0 and cols <= 256   # wgmma's k and N
+    assert cols + bk <= 128 + 32
+    assert smem >= 2 * bq * d * 4 + 3 * bk * d * 4      # Q hi and lo, K, V^T
+
+
+@pytest.mark.parametrize("d", [32, 96, 512])
+def test_tf32_launch_config_rejects_other_head_dims(d):
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        fa.tf32_launch_config(d)
 
 
 def test_tf32_wrapper_rejects_a_misaligned_start():
@@ -207,7 +242,7 @@ def test_tc_kernel_reads_strided_views(cuda, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tf32_kernel_reads_strided_views(cuda, d):
     """The 3xTF32 kernel on the model's (B, T, H, d) -> (B, H, T, d) views;
     f32 within 1e-5 of the plain version."""

@@ -190,6 +190,8 @@ def _attention_model(q, k, v, causal):
 @pytest.mark.parametrize("B,H,Hkv,T,S,d", [
     (1, 4, 2, 256, 256, 128),    # GQA 2:1, the serving head dim
     (2, 4, 1, 128, 192, 64),     # MQA, T < S
+    (1, 2, 1, 128, 128, 256),    # recurrentgemma-2b's head dim, MQA
+    (1, 2, 1, 64, 128, 256),     # d = 256, T < S
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_model_matches_reference_kernel(jx, B, H, Hkv, T, S, d, causal):
