@@ -30,6 +30,24 @@ Phases, each printing one JSON line:
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
               conserved particle count, per-step and per-stage times, peak
               memory;
+4b. stepper — ``VortexStepper`` on the lattice with ``target_per_box=0.7,
+              slots_headroom=2.0`` (level 10, 8 slots, cut 4), dynamic,
+              replanning and checkpointing every 2 steps: four steps with
+              healthy words, 765,625 live particles, orbit drift < 5e-3,
+              exactly 2 P2P and 18 M2L launches a step and no plain call;
+              checkpoints at steps 2 and 4, ``rollback`` and
+              ``from_checkpoint`` bit for bit; a transient teleport at step
+              2 recovered by ``retry_1`` and bit for bit the unfaulted
+              state; the sticky teleport of the reference's fault tests
+              (300 particles) recovered by ``expand_domain``, whose rebuild
+              takes P2P past 136 slots; no step on the ``reference`` rung.
+              Prints step ms beside phase 4's bare ``rk2_step`` ms and the
+              same call with the stepper's payload, the first step on a cold
+              and on a warm allocator, whether a checkpoint write was in
+              flight as each step began and steps with none, host ms
+              of ``maybe_replan``, ``save_checkpoint``, the last write,
+              ``rollback`` and ``from_checkpoint``, bytes a checkpoint, each
+              drill's rungs and seconds, peak memory;
 5. equations — ``fmm_evaluate(eq=LAPLACE)`` at p = 16 on the lattice with
               real charges, and ``fmm_evaluate(eq=TRACER, targets=probe
               grid)`` at p = 17, singular, each held to a float64 direct sum
@@ -86,7 +104,7 @@ Phases, each printing one JSON line:
               kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, each gated evaluation of phase 5 for P2P's Laplace and
+the FMM kernels, and again for the stepper's four steps in phase 4b, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
 kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the SIMT one) and read
@@ -100,8 +118,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -120,7 +140,8 @@ from repro_torch.core import plan as fmm_plan  # noqa: E402
 from repro_torch.core.quadtree import Tree  # noqa: E402
 from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noqa: E402
                                        gather_particle_values, rebuild_tree)
-from repro_torch.core.stepper import rk2_step  # noqa: E402
+from repro_torch.core.faults import FaultInjector, FaultSpec  # noqa: E402
+from repro_torch.core.stepper import VortexStepper, rk2_step  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
@@ -153,6 +174,13 @@ PLAN_PARTS = 64                  # the paper's largest processor count
 PLAN_CUT = 4
 DT = 1e-3
 STEPS = 3
+# phase 4b: VortexStepper at the paper's tree: choose_level(765,625, 0.7) is
+# 10 and twice the lattice's occupancy of 4 is 8 slots
+STEPPER_KW = dict(target_per_box=0.7, slots_headroom=2.0, dynamic=True,
+                  replan_every=2, checkpoint_every=2)
+STEPPER_STEPS = 4
+DRIFT_TOL = 5e-3                  # the reference's orbit invariant
+OLD_P2P_SLOTS = 136               # P2P's slot limit before the stepper needed more
 SAMPLES = 2048
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
@@ -546,6 +574,198 @@ def plan_phase(counts, level, p) -> None:
                 f"{lb['uniform_slab']}")
 
 
+def stepper_state(st) -> list[torch.Tensor]:
+    return [t.clone() for t in (st.tree.z, st.tree.q, st.tree.mask, st.payload["r0"])]
+
+
+def same_state(st, state) -> bool:
+    now = (st.tree.z, st.tree.q, st.tree.mask, st.payload["r0"])
+    return all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(now, state))
+
+
+def orbit_drift(st) -> float:
+    """max |r - r0| over the particles whose initial radius exceeds 0.02."""
+    m = st.tree.mask
+    z, rr0 = st.tree.z[m], st.payload["r0"][m].real
+    r = torch.hypot(z.real - 0.5, z.imag - 0.5)
+    sel = rr0 > 0.02
+    return float((r[sel] - rr0[sel]).abs().max())
+
+
+def timed_method(obj, name: str, into: list) -> None:
+    """Wrap ``obj.name`` so each call appends its host ms to ``into``."""
+    fn = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(obj, name, call)
+
+
+def stepper_phase(dev, pos, gamma, sigma, p, bare_step_ms) -> dict:
+    """``VortexStepper`` at the paper's size on the card: four unfaulted
+    steps (launches counted), its checkpoints, rollback and
+    ``from_checkpoint`` bit for bit, a transient teleport at full size
+    recovered by a plain retry bit for bit, and the sticky teleport of the
+    reference's fault tests (300 particles) recovered by the domain
+    expansion, whose rebuild asks P2P for more than 136 slots.  Returns the
+    four steps' launches."""
+    r0 = np.hypot(pos[:, 0] - 0.5, pos[:, 1] - 0.5)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    ck_dirs = [Path(tempfile.mkdtemp(prefix="stepper_ckpt_", dir=root)) for _ in range(2)]
+    records = []
+    try:
+        make = lambda ck, **kw: VortexStepper(  # noqa: E731
+            pos, gamma, sigma, p=p, dt=DT, payload={"r0": r0 + 0j},
+            checkpoint_dir=str(ck), **STEPPER_KW, **kw)
+        t0 = time.perf_counter()
+        st = make(ck_dirs[0])
+        build_ms = (time.perf_counter() - t0) * 1e3
+        params = dataclasses.asdict(st.params)
+        require((st.params.level, st.params.slots, st.params.cut) == (CONFIG.level, SLOTS,
+                                                                    CONFIG.cut_level),
+                f"stepper tree {params}, expected level {CONFIG.level}, {SLOTS} slots, "
+                f"cut {CONFIG.cut_level}")
+        save_ms, replan_ms = [], []
+        timed_method(st, "save_checkpoint", save_ms)
+        timed_method(st, "maybe_replan", replan_ms)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_fmm_counts()
+        ops.PLAIN_CALLS = 0
+        recs, writing = [], []
+        for i in range(STEPPER_STEPS):
+            # whether the manager's thread is still writing a checkpoint
+            writing.append(st._ckpt._thread is not None and st._ckpt._thread.is_alive())
+            recs.append(st.step())
+            if i == 2:
+                state3 = stepper_state(st)
+        torch.cuda.synchronize()
+        counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+        peak = torch.cuda.max_memory_allocated()
+        records += recs
+        live = int(st.tree.mask.sum())
+        drift = orbit_drift(st)
+        attempts = len(recs)
+        for rec in recs:
+            require(rec.recovered == "" and rec.health != 0
+                    and hw.ok(hw.unpack(rec.health)),
+                    f"stepper step {rec.step}: recovered {rec.recovered!r}, health "
+                    f"{hw.describe(rec.health)}")
+        require(live == CONFIG.num_particles, f"stepper: {live} live particles")
+        require(drift < DRIFT_TOL, f"stepper: orbit drift {drift} >= {DRIFT_TOL}")
+        want = {"p2p": {"base": 2 * attempts}, "m2l": 2 * (CONFIG.level - 1) * attempts}
+        require(counts == want, f"stepper launches {counts}, expected {want}")
+        require(plain_calls == 0, f"stepper: {plain_calls} plain calls")
+        step_ms = [rec.seconds * 1e3 for rec in recs]
+        predicted = st.predicted_step_seconds()
+        # checkpoints: the last async write, what is on disk, rollback
+        t0 = time.perf_counter()
+        st._ckpt.wait()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        ck_steps = st._ckpt.all_steps()
+        require(ck_steps == [2, 4], f"checkpoints at steps {ck_steps}, expected [2, 4]")
+        ck_bytes = sum(f.stat().st_size for f in (ck_dirs[0] / "step_4").iterdir())
+        # phase 4's bare step with the stepper's payload riding both rebins,
+        # the stepper's own call, on a warm allocator with no write in flight
+        payload_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rk2_step(st.tree, DT, st.payload, p=p, guard=True)
+            torch.cuda.synchronize()
+            payload_ms.append((time.perf_counter() - t0) * 1e3)
+        state4 = stepper_state(st)
+        records.append(st.step())
+        quiet_ms = [records[-1].seconds * 1e3]
+        t0 = time.perf_counter()
+        back = st.rollback()
+        torch.cuda.synchronize()
+        rollback_ms = (time.perf_counter() - t0) * 1e3
+        require(back == 4 and st.step_count == 4 and same_state(st, state4),
+                "rollback: the step-4 state is not restored bit for bit")
+        t0 = time.perf_counter()
+        st2 = VortexStepper.from_checkpoint(str(ck_dirs[0]))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        require(st2.step_count == 4 and same_state(st2, state4)
+                and dataclasses.asdict(st2.params) == params,
+                "from_checkpoint: the step-4 state is not restored bit for bit")
+        rec = st2.step()
+        records.append(rec)
+        quiet_ms.append(rec.seconds * 1e3)
+        require(rec.recovered == "" and hw.ok(hw.unpack(rec.health)),
+                f"restored stepper's step: {rec}")
+        del st, st2, state4
+        # transient drill at full size: retry_1, then the unfaulted state
+        t0 = time.perf_counter()
+        drill = make(ck_dirs[1], faults=FaultInjector(FaultSpec("teleport", step=2,
+                                                                 magnitude=0.6)))
+        drecs = [drill.step() for _ in range(3)]
+        torch.cuda.synchronize()
+        transient_s = time.perf_counter() - t0
+        records += drecs
+        transient = [r.recovered for r in drecs]
+        require(transient == ["", "retry_1", ""],
+                f"transient drill recorded {transient}, expected ['', 'retry_1', '']")
+        require(same_state(drill, state3),
+                "transient drill: the state after 3 steps is not the unfaulted one")
+        del drill, state3
+        # sticky drill, at the reference fault tests' inputs
+        rng = np.random.default_rng(1)
+        spos = 0.02 + 0.96 * rng.random((300, 2))
+        sgamma = rng.standard_normal(300) * 0.1
+        t0 = time.perf_counter()
+        sticky = VortexStepper(spos, sgamma, 0.02, p=6, dt=0.002, faults=FaultInjector(
+            FaultSpec("teleport", step=2, sticky=True, magnitude=0.6)))
+        zero_fmm_counts()
+        srecs = [sticky.step() for _ in range(3)]
+        torch.cuda.synchronize()
+        sticky_s = time.perf_counter() - t0
+        sticky_counts = fmm_counts()
+        records += srecs
+        spos1, _ = sticky.particles()
+        unit = sticky.domain.to_unit(spos1)
+        require(srecs[1].recovered == "expand_domain" and sticky.domain.size >= 2.0,
+                f"sticky drill: {srecs[1]}, domain {sticky.domain}")
+        require(len(spos1) == 300 and bool(np.isfinite(spos1).all())
+                and bool(((unit >= 0) & (unit <= 1)).all()),
+                "sticky drill: a particle lost, non-finite or outside the domain")
+        require(sticky.params.slots > OLD_P2P_SLOTS,
+                f"sticky drill: {sticky.params.slots} slots; the drill should cross "
+                f"{OLD_P2P_SLOTS}")
+        rungs = [r.recovered for r in records]
+        require("reference" not in rungs, f"a step recovered on the reference rung: {rungs}")
+    finally:
+        for d in ck_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "stepper", "n": CONFIG.num_particles, "params": params,
+          "build_host_ms": build_ms, "step_ms": step_ms,
+          "predicted_step_seconds": predicted, "bare_rk2_step_ms": bare_step_ms,
+          "step_minus_bare_ms": [ms - min(bare_step_ms) for ms in step_ms],
+          "payload_rk2_step_ms": payload_ms,
+          "host_split": {"first_step_cold_ms": step_ms[0],
+                         "first_step_warm_ms": drecs[0].seconds * 1e3,
+                         "write_in_flight_at_step_start": writing,
+                         "quiet_step_ms": quiet_ms},
+          "maybe_replan_host_ms": replan_ms, "save_checkpoint_host_ms": save_ms,
+          "checkpoint_wait_ms": wait_ms, "rollback_ms": rollback_ms,
+          "from_checkpoint_ms": restore_ms, "checkpoint_bytes": ck_bytes,
+          "checkpoint_steps": ck_steps, "live": live, "orbit_drift": drift,
+          "drift_gate": DRIFT_TOL, "launches": counts, "plain_calls": plain_calls,
+          "peak_bytes": peak,
+          "transient_drill": {"recovered": transient, "seconds": transient_s,
+                              "step_ms": [r.seconds * 1e3 for r in drecs]},
+          "sticky_drill": {"recovered": [r.recovered for r in srecs], "seconds": sticky_s,
+                           "domain_size": sticky.domain.size,
+                           "slots_after": sticky.params.slots, "launches": sticky_counts,
+                           "step_ms": [r.seconds * 1e3 for r in srecs]}})
+    return counts
+
+
 def stage_ms(tree, p) -> dict:
     """CUDA-event milliseconds per stage of one velocity evaluation plus one
     rebin, through the port's stage functions."""
@@ -923,6 +1143,12 @@ def main() -> None:
           "profile": device_profile(lambda: rk2_step(tree, DT, p=p, guard=True))})
     del tree, index, w_sing, w_reg
     torch.cuda.empty_cache()
+    # -- 4b. main path: VortexStepper at the paper's size -----------------------
+    stepper_launches = stepper_phase(dev, pos, gamma, sigma, p,
+                                     [s["ms"] for s in steps[1:]])
+    launches["p2p"] += stepper_launches["p2p"]["base"]
+    launches["m2l"] += stepper_launches["m2l"]
+    torch.cuda.empty_cache()
 
     # -- 5. main path: Laplace and tracer evaluations on the card, vs f64 ----
     equations = equations_phase(dev, pos, gamma, sigma, p, tree0, index0, sample,
@@ -1040,6 +1266,8 @@ def main() -> None:
     emit({"kernels": [
         entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
               "src/repro/kernels/p2p.py:46",
+              launches_counted_in="phases 3-4 (fmm, three rk2_steps) and 4b "
+                                  "(the stepper's four steps)",
               runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"],
               modes={"laplace": mode_entry(lap_rows, equations["laplace"], "laplace",
                                            "phase 5: fmm_evaluate(eq=LAPLACE), singular"),
@@ -1048,7 +1276,9 @@ def main() -> None:
                          "phase 5: fmm_evaluate(eq=TRACER, targets=probe grid), "
                          "singular")}),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
-              "src/repro/kernels/m2l.py:43"),
+              "src/repro/kernels/m2l.py:43",
+              launches_counted_in="phases 3-4 (fmm, three rk2_steps) and 4b "
+                                  "(the stepper's four steps)"),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",

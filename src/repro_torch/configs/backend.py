@@ -5,6 +5,10 @@ Every entry point (``build_tree``, ``fmm_velocity``, ``rk2_step``,
 asks for ``device="cpu"``; without a card and without that request it
 raises instead of dropping to the CPU.
 
+``set_debug_nan(True)`` makes ``fmm_evaluate`` and ``rk2_step`` check each
+stage's output and raise at the first stage that made a non-finite value
+(the brute-force lane beside the health word, which recovers instead).
+
 TF32 stays off for matrix products and convolutions: the M2L contraction
 at p=17 is held to 1e-5 relative, and TF32 keeps only a 10-bit mantissa.
 bf16 products reduce in f32, as the reference's do
@@ -37,3 +41,25 @@ def check_on(device: torch.device, *tensors: torch.Tensor) -> None:
         if t.device.type != device.type or (
                 device.index is not None and t.device.index != device.index):
             raise ValueError(f"tensor on {t.device}, expected {device}")
+
+
+DEBUG_NAN = False
+
+
+def set_debug_nan(flag: bool) -> None:
+    """Raise ``FloatingPointError`` at the first stage of ``fmm_evaluate``
+    or ``rk2_step`` whose output holds a NaN or an infinity."""
+    global DEBUG_NAN
+    DEBUG_NAN = bool(flag)
+
+
+def check_finite(stage: str, *tensors: torch.Tensor) -> None:
+    """Under ``set_debug_nan(True)``, raise unless every value of the
+    tensors is finite; otherwise do nothing."""
+    if not DEBUG_NAN:
+        return
+    for t in tensors:
+        x = torch.view_as_real(t) if t.is_complex() else t
+        if not bool(torch.isfinite(x).all()):
+            raise FloatingPointError(
+                f"stage {stage!r} made a non-finite value (set_debug_nan)")

@@ -19,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..configs.backend import check_on, resolve_device
+from ..configs.backend import check_finite, check_on, resolve_device
 from ..kernels import ops as kops
 from . import equations as eqs
 from . import expansions as ex
@@ -32,26 +32,28 @@ from .quadtree import P2P_OFFSETS, Tree, box_centers, box_size
 # ---------------------------------------------------------------------------
 
 
-def m2l_slab_fn(p: int, eq=None):
+def m2l_slab_fn(p: int, eq=None, plain: bool = False):
     """Returns ``fn(me_halo, level, row0=0, halo=M2L_HALO, col0=0,
     col_halo=0) -> le_slab``: the parity-folded M2L (exactly 27
     interactions per box) with the spec's operator and scale, through the
-    CUDA kernel for CUDA tensors."""
+    CUDA kernel for CUDA tensors (its plain version with ``plain``, CPU
+    tensors only)."""
     eq = eqs.get_equation(eq)
 
     def fn(me_halo, level, row0=0, halo=ex.M2L_HALO, col0=0, col_halo=0):
         return kops.m2l_apply_slab(me_halo, level, p, row0=row0, halo=halo,
-                                   col0=col0, col_halo=col_halo, eq=eq)
+                                   col0=col0, col_halo=col_halo, eq=eq,
+                                   plain=plain)
     return fn
 
 
-def m2l_grid_fn(p: int, eq=None):
+def m2l_grid_fn(p: int, eq=None, plain: bool = False):
     """Grid form of ``m2l_slab_fn``: ``fn(grid, level)`` over a full
     (ny, nx, p) level grid, zero ghost rows attached by ``ops.m2l_apply``."""
     eq = eqs.get_equation(eq)
 
     def fn(grid, level):
-        return kops.m2l_apply(grid, level, p, eq=eq)
+        return kops.m2l_apply(grid, level, p, eq=eq, plain=plain)
     return fn
 
 
@@ -76,16 +78,17 @@ def p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
     return out
 
 
-def p2p_slab_fn(eq=None):
+def p2p_slab_fn(eq=None, plain: bool = False):
     """Returns ``fn(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
     mask_tgt=None) -> w`` over a slab with ±1 ghost rows/cols attached,
-    through the CUDA kernel for CUDA tensors; ``z_tgt``/``mask_tgt``
-    select passive-target evaluation."""
+    through the CUDA kernel for CUDA tensors (its plain version with
+    ``plain``, CPU tensors only); ``z_tgt``/``mask_tgt`` select passive-target evaluation."""
     eq = eqs.get_equation(eq)
 
     def fn(z_halo, q_halo, mask_halo, sigma, z_tgt=None, mask_tgt=None):
         return kops.p2p_apply_slab(z_halo, q_halo, mask_halo, sigma,
-                                   z_tgt=z_tgt, mask_tgt=mask_tgt, eq=eq)
+                                   z_tgt=z_tgt, mask_tgt=mask_tgt, eq=eq,
+                                   plain=plain)
     return fn
 
 
@@ -150,7 +153,7 @@ def _mask_channels(mask, out):
 
 
 def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
-                 with_health: bool = False, device=None):
+                 with_health: bool = False, device=None, plain: bool = False):
     """Complete FMM evaluation of a registered equation.
 
     Returns (n, n, s) complex for single-channel equations, or
@@ -161,7 +164,9 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
     ``device`` (None: the CUDA card) must hold both trees.
     ``with_health=True`` additionally returns a ``health.N_FIELDS`` int32
     health word (non-finite sentinels on the leaf expansion coefficients
-    and the masked output), as ``(out, health)``.
+    and the masked output), as ``(out, health)``.  ``plain=True`` runs
+    P2P and M2L through the kernels' plain versions (the stepper's
+    ``reference`` rung) and raises on the card.
     """
     eq = eqs.get_equation(eq)
     if targets is None and eq.needs_targets:
@@ -178,22 +183,27 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
                                               torch.zeros_like(tree.q.real)),
                     mask=tree.mask, level=tree.level, sigma=tree.sigma)
     L = tree.level
-    p2p = p2p_slab_fn(eq)
+    p2p = p2p_slab_fn(eq, plain=plain)
     zt = None if targets is None else targets.z
     mt = None if targets is None else targets.mask
     out_mask = tree.mask if targets is None else targets.mask
     if L < 2:
         # Tiny trees are all near field.
         out = _mask_channels(out_mask, near_field(tree, p2p, zt, mt))
+        check_finite("p2p", out)
         if not with_health:
             return out
         return out, hw.with_flag(hw.empty(tree.device), hw.F_VEL,
                                  hw.nonfinite(out, out_mask))
     me = upward_sweep(tree, p, eq)
-    le = downward_sweep(me, p, m2l_fn=m2l_grid_fn(p, eq))
+    check_finite("upward_sweep", *me)
+    le = downward_sweep(me, p, m2l_fn=m2l_grid_fn(p, eq, plain=plain))
+    check_finite("downward_sweep", *le[2:])
     far = ex.l2p_eval(le[L], tree.z if zt is None else zt,
                       _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes)
+    check_finite("l2p", far)
     near = near_field(tree, p2p, zt, mt)
+    check_finite("p2p", near)
     out = _mask_channels(out_mask, far + near)
     if not with_health:
         return out
@@ -205,11 +215,12 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
     return out, health
 
 
-def fmm_velocity(tree: Tree, p: int, with_health: bool = False, device=None):
+def fmm_velocity(tree: Tree, p: int, with_health: bool = False, device=None,
+                 plain: bool = False):
     """Complex velocity W = u - iv per slot — the vortex-kernel form of
     :func:`fmm_evaluate`."""
     return fmm_evaluate(tree, p, eq=eqs.VORTEX, with_health=with_health,
-                        device=device)
+                        device=device, plain=plain)
 
 
 def fmm_velocity_singular(tree: Tree, p: int, device=None) -> torch.Tensor:

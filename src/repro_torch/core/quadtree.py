@@ -312,15 +312,16 @@ def build_tree(
     return tree, index
 
 
-def _map_aux(fn, aux):
-    """Apply ``fn`` to every tensor of a nested tuple/list/dict payload."""
+def map_leaves(fn, aux):
+    """Apply ``fn`` to every leaf (tensor or array) of a nested
+    tuple/list/dict payload; None stays None."""
     if aux is None:
         return None
-    if isinstance(aux, torch.Tensor):
-        return fn(aux)
     if isinstance(aux, dict):
-        return {k: _map_aux(fn, v) for k, v in aux.items()}
-    return type(aux)(_map_aux(fn, v) for v in aux)
+        return {k: map_leaves(fn, v) for k, v in aux.items()}
+    if isinstance(aux, (list, tuple)):
+        return type(aux)(map_leaves(fn, v) for v in aux)
+    return fn(aux)
 
 
 def rebuild_tree(tree: Tree, new_z: torch.Tensor, aux=None):
@@ -368,7 +369,7 @@ def rebuild_tree(tree: Tree, new_z: torch.Tensor, aux=None):
 
     new_tree = Tree(z=scatter(z), q=scatter(tree.q), mask=scatter(m),
                     level=tree.level, sigma=tree.sigma)
-    return new_tree, _map_aux(scatter, aux), ok
+    return new_tree, map_leaves(scatter, aux), ok
 
 
 def gather_particle_values(values, index: TreeIndex) -> torch.Tensor:

@@ -45,7 +45,7 @@
 //   written once.
 // The common vortex case (s = 8, sources as targets, 16 x 16 tile) is a
 // template instance with the slot count and the halo width as constants;
-// any other s (up to 136), tile, formula or target mode runs the same code
+// any other s (up to 256), tile, formula or target mode runs the same code
 // with them at run time.  Built without fast math, so expf, logf and the
 // division are the IEEE-accurate forms; each sum visits its sources in
 // stencil order (neighbour rows, boxes, slots).
@@ -59,7 +59,7 @@
 namespace {
 
 constexpr int MAX_WARPS = 32;
-constexpr int MAX_SLOTS = 136;    // kernels/p2p.py:MAX_SLOTS; a tag keeps the slot in 8 bits
+constexpr int MAX_SLOTS = 256;    // kernels/p2p.py:MAX_SLOTS; a tag keeps the slot in 8 bits
 
 // Shared memory of a TY x TX tile with s source slots, st target slots and
 // nout channels: live-source records sized for every slot live, the output

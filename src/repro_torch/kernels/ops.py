@@ -7,6 +7,11 @@ fallback from one to the other.  The M2L wrappers come in the grid form
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
 ``flash_attention`` serves the LM's prefill attention; it picks one of its
 three kernels by ``flash_attn.route`` (device, dtype, head dim).
+
+``plain=True`` runs the kernels' plain versions and is taken on CPU
+tensors only (a CUDA tensor raises): the stepper's recovery ladder asks
+for it on its ``reference`` rung on the CPU, and every such call adds one
+to ``PLAIN_CALLS``.
 """
 from __future__ import annotations
 
@@ -21,9 +26,19 @@ from . import flash_attn as _fa
 from . import m2l as _m2l
 from . import p2p as _p2p
 
+PLAIN_CALLS = 0     # P2P and M2L calls made with plain=True since the last reset
+
+
+def _count_plain(t: torch.Tensor) -> None:
+    global PLAIN_CALLS
+    if t.device.type != "cpu":
+        raise ValueError(f"plain=True takes CPU tensors only, not {t.device}: on "
+                         f"the card the kernel launches or raises")
+    PLAIN_CALLS += 1
+
 
 def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
-                   mask_tgt=None, eq=None):
+                   mask_tgt=None, eq=None, plain: bool = False):
     """P2P over a slab with ±1 ghost rows/cols attached -> (rows, cols, st)
     or (rows, cols, st, eq.nout); ``z_tgt``/``mask_tgt`` (rows, cols, st)
     are passive targets (None: the sources, ``st = s``).  Masked targets
@@ -36,6 +51,8 @@ def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
     """
     eq = eqs.get_equation(eq)
     mode = eqs.p2p_mode(eq)
+    if plain:
+        _count_plain(z_halo)
     if mode is None:
         if z_halo.device.type != "cpu":
             raise NotImplementedError(
@@ -59,6 +76,11 @@ def m2l_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return _m2l.m2l_cuda(stack, W)
 
 
+def _m2l_plain_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    _count_plain(stack)
+    return _m2l.m2l_plain(stack, W)
+
+
 @functools.lru_cache(maxsize=None)
 def folded_operator(eq, p: int, level: int, device: torch.device) -> torch.Tensor:
     """``eq``'s folded (8, 4p, 4p) operator, copied to ``device`` once."""
@@ -68,20 +90,21 @@ def folded_operator(eq, p: int, level: int, device: torch.device) -> torch.Tenso
 
 def m2l_apply_slab(me_halo, level: int, p: int, row0: int = 0,
                    halo: int = ex.M2L_HALO, col0: int = 0, col_halo: int = 0,
-                   eq=None):
+                   eq=None, plain: bool = False):
     """Parity-folded M2L over a halo'd row slab or 2-D tile; ``col_halo>0``
     means column ghosts are attached too."""
     eq = eqs.get_equation(eq)
     return ex.m2l_folded(me_halo, level, p, row0=row0, halo=halo, col0=col0,
                          col_halo=col_halo,
                          op=folded_operator(eq, p, level, me_halo.device),
-                         scale=eq.m2l_scale(level), contract=m2l_contract)
+                         scale=eq.m2l_scale(level),
+                         contract=_m2l_plain_contract if plain else m2l_contract)
 
 
-def m2l_apply(me, level: int, p: int, eq=None):
+def m2l_apply(me, level: int, p: int, eq=None, plain: bool = False):
     """Parity-folded M2L for one level's full (ny, nx, p) ME grid."""
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
-    return m2l_apply_slab(me_halo, level, p, eq=eq)
+    return m2l_apply_slab(me_halo, level, p, eq=eq, plain=plain)
 
 
 def flash_attention(q, k, v, causal: bool = True):

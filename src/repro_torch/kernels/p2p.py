@@ -41,7 +41,7 @@ from . import _build
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_THREADS = 1024
-MAX_SLOTS = 136     # as the PR 11 kernel's 8 x 8 tile allowed
+MAX_SLOTS = 256     # csrc/p2p.cu's tag keeps a target's slot in 8 bits
 # target-box tiles (TY, TX), largest first, each the choice for some s up to
 # MAX_SLOTS: 16 x 16 stages 1.27x its boxes
 TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))

@@ -37,6 +37,31 @@ def test_port_imports_no_jax_and_no_reference():
     assert not bad, "\n".join(bad)
 
 
+def test_port_examples_import_no_jax_and_no_reference():
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(files) == 2
+    bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
+           for f in files for line, mod in _imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, "\n".join(bad)
+
+
+def test_stepper_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core.stepper import VortexStepper
+    rng = np.random.default_rng(0)
+    pos, gamma = rng.uniform(size=(50, 2)), rng.normal(size=50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VortexStepper(pos, gamma, 0.01)
+    st = VortexStepper(pos, gamma, 0.01, p=4, device="cpu",
+                       checkpoint_dir=str(tmp_path))
+    st.save_checkpoint()
+    st._ckpt.wait()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VortexStepper.from_checkpoint(str(tmp_path))
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

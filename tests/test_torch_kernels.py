@@ -132,6 +132,25 @@ def test_p2p_every_tile_is_the_launch_of_some_slot_count(tile):
     assert _first_slots_of(tile) is not None
 
 
+def test_p2p_slot_range_is_the_tags_and_every_tile_is_chosen_in_it():
+    """Up to 256 slots, what the kernel's 8-bit slot tag holds; over that
+    range the launches take every tile of ``TILES`` and no other."""
+    assert p2p.MAX_SLOTS == 256
+    chosen = {p2p.launch_config(s)[:2] for s in range(1, p2p.MAX_SLOTS + 1)}
+    assert chosen == set(p2p.TILES)
+
+
+@pytest.mark.parametrize("s", [137, 200, 256])
+def test_p2p_launch_fits_the_slot_counts_a_relevel_asks_for(s):
+    """The slot counts above the first kernel's 136 that a stepper's
+    re-level or domain expansion can ask for, in every mode."""
+    for st, nout in ((s, 1), (s, 2), (4, 1), (4, 2)):
+        ty, tx, threads, smem = p2p.launch_config(s, st, nout)
+        assert (ty, tx) in p2p.TILES
+        assert smem == p2p.smem_bytes(ty, tx, s, st, nout) <= p2p.MAX_SMEM
+        assert (ty + 2) * (tx + 2) <= threads <= 1024 and threads % 32 == 0
+
+
 @pytest.mark.parametrize("s", [0, p2p.MAX_SLOTS + 1])
 def test_p2p_launch_config_rejects_slot_counts_out_of_range(s):
     with pytest.raises(ValueError, match="slots"):
@@ -392,6 +411,22 @@ def test_p2p_kernel_rejects_bad_mode_inputs(cuda):
         p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt[..., :-1].contiguous())
     with pytest.raises(ValueError, match="complex64"):
         p2p.p2p_cuda(zh, qh, mh, 0.05, zt.to(torch.complex128), mt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [137, 200, 256])
+@pytest.mark.parametrize("mode,passive", [("base", False)] + NEW_MODES)
+def test_p2p_kernel_matches_plain_above_the_first_slot_limit(cuda, s, mode, passive):
+    """The slot counts a stepper's re-level can ask for (162 in the sticky
+    teleport drill), through the run-time instance, in every mode."""
+    zh, qh, mh, zt, mt = _mode_inputs(5, 7, s, s, passive, s, cuda)
+    got = p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt, mode)
+    want = p2p.p2p_plain(zh, qh, mh, 0.05, zt, mt, mode)
+    live = _live(mh, mt, got).expand(got.shape)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
 
 
 # ---------------------------------------------------------------------------

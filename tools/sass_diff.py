@@ -25,9 +25,9 @@ from repro_torch.kernels import _build  # noqa: E402
 
 
 def kernel_key(mangled: str) -> str:
-    """``name<arg>`` of a mangled kernel: the last identifier of its nested
-    name (not the file's anonymous namespace) and its integer template
-    argument, if any."""
+    """``name<args>`` of a mangled kernel: the last identifier of its nested
+    name (not the file's anonymous namespace) and its integer and bool
+    template arguments, if any (``p2p_kernel<8,16,16,1,0>``)."""
     i, ids = (3 if mangled.startswith("_ZN") else 2), []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -35,9 +35,11 @@ def kernel_key(mangled: str) -> str:
             j += 1
         ids.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
     name = ids[-1] if ids else mangled
-    return f"{name}<{arg.group(1)}>" if arg else name
+    if not args:
+        return name
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
 
 
 def sass(so: Path) -> dict[str, list[str]]:
