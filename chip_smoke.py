@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
-(vortex steps, Laplace and tracer evaluations, the host-side planner) and
-Yi-6B serving at full width.
+(vortex steps, the sharded driver and stepper on 4 ranks sharing the card,
+Laplace and tracer evaluations, the host-side planner) and Yi-6B serving at
+full width.
 
 Run from the repository root with no arguments:
 
@@ -48,6 +49,28 @@ Phases, each printing one JSON line:
               of ``maybe_replan``, ``save_checkpoint``, the last write,
               ``rollback`` and ``from_checkpoint``, bytes a checkpoint, each
               drill's rungs and seconds, peak memory;
+4c. sharded — the sharded driver (``core/parallel_fmm.py``) on 4 ranks: a
+              gloo world of 4 processes sharing the card, every message
+              staged through host memory (NCCL refuses two ranks on one
+              card), so its times are not a scaling result.  For the
+              uniform 4-part slab and the cost model's 2x2 block plan:
+              ``parallel_fmm_velocity`` in all four overlap/pipeline
+              orders within 1e-5 of phase 3's serial velocity, pipeline on
+              and off bit for bit, a clear health word, exactly
+              ``parallel_fmm.kernel_launches(plan)`` launches a rank and no
+              plain call; the singular evaluation within 1e-3 of phase 3's
+              f64 sums; on rank 0 the rim strips' and the interior's shapes
+              through each kernel against its plain version.  Then
+              ``VortexStepper(mesh=..., plan_grid=(2, 2))`` for phase 4b's
+              four steps: healthy, every particle live, drift < 5e-3, the
+              counted launches, every rank's records, plan and positions
+              bit for bit, positions within 1e-5 of phase 4b's stepper
+              (re-run with particle ids, bit for bit phase 4b's state),
+              ``from_checkpoint`` onto 2 ranks bit for bit, and the
+              reference's grid-bound ``halo_nan`` drill (300 particles)
+              recovered on ``plan_slab``.  Prints per rank and plan the
+              host ms of each evaluation and step, the staged bytes and
+              staging ms, and peak memory;
 5. equations — ``fmm_evaluate(eq=LAPLACE)`` at p = 16 on the lattice with
               real charges, and ``fmm_evaluate(eq=TRACER, targets=probe
               grid)`` at p = 17, singular, each held to a float64 direct sum
@@ -104,7 +127,9 @@ Phases, each printing one JSON line:
               kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, and again for the stepper's four steps in phase 4b, each gated evaluation of phase 5 for P2P's Laplace and
+the FMM kernels, and again for the stepper's four steps in phase 4b, on
+each rank of phase 4c before each counted evaluation and before the
+sharded stepper's steps, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
 kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the SIMT one) and read
@@ -141,7 +166,9 @@ from repro_torch.core.quadtree import Tree  # noqa: E402
 from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noqa: E402
                                        gather_particle_values, rebuild_tree)
 from repro_torch.core.faults import FaultInjector, FaultSpec  # noqa: E402
-from repro_torch.core.stepper import VortexStepper, rk2_step  # noqa: E402
+from repro_torch.core.stepper import RecoveryPolicy, VortexStepper, rk2_step  # noqa: E402
+from repro_torch.core import parallel_fmm as pf  # noqa: E402
+from repro_torch.launch.mesh import make_group_mesh, spawn_world  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
@@ -182,6 +209,11 @@ STEPPER_STEPS = 4
 DRIFT_TOL = 5e-3                  # the reference's orbit invariant
 OLD_P2P_SLOTS = 136               # P2P's slot limit before the stepper needed more
 SAMPLES = 2048
+# phase 4c: the sharded driver on 4 gloo ranks sharing the card
+RANKS = 4
+RANK_TIMEOUT_S = 600
+SHARDED_GRID = (2, 2)
+ORDERS = [(True, True), (True, False), (False, True), (False, False)]
 KERNEL_TOL = 1e-5
 FMM_TOL = 1e-3
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
@@ -699,7 +731,7 @@ def stepper_phase(dev, pos, gamma, sigma, p, bare_step_ms) -> dict:
         quiet_ms.append(rec.seconds * 1e3)
         require(rec.recovered == "" and hw.ok(hw.unpack(rec.health)),
                 f"restored stepper's step: {rec}")
-        del st, st2, state4
+        del st, st2
         # transient drill at full size: retry_1, then the unfaulted state
         t0 = time.perf_counter()
         drill = make(ck_dirs[1], faults=FaultInjector(FaultSpec("teleport", step=2,
@@ -763,7 +795,301 @@ def stepper_phase(dev, pos, gamma, sigma, p, bare_step_ms) -> dict:
                            "domain_size": sticky.domain.size,
                            "slots_after": sticky.params.slots, "launches": sticky_counts,
                            "step_ms": [r.seconds * 1e3 for r in srecs]}})
-    return counts
+    return counts, state4
+
+
+def host_ms(fn):
+    """Host milliseconds of ``fn()``, ending in a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def strip_checks(tree, plan, mesh, p) -> dict:
+    """The shapes the overlapped path gives the kernels on this rank's tile:
+    P2P and M2L (leaf level) on a rim row strip's shape, a rim column
+    strip's and the interior's, each through the kernel and its plain
+    version on the card.  The strips are cut from the halo buffer through
+    the middle of the tile, where the lattice has particles (its edge boxes
+    are empty).  The halo exchanges are collective, so every rank builds
+    the buffers; the caller checks on rank 0 only."""
+    block = plan.as_block() if isinstance(plan, fmm_plan.SlabPlan) else plan
+    ident = pf._is_identity(block, mesh.size, tree.nside)
+    tiles = [pf._my_tile(a, block, mesh.rank, ident, fill=f)
+             for a, f in ((tree.z, 0), (tree.q, 0), (tree.mask, False))]
+    _, rows, _, cols = pf._tile_extents(block, mesh.rank)
+    zb, qb, mb = pf._unpack_particles(pf._tile_halo(
+        pf._pack_particles(*tiles), 1, rows, cols, mesh, block.grid).wait())
+    cen = F.pad(fmm._centers_on(tree.level, tree.device), (0, block.cols_max, 0,
+                                                           block.rows_max))
+    r0, _, c0, _ = pf._tile_extents(block, mesh.rank)
+    me = ex.p2m(*tiles, cen[r0:r0 + block.rows_max, c0:c0 + block.cols_max],
+                box_size(tree.level), p)
+    w = ex.M2L_HALO
+    meb = pf._tile_halo(me, w, rows, cols, mesh, block.grid).wait()
+    out = {}
+    mr, mc = (rows // 2) & ~1, (cols // 2) & ~1          # even: M2L's parity anchor
+    p2p_cuts = {"row_strip": (slice(mr, mr + 3), slice(None)),
+                "column_strip": (slice(None), slice(mc, mc + 3)),
+                "interior": None}
+    for name, cut in p2p_cuts.items():
+        args = tiles if cut is None else [fmm._fresh(a[cut]) for a in (zb, qb, mb)]
+        got = p2p.p2p_cuda(*args, tree.sigma)
+        want = p2p.p2p_plain(*args, tree.sigma)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        out[f"p2p_{name}"] = {
+            "shape": list(args[0].shape), "rel_l2": err,
+            "plain_max_abs": float(want.abs().max()),
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": cuda_ms(lambda: p2p.p2p_cuda(*args, tree.sigma), iters=10),
+            "plain_ms": cuda_ms(lambda: p2p.p2p_plain(*args, tree.sigma), iters=3,
+                                warmup=1)}
+    m2l_cuts = {"row_strip": (slice(mr, mr + 3 * w), slice(None)),
+                "column_strip": (slice(None), slice(mc, mc + 3 * w)),
+                "interior": None}
+    op = ops.folded_operator(VORTEX, p, tree.level, tree.device)
+    scale = VORTEX.m2l_scale(tree.level)
+    for name, cut in m2l_cuts.items():
+        x = me if cut is None else fmm._fresh(meb[cut])
+        kernel = lambda: ops.m2l_apply_slab(x, tree.level, p, halo=w, col_halo=w)  # noqa: E731
+        plain = lambda: ex.m2l_folded(x, tree.level, p, halo=w, col_halo=w,  # noqa: E731
+                                      op=op, scale=scale)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        out[f"m2l_{name}"] = {
+            "shape": list(x.shape), "rel_l2": rel_l2(got, want),
+            "plain_max_abs": float(want.abs().max()),
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+    return out
+
+
+def sharded_rank(mesh, spec: dict) -> dict:
+    """Phase 4c on one rank: both plans' evaluations, the stepper, its
+    restore onto 2 ranks and the grid-bound halo drill.  Raises at the
+    first failed gate, which fails the world."""
+    dev = mesh.device
+    inp = np.load(spec["inputs"])
+    pos, gamma, sigma, p = inp["pos"], inp["gamma"], float(inp["sigma"]), int(inp["p"])
+    level = CONFIG.level
+    tree, index = build_tree(pos, gamma, level=level, sigma=sigma, slots=SLOTS,
+                             device=dev)
+    sing = Tree(z=tree.z, q=tree.q, mask=tree.mask, level=level, sigma=None)
+    serial = torch.as_tensor(inp["w_reg"], device=dev)
+    picked = torch.as_tensor(inp["sample"], device=dev)
+    exact = torch.as_tensor(inp["exact_sing"], device=dev)
+    params = ModelParams(level=level, cut=PLAN_CUT, p=p, slots=SLOTS)
+    plans = {"uniform_slab": fmm_plan.uniform_plan(level, mesh.size),
+             "model_block_2x2": fmm_plan.plan_from_counts(index.counts, params,
+                                                          mesh.size, grid=SHARDED_GRID)}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "plans": {}}
+    for name, plan in plans.items():
+        rec = {"plan": plan.describe(), "eval_host_ms": {}, "staged_bytes": {},
+               "staging_ms": {}, "rel_l2_vs_serial": {}}
+        pf.parallel_fmm_velocity(tree, p, mesh, plan)             # warm
+        results = {}
+        for ov, pipe in ORDERS:
+            key = f"overlap={ov} pipeline={pipe}"
+            mesh.barrier()
+            torch.cuda.synchronize()
+            zero_fmm_counts()
+            ops.PLAIN_CALLS = 0
+            mesh.wire.reset()
+            (w, h), ms = host_ms(lambda: pf.parallel_fmm_velocity(
+                tree, p, mesh, plan, overlap=ov, pipeline=pipe, with_health=True))
+            counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+            want = pf.kernel_launches(plan, ov)
+            want = {"p2p": {"base": want["p2p"]}, "m2l": want["m2l"]}
+            require(counts == want and plain_calls == 0,
+                    f"rank {mesh.rank} {name} {key}: launches {counts}, plain "
+                    f"{plain_calls}; expected {want} and no plain call")
+            require(tuple(w.shape) == tuple(tree.z.shape) and hw.ok(h),
+                    f"rank {mesh.rank} {name} {key}: shape {tuple(w.shape)}, health "
+                    f"{hw.describe(h)}")
+            require(bool(torch.isfinite(torch.view_as_real(w[tree.mask])).all()),
+                    f"rank {mesh.rank} {name} {key}: non-finite velocity")
+            err = rel_l2(w, serial)
+            require(err <= KERNEL_TOL, f"rank {mesh.rank} {name} {key}: rel L2 vs the "
+                                       f"serial kernel path {err} > {KERNEL_TOL}")
+            if (ov, pipe) == (True, True):
+                rec["launches"] = counts
+            rec["eval_host_ms"][key] = ms
+            rec["staged_bytes"][key] = mesh.wire.staged_bytes
+            rec["staging_ms"][key] = mesh.wire.staging_s * 1e3
+            rec["rel_l2_vs_serial"][key] = err
+            results[ov, pipe] = w
+        for ov in (True, False):
+            require(torch.equal(results[ov, True], results[ov, False]),
+                    f"rank {mesh.rank} {name} overlap={ov}: pipeline on and off differ")
+        del results
+        ws = pf.parallel_fmm_velocity(sing, p, mesh, plan)
+        err_sing = rel_l2(gather_particle_values(ws, index)[picked].to(torch.complex128),
+                          exact)
+        require(err_sing < FMM_TOL, f"rank {mesh.rank} {name}: singular rel L2 vs f64 "
+                                    f"{err_sing} >= {FMM_TOL}")
+        rec["rel_l2_singular_vs_f64"] = err_sing
+        del ws
+        shapes = strip_checks(tree, plan, mesh, p)
+        if mesh.rank == 0:
+            for k, v in shapes.items():
+                require(v["plain_max_abs"] > 0, f"{name} {k}: the plain version is all 0")
+                require(v["rel_l2"] <= KERNEL_TOL,
+                        f"{name} {k} {v['shape']}: rel L2 {v['rel_l2']} > {KERNEL_TOL}")
+            rec["shapes_vs_plain"] = shapes
+        out["plans"][name] = rec
+    del serial, sing
+    # -- the stepper on the 2x2 grid ------------------------------------
+    r0 = np.hypot(pos[:, 0] - 0.5, pos[:, 1] - 0.5)
+    ids = np.arange(len(pos), dtype=np.int32)
+    st = VortexStepper(pos, gamma, sigma, p=p, dt=DT, mesh=mesh, plan_grid=SHARDED_GRID,
+                       payload={"r0": r0 + 0j, "id": ids},
+                       checkpoint_dir=spec["ck_dir"], **STEPPER_KW)
+    require((st.params.level, st.params.slots) == (level, SLOTS),
+            f"sharded stepper tree {dataclasses.asdict(st.params)}")
+    zero_fmm_counts()
+    ops.PLAIN_CALLS = 0
+    want = {"p2p": {"base": 0}, "m2l": 0}
+    recs, own_ms = [], []
+    for _ in range(STEPPER_STEPS):
+        per_eval = pf.kernel_launches(st.plan)
+        want["p2p"]["base"] += 2 * per_eval["p2p"]
+        want["m2l"] += 2 * per_eval["m2l"]
+        rec, ms = host_ms(st.step)
+        recs.append(rec)
+        own_ms.append(ms)
+    counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+    require(counts == want and plain_calls == 0,
+            f"rank {mesh.rank} stepper launches {counts}, plain {plain_calls}; "
+            f"expected {want}")
+    for rec in recs:
+        require(rec.recovered == "" and hw.ok(hw.unpack(rec.health)),
+                f"rank {mesh.rank} sharded step {rec.step}: {rec}")
+    live = int(st.tree.mask.sum())
+    require(live == CONFIG.num_particles, f"sharded stepper: {live} live particles")
+    drift = orbit_drift(st)
+    require(drift < DRIFT_TOL, f"sharded stepper: orbit drift {drift} >= {DRIFT_TOL}")
+    st.wait_checkpoint()
+    m = st.tree.mask
+    by_id = torch.empty(len(pos), dtype=torch.complex64, device=dev)
+    by_id[st.payload["id"][m].long()] = st.tree.z[m]
+    now = [t.clone() for t in (st.tree.z, st.tree.q, st.tree.mask, st.payload["r0"],
+                               st.payload["id"])]
+    out["stepper"] = {
+        "records": [dataclasses.asdict(r) for r in recs], "plan": st.plan.describe(),
+        "z_by_id": by_id.cpu().numpy(), "own_step_ms": own_ms, "drift": drift,
+        "live": live, "launches": counts}
+    del st
+    # -- restore onto a world of 2 ----------------------------------------
+    two = make_group_mesh(range(2), device=dev)
+    if two is not None:
+        back, ms = host_ms(lambda: VortexStepper.from_checkpoint(spec["ck_dir"],
+                                                                 mesh=two))
+        again = (back.tree.z, back.tree.q, back.tree.mask, back.payload["r0"],
+                 back.payload["id"])
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(again, now))
+        require(same and back.step_count == STEPPER_STEPS and back.nparts == 2,
+                f"rank {mesh.rank}: from_checkpoint onto 2 ranks is not bit for bit")
+        out["restore_onto_2"] = {"bit_for_bit": same, "host_ms": ms,
+                                 "plan": back.plan.describe()}
+        del back
+    del now
+    mesh.barrier()
+    # -- the grid-bound halo drill of the reference's fault tests ---------
+    rng = np.random.default_rng(1)
+    spos, sgamma = 0.02 + 0.96 * rng.random((300, 2)), rng.standard_normal(300) * 0.1
+    drill = VortexStepper(spos, sgamma, 0.02, p=6, dt=0.002, mesh=mesh,
+                          plan_grid=SHARDED_GRID, target_per_box=3.0,
+                          policy=RecoveryPolicy(expand_domain=False),
+                          faults=FaultInjector(FaultSpec("halo_nan", step=2, sticky=True,
+                                                         only_grid=SHARDED_GRID)))
+    drecs = [drill.step() for _ in range(3)]
+    rungs = [r.recovered for r in drecs]
+    require(rungs == ["", "plan_slab", ""] and drecs[1].replanned,
+            f"rank {mesh.rank} grid-bound halo drill recorded {rungs}")
+    out["drill"] = {"recovered": rungs, "plan_after": drill.plan.describe(),
+                    "step_ms": [r.seconds * 1e3 for r in drecs]}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def sharded_phase(pos, gamma, sigma, p, w_reg, sample, exact_sing, state4) -> dict:
+    """Phase 4c: the sharded driver and the stepper on ``RANKS`` gloo ranks
+    sharing the card.  The parent hands the ranks phase 3's serial velocity
+    and f64 sums as a file, and re-runs phase 4b's stepper with particle ids
+    (bit for bit phase 4b's state) to compare positions particle by
+    particle.  Returns the launches counted on the ranks."""
+    r0 = np.hypot(pos[:, 0] - 0.5, pos[:, 1] - 0.5)
+    ids = np.arange(len(pos), dtype=np.int32)
+    kw = {k: v for k, v in STEPPER_KW.items() if k != "checkpoint_every"}
+    serial = VortexStepper(pos, gamma, sigma, p=p, dt=DT,
+                           payload={"r0": r0 + 0j, "id": ids}, **kw)
+    for _ in range(STEPPER_STEPS):
+        serial.step()
+    require(all(torch.equal(a, b) for a, b in zip(
+        (serial.tree.z, serial.tree.q, serial.tree.mask, serial.payload["r0"]), state4)),
+        "the serial stepper with ids is not phase 4b's state after its four steps")
+    m = serial.tree.mask
+    serial_by_id = torch.empty(len(pos), dtype=torch.complex64, device=m.device)
+    serial_by_id[serial.payload["id"][m].long()] = serial.tree.z[m]
+    serial_by_id = serial_by_id.cpu().numpy()
+    del serial, m
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="sharded_", dir=root))
+    try:
+        np.savez(work / "inputs.npz", pos=pos, gamma=gamma, sigma=sigma, p=p,
+                 w_reg=w_reg.cpu().numpy(), sample=sample,
+                 exact_sing=exact_sing.cpu().numpy())
+        t0 = time.perf_counter()
+        ranks = spawn_world(sharded_rank, RANKS, device="cuda", timeout_s=RANK_TIMEOUT_S,
+                            args=({"inputs": str(work / "inputs.npz"),
+                                   "ck_dir": str(work / "ck")},))
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    first = ranks[0]["stepper"]
+    for r in ranks[1:]:
+        require(r["stepper"]["records"] == first["records"]
+                and r["stepper"]["plan"] == first["plan"]
+                and np.array_equal(r["stepper"]["z_by_id"], first["z_by_id"]),
+                f"rank {r['rank']}'s stepper differs from rank 0's")
+    z_err = float(np.linalg.norm(first["z_by_id"] - serial_by_id)
+                  / np.linalg.norm(serial_by_id))
+    require(z_err <= KERNEL_TOL, f"sharded stepper positions vs phase 4b's: rel L2 "
+                                 f"{z_err} > {KERNEL_TOL}")
+    require(sum("restore_onto_2" in r for r in ranks) == 2, "restore onto 2 ranks missing")
+    timing_keys = ("eval_host_ms", "staged_bytes", "staging_ms", "rel_l2_vs_serial",
+                   "rel_l2_singular_vs_f64")
+    for r in ranks:
+        emit({"phase": "sharded", "rank": r["rank"], "ranks": RANKS,
+              "note": f"{RANKS} ranks share one card: not a scaling result",
+              "plans": {name: {k: pl[k] for k in timing_keys}
+                        for name, pl in r["plans"].items()},
+              "own_step_host_ms": r["stepper"]["own_step_ms"],
+              "restore_onto_2_host_ms": (r.get("restore_onto_2") or {}).get("host_ms"),
+              "drill_step_ms": r["drill"]["step_ms"], "peak_bytes": r["peak_bytes"]})
+    print(f"{RANKS} ranks share one card: not a scaling result", flush=True)
+    p2p_n = sum(pl["launches"]["p2p"]["base"] for r in ranks for pl in r["plans"].values())
+    m2l_n = sum(pl["launches"]["m2l"] for r in ranks for pl in r["plans"].values())
+    p2p_n += sum(r["stepper"]["launches"]["p2p"]["base"] for r in ranks)
+    m2l_n += sum(r["stepper"]["launches"]["m2l"] for r in ranks)
+    per_rank = {name: pl["launches"] for name, pl in ranks[0]["plans"].items()}
+    shapes = {name: pl["shapes_vs_plain"] for name, pl in ranks[0]["plans"].items()}
+    emit({"phase": "sharded_summary", "ranks": RANKS, "world_seconds": world_s,
+          "note": f"{RANKS} ranks share one card over gloo, messages staged through "
+                  f"host memory: not a scaling result",
+          "plans": {name: pl["plan"] for name, pl in ranks[0]["plans"].items()},
+          "launches_per_rank_per_evaluation": per_rank, "shapes_vs_plain": shapes,
+          "gate": KERNEL_TOL, "stepper_positions_rel_l2_vs_serial": z_err,
+          "stepper_records": first["records"], "stepper_plan": first["plan"],
+          "stepper_drift": first["drift"], "stepper_launches_per_rank": first["launches"],
+          "restore_onto_2": ranks[0]["restore_onto_2"], "drill": ranks[0]["drill"]})
+    return {"p2p": p2p_n, "m2l": m2l_n, "per_rank": per_rank, "shapes": shapes}
 
 
 def stage_ms(tree, p) -> dict:
@@ -1141,13 +1467,21 @@ def main() -> None:
     emit({"phase": "steps", "dt": DT, "steps": steps, "peak_bytes": peak,
           "stage_ms": stages, "launches": launches,
           "profile": device_profile(lambda: rk2_step(tree, DT, p=p, guard=True))})
-    del tree, index, w_sing, w_reg
+    del tree, index, w_sing
     torch.cuda.empty_cache()
     # -- 4b. main path: VortexStepper at the paper's size -----------------------
-    stepper_launches = stepper_phase(dev, pos, gamma, sigma, p,
-                                     [s["ms"] for s in steps[1:]])
+    stepper_launches, state4 = stepper_phase(dev, pos, gamma, sigma, p,
+                                             [s["ms"] for s in steps[1:]])
     launches["p2p"] += stepper_launches["p2p"]["base"]
     launches["m2l"] += stepper_launches["m2l"]
+    torch.cuda.empty_cache()
+
+    # -- 4c. main path: the sharded driver and stepper on 4 ranks ------------
+    sharded = sharded_phase(pos, gamma, sigma, p, w_reg, sample,
+                            direct_sum_f64(pos, gamma, sample, None), state4)
+    del state4, w_reg
+    launches["p2p"] += sharded["p2p"]
+    launches["m2l"] += sharded["m2l"]
     torch.cuda.empty_cache()
 
     # -- 5. main path: Laplace and tracer evaluations on the card, vs f64 ----
@@ -1236,7 +1570,8 @@ def main() -> None:
         r = rows[0]
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
-             "max_abs_err": max(x["max_abs_err"] for x in rows),
+             "max_abs_err": max(x["max_abs_err"] for x in rows + [
+                 v for k, v in extra.get("sharded_shapes", {}).items()]),
              "rel_l2": max(x["rel_l2"] for x in rows),
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1262,12 +1597,24 @@ def main() -> None:
                 "launches": counts["p2p"][mode], "launches_counted_in": counted_in,
                 "library_ms": None}
 
+    def sharded_shapes(kernel):
+        """Phase 4c's rank-0 checks of ``kernel`` at the overlapped path's
+        shapes, by plan and shape."""
+        return {f"{plan} {k[len(kernel) + 1:]}": v
+                for plan, checks in sharded["shapes"].items()
+                for k, v in checks.items() if k.startswith(kernel + "_")}
+
     print(card, flush=True)
     emit({"kernels": [
         entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
               "src/repro/kernels/p2p.py:46",
-              launches_counted_in="phases 3-4 (fmm, three rk2_steps) and 4b "
-                                  "(the stepper's four steps)",
+              launches_counted_in="phases 3-4 (fmm, three rk2_steps), 4b "
+                                  "(the stepper's four steps) and 4c (on each of "
+                                  f"{RANKS} ranks: one evaluation per plan and the "
+                                  "stepper's four steps)",
+              sharded_launches_per_rank_per_evaluation={
+                  k: v["p2p"]["base"] for k, v in sharded["per_rank"].items()},
+              sharded_shapes=sharded_shapes("p2p"),
               runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"],
               modes={"laplace": mode_entry(lap_rows, equations["laplace"], "laplace",
                                            "phase 5: fmm_evaluate(eq=LAPLACE), singular"),
@@ -1277,8 +1624,13 @@ def main() -> None:
                          "singular")}),
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43",
-              launches_counted_in="phases 3-4 (fmm, three rk2_steps) and 4b "
-                                  "(the stepper's four steps)"),
+              launches_counted_in="phases 3-4 (fmm, three rk2_steps), 4b "
+                                  "(the stepper's four steps) and 4c (on each of "
+                                  f"{RANKS} ranks: one evaluation per plan and the "
+                                  "stepper's four steps)",
+              sharded_launches_per_rank_per_evaluation={
+                  k: v["m2l"] for k, v in sharded["per_rank"].items()},
+              sharded_shapes=sharded_shapes("m2l")),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",

@@ -93,6 +93,111 @@ def p2p_slab_fn(eq=None, plain: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# Interior/rim overlapped tile execution (the sharded driver's).
+#
+# A padded rank tile is split into an INTERIOR (every box at least one halo
+# width from each tile edge, whose stencil reads only local data) and four
+# RIM strips along the edges, whose stencils read the exchanged ghost
+# buffer.  The interior is launched before the buffer is asked for, so an
+# exchange in flight overlaps it; the rims are stitched over the edges.
+# Strips cut from a buffer are views: a row strip is contiguous but starts
+# inside the buffer, off the 16-byte boundary the P2P kernel needs, so every
+# strip is copied into a fresh allocation here.
+# ---------------------------------------------------------------------------
+
+
+def _resolve(buf):
+    """A halo buffer, or a zero-argument function that waits for it."""
+    return buf() if callable(buf) else buf
+
+
+def _fresh(view: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``view`` in a new (aligned) allocation."""
+    return view.clone(memory_format=torch.contiguous_format)
+
+
+def m2l_tile_overlapped(m2l_slab, me_local: torch.Tensor, me_buf, level: int,
+                        rows_valid: int, cols_valid: int) -> torch.Tensor:
+    """Interior/rim M2L over one padded tile.
+
+    ``me_local`` is the (rmax, cmax, p) padded tile (padding is zero);
+    ``me_buf`` the (rmax+2w, cmax+2w, p) two-axis halo buffer
+    (w = ``expansions.M2L_HALO``) with the neighbours' data adjacent to the
+    valid extents, or a function returning it, called after the interior's
+    launch.  Tile origins and extents are parity-even at every sharded
+    level, so ``row0=col0=0`` anchors every slice.  Returns the
+    (rmax, cmax, p) LE tile; boxes outside the valid extents hold
+    don't-care values, masked out downstream.
+    """
+    w = ex.M2L_HALO
+    rmax, cmax, p = me_local.shape
+    le = torch.zeros_like(me_local)
+    if rmax > 2 * w and cmax > 2 * w:
+        le[w:rmax - w, w:cmax - w] = m2l_slab(me_local, level, halo=w,
+                                              col_halo=w)
+    buf = _resolve(me_buf)
+
+    def strip(r0, c0, nr, nc):
+        return m2l_slab(_fresh(buf[r0:r0 + nr, c0:c0 + nc]), level,
+                        halo=w, col_halo=w)
+
+    top = strip(0, 0, 3 * w, cmax + 2 * w)                      # (w, cmax)
+    bot = strip(rows_valid - w, 0, 3 * w, cmax + 2 * w)         # (w, cmax)
+    left = strip(0, 0, rmax + 2 * w, 3 * w)                     # (rmax, w)
+    right = strip(0, cols_valid - w, rmax + 2 * w, 3 * w)       # (rmax, w)
+    le[:, :w] = left
+    le[:, cols_valid - w:cols_valid] = right
+    le[:w] = top
+    le[rows_valid - w:rows_valid] = bot
+    return le
+
+
+def p2p_tile_overlapped(p2p_slab, z, q, mask, bufs, rows_valid: int,
+                        cols_valid: int, sigma, z_tgt=None,
+                        mask_tgt=None) -> torch.Tensor:
+    """Interior/rim P2P over one padded tile (halo width 1).
+
+    ``z/q/mask`` are the (rmax, cmax, s) local tile; ``bufs`` the exchanged
+    ``(z_buf, q_buf, m_buf)``, each (rmax+2, cmax+2, s), or a function
+    returning them, called after the interior's launch.  The interior reads
+    the local tile as its own ±1 halo, the four rim strips read the
+    buffers.  ``z_tgt``/``mask_tgt`` (rmax, cmax, st) are passive targets,
+    tile-local: the split then partitions the target boxes.  Returns the
+    (rmax, cmax, s|st[, C]) output tile.
+    """
+    rmax, cmax, s = z.shape
+
+    def tgt(r0, c0, nr, nc):
+        if z_tgt is None:
+            return None, None
+        return (_fresh(z_tgt[r0:r0 + nr, c0:c0 + nc]),
+                _fresh(mask_tgt[r0:r0 + nr, c0:c0 + nc]))
+
+    wout = None
+    if rmax > 2 and cmax > 2:
+        interior = p2p_slab(z, q, mask, sigma, *tgt(1, 1, rmax - 2, cmax - 2))
+        wout = interior.new_zeros((rmax, cmax) + tuple(interior.shape[2:]))
+        wout[1:rmax - 1, 1:cmax - 1] = interior
+    z_buf, q_buf, m_buf = _resolve(bufs)
+
+    def strip(r0, c0, nr, nc, tr0, tc0, tnr, tnc):
+        cut = lambda a: _fresh(a[r0:r0 + nr, c0:c0 + nc])  # noqa: E731
+        return p2p_slab(cut(z_buf), cut(q_buf), cut(m_buf), sigma,
+                        *tgt(tr0, tc0, tnr, tnc))
+
+    west = strip(0, 0, rmax + 2, 3, 0, 0, rmax, 1)                   # (rmax, 1)
+    if wout is None:
+        wout = west.new_zeros((rmax, cmax) + tuple(west.shape[2:]))
+    wout[:, :1] = west
+    wout[:, cols_valid - 1:cols_valid] = strip(
+        0, cols_valid - 1, rmax + 2, 3, 0, cols_valid - 1, rmax, 1)
+    wout[:1] = strip(0, 0, 3, cmax + 2, 0, 0, 1, cmax)                # (1, cmax)
+    wout[rows_valid - 1:rows_valid] = strip(
+        rows_valid - 1, 0, 3, cmax + 2, rows_valid - 1, 0, 1, cmax)
+    return wout
+
+
+# ---------------------------------------------------------------------------
 # Stages
 # ---------------------------------------------------------------------------
 

@@ -1,12 +1,17 @@
-"""Dynamic load-balanced vortex time stepping on one device, with guarded
-execution.
+"""Dynamic load-balanced vortex time stepping, with guarded execution.
 
 ``rk2_step`` runs the FMM velocity, the half kick, a device-side rebin
 (``quadtree.rebuild_tree``), the second FMM, the full kick and a second
-rebin, with no host round trip inside the step.
+rebin, with no host round trip inside the step.  With a ``mesh`` (a
+:class:`~repro_torch.launch.mesh.RankMesh`) each evaluation is the sharded
+driver's (``core/parallel_fmm.py``) under the step's plan, and every rank
+gets the whole velocity field: the kicks and rebins run replicated on
+every rank, as the reference's global arrays imply (no particle
+migration).
 
 :class:`VortexStepper` owns the ``(tree, plan)`` pair and closes the
-model -> execution -> measurement loop on one device (``mesh=None``):
+model -> execution -> measurement loop, on one device (``mesh=None``) or
+on every rank of a mesh:
 
   * every ``replan_every`` steps the leaf occupancy is pulled, measured
     times (the host wall clock by default) are folded into the weights,
@@ -17,14 +22,21 @@ model -> execution -> measurement loop on one device (``mesh=None``):
   * with ``guard=True`` (default) every step also returns the device-side
     health word (``core/health.py``), and a fault walks the bounded
     :class:`RecoveryPolicy` ladder: plain retries -> halved dt -> host
-    re-level -> root-box expansion (``quadtree.Domain``) -> the kernels'
-    plain versions (on the CPU only) -> rollback to the last checkpoint -> typed
-    :class:`StepperFaultError` carrying a structured :class:`FaultReport`.
+    re-level -> root-box expansion (``quadtree.Domain``) -> plan fallback
+    (block -> slab -> uniform, on a mesh of more than one rank) -> the
+    kernels' plain versions on the serial route (on the CPU only) ->
+    rollback to the last checkpoint -> typed :class:`StepperFaultError`
+    carrying a structured :class:`FaultReport`.
+
+On a mesh every host decision agrees across ranks: a step's recorded time
+is the largest rank's (one ``all_reduce(MAX)``), and the re-plans,
+re-levels and recovery rungs read only that time and the replicated tree.
 
 Periodic snapshots go through ``checkpoint.manager.CheckpointManager`` in
-the reference package's format; ``VortexStepper.from_checkpoint`` restores
-the tree and payload bit-exact and rebuilds the plan from the restored
-leaf counts.  The sharded driver is not ported: a ``mesh`` raises.
+the reference package's format (rank 0 writes, every rank reads);
+``VortexStepper.from_checkpoint`` restores the tree and payload bit-exact
+onto a mesh of any size and rebuilds the plan from the restored leaf
+counts.
 """
 from __future__ import annotations
 
@@ -44,18 +56,12 @@ from . import health as hw
 from . import partition as pt
 from .cost_model import ModelParams, array_digest
 from .fmm import fmm_velocity
-from .plan import (assignment_from_plan, autotune_plan,
-                   measured_row_scale, plan_from_counts, plan_loads,
-                   plan_stats, replan)
+from .parallel_fmm import parallel_fmm_p2p_prefetch, parallel_fmm_velocity
+from .plan import (BlockPlan, assignment_from_plan, autotune_plan,
+                   candidate_grids, measured_row_scale, plan_from_counts,
+                   plan_loads, plan_stats, replan, uniform_plan)
 from .quadtree import (Domain, Tree, build_tree, choose_level, map_leaves,
                        rebuild_tree)
-
-_NOT_PORTED = ("the sharded driver (core/parallel_fmm.py) is not ported yet "
-               "(ROADMAP.md Queue 1 item 4); the stepper runs on one device "
-               "with mesh=None")
-
-# The reference's least level for one part: 4 leaf rows.
-_MIN_LEVEL = 2
 
 # 64-bit host dtypes and the 32-bit ones the reference's arrays take
 # (jax without x64), so payloads and checkpoints agree between packages.
@@ -63,15 +69,20 @@ _TO_32 = {np.dtype(np.float64): np.float32, np.dtype(np.complex128): np.complex6
           np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32}
 
 
-def rk2_step(tree: Tree, dt: float, payload=None, *, p: int,
+def rk2_step(tree: Tree, dt: float, payload=None, *, p: int, mesh=None,
+             plan=None, overlap: bool = True, pipeline: bool = True,
              guard: bool = False, faults: tuple = (), plain: bool = False,
              device=None):
     """One RK2 midpoint step; ``dz/dt = conj(W)`` (W = u - iv).
 
     ``payload`` is an optional tensor or nested tuple/list/dict of per-slot
     (n, n, s) tensors carried through both rebinnings.  ``device`` (None:
-    the CUDA card) must hold the tree.  Returns ``(new_tree, new_payload,
-    ok, occ, health)`` as device tensors: ``ok`` is False iff a leaf box
+    the CUDA card) must hold the tree; a ``mesh`` brings its own device and
+    runs both evaluations through the sharded driver under ``plan`` (None:
+    the uniform slab), ``overlap`` and ``pipeline``; with ``pipeline`` the
+    second evaluation's P2P exchange is issued as soon as the rebinned
+    midpoint tree exists.  Returns ``(new_tree, new_payload, ok, occ,
+    health)`` as device tensors: ``ok`` is False iff a leaf box
     overflowed its slots during either rebin and ``occ`` is the maximum
     leaf occupancy after the step.  ``guard=True`` also assembles the
     ``core/health.py`` word (driver sentinels, out-of-domain counts taken
@@ -80,11 +91,20 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int,
     tuple of active :class:`~repro_torch.core.faults.FaultSpec`s, injected
     after the first half kick (the empty tuple runs the injection-free
     step).  ``plain=True`` runs P2P and M2L through the kernels' plain
-    versions, on the CPU only.
+    versions, on the serial route and the CPU only.
     """
-    dev = resolve_device(device)
+    if mesh is not None and plain:
+        raise ValueError("plain=True runs the serial route: pass mesh=None")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     check_on(dev, tree.z, tree.q, tree.mask)
-    v1 = fmm_velocity(tree, p, with_health=guard, device=dev, plain=plain)
+
+    def velocity(t, p2p_halo=None):
+        if mesh is None:
+            return fmm_velocity(t, p, with_health=guard, device=dev, plain=plain)
+        return parallel_fmm_velocity(t, p, mesh, plan, overlap,
+                                     with_health=guard, faults=faults,
+                                     pipeline=pipeline, p2p_halo=p2p_halo)
+    v1 = velocity(tree)
     w1, h1 = v1 if guard else (v1, None)
     z_mid = torch.where(tree.mask, tree.z + 0.5 * dt * torch.conj(w1), tree.z)
     z_mid = flt.corrupt_positions(z_mid, tree.mask, faults)
@@ -93,9 +113,13 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int,
     aux = (tree.z, payload) if payload is not None else (tree.z,)
     t_mid, aux, ok1 = rebuild_tree(tree, z_mid, aux=aux)
     z0 = aux[0]
+    # the next evaluation's P2P exchange goes out as soon as its tree exists
+    p2p_pre = None
+    if pipeline and mesh is not None:
+        p2p_pre = parallel_fmm_p2p_prefetch(t_mid, mesh, plan)
     ood1 = hw.out_of_domain_count(z_mid, tree.mask) if guard else None
 
-    v2 = fmm_velocity(t_mid, p, with_health=guard, device=dev, plain=plain)
+    v2 = velocity(t_mid, p2p_pre)
     w2, h2 = v2 if guard else (v2, None)
     z_new = torch.where(t_mid.mask, z0 + dt * torch.conj(w2), t_mid.z)
     check_finite("full_kick", z_new)
@@ -225,14 +249,18 @@ class StepRecord:
 
 class VortexStepper:
     """Owns ``(tree, plan)`` and advances the vortex system dynamically on
-    one device (``device``; None: the CUDA card).
+    one device (``device``; None: the CUDA card) or, with ``mesh``, on
+    every rank of a :class:`~repro_torch.launch.mesh.RankMesh` (one stepper
+    per rank, each holding the whole tree; the mesh brings the device).
 
     ``plan_method``: 'uniform' (strawman) or 'model' (a-priori cost-model
     plan), with ``dynamic=True`` adding re-planning from drifted counts and
     measured times (``measured_times_fn(stepper) -> (nparts,) seconds``,
-    :func:`host_wallclock_times` by default).  ``plan_grid`` (a grid of one
-    tile, or ``"auto"``), ``overlap`` and ``pipeline`` enter the plan as in
-    the reference and change nothing on one device.
+    :func:`host_wallclock_times` by default).  ``plan_grid=(Pr, Pc)``
+    schedules a 2-D :class:`BlockPlan` (``Pr * Pc`` must equal the mesh
+    size) instead of row bands; ``"auto"`` lets the grid autotuner choose
+    at build and every re-plan.  ``overlap`` and ``pipeline`` order the
+    sharded driver's work.
 
     Guarded execution: ``guard=True`` (default) runs every step with the
     device-side health word and walks the :class:`RecoveryPolicy` ladder on
@@ -290,12 +318,11 @@ class VortexStepper:
                      checkpoint_every, checkpoint_keep, domain, pipeline=True,
                      artifact_cache=None, device=None):
         if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED)
-        if plan_grid not in (None, "auto") and \
-                int(plan_grid[0]) * int(plan_grid[1]) != 1:
-            raise NotImplementedError(
-                f"plan_grid {tuple(plan_grid)} needs "
-                f"{int(plan_grid[0]) * int(plan_grid[1])} parts: {_NOT_PORTED}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.p, self.dt = p, float(dt)
         # externally-owned artifact cache (duck type: get(key, builder));
@@ -322,6 +349,8 @@ class VortexStepper:
         self.checkpoint_every = int(checkpoint_every)
         self._ckpt = (CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
                       if checkpoint_dir else None)
+        # rank 0 writes the snapshots; every rank reads them
+        self._ckpt_writer = mesh is None or mesh.rank == 0
         self._rolled_back_steps: set[int] = set()
         # dynamic steppers default to the host wall-clock timer
         if measured_times_fn is None and dynamic:
@@ -334,7 +363,19 @@ class VortexStepper:
 
     @property
     def nparts(self) -> int:
-        return 1
+        return 1 if self.mesh is None else self.mesh.shape[self.mesh.axis]
+
+    def _min_level(self) -> int:
+        # every part needs at least one parent row (2 leaf rows) on each of
+        # its grid's axes; "auto" sizes for its most square candidate
+        if self.plan_grid == "auto":
+            need = max(min(2 * max(g) for g in candidate_grids(self.nparts)),
+                       4)
+        elif self.plan_grid is not None:
+            need = max(2 * max(self.plan_grid), 4)
+        else:
+            need = max(2 * self.nparts, 4)
+        return max(2, math.ceil(math.log2(need)))
 
     def _check_slots(self, slots: int) -> None:
         if self.device.type == "cuda" and slots > kp2p.MAX_SLOTS:
@@ -390,7 +431,7 @@ class VortexStepper:
         gamma = np.asarray(gamma, np.float64) / size ** 2
         sigma_unit = self.sigma / size
         level = max(choose_level(len(positions), self.target_per_box),
-                    _MIN_LEVEL)
+                    self._min_level())
         n = 1 << level
         ij = np.clip((positions * n).astype(np.int64), 0, n - 1)
         occ = np.bincount(ij[:, 1] * n + ij[:, 0], minlength=n * n).max()
@@ -415,6 +456,11 @@ class VortexStepper:
         cut = self._cut if self._cut is not None else min(level - 1, 4)
         self.params = ModelParams(level=level, cut=max(cut, 1), p=self.p,
                                   slots=slots)
+        if self.plan_grid not in (None, "auto") and \
+                self.plan_grid[0] * self.plan_grid[1] != self.nparts:
+            raise ValueError(f"plan_grid {self.plan_grid} has "
+                             f"{self.plan_grid[0] * self.plan_grid[1]} tiles"
+                             f" for {self.nparts} devices")
         self._adopt_plan(self.index.counts)
 
     def counts(self) -> np.ndarray:
@@ -481,7 +527,15 @@ class VortexStepper:
                 "domain_size": self.domain.size,
                 "plan_method": self.plan_method,
                 "payload_spec": payload_spec}
-        self._ckpt.save(self.step_count, trees, meta)
+        if self._ckpt_writer:
+            self._ckpt.save(self.step_count, trees, meta)
+
+    def wait_checkpoint(self) -> None:
+        """Block until the last snapshot is on disk, on every rank."""
+        if self._ckpt_writer:
+            self._ckpt.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @staticmethod
     def _templates_from_meta(meta):
@@ -497,8 +551,9 @@ class VortexStepper:
 
     def _adopt_restored(self, out, meta):
         """Install the restored arrays on the stepper's device and rebuild
-        the plan from their counts (bit-exact: no host rebuild).  A saved
-        level is never below one part's minimum, so no re-level is needed."""
+        the plan from their counts (bit-exact: no host rebuild), on any
+        number of parts whose least level the saved tree reaches; a tree
+        too shallow for them is re-leveled on the host instead."""
         self._check_slots(meta["slots"])
         t = out["tree"]
         self.tree = Tree(z=torch.as_tensor(t["z"], device=self.device),
@@ -516,6 +571,11 @@ class VortexStepper:
                                   p=self.p, slots=meta["slots"])
         self.step_count = meta["step"]
         self._counts_cache = None
+        if meta["level"] < self._min_level():
+            # too shallow for this many parts: the one restore that is not
+            # bit-exact (a host rebuild)
+            self._relevel()
+            return
         # no host tree build on this path: only the plan key is live
         self._artifact_keys = {}
         self._adopt_plan(self.counts())
@@ -525,7 +585,7 @@ class VortexStepper:
         restored step index."""
         if self._ckpt is None:
             raise RuntimeError("stepper built without checkpoint_dir")
-        self._ckpt.wait()               # never race an in-flight save
+        self.wait_checkpoint()          # never race an in-flight save
         step = self._ckpt.latest_step() if step is None else step
         if step is None:
             raise RuntimeError("no checkpoint to roll back to")
@@ -553,10 +613,9 @@ class VortexStepper:
                         checkpoint_keep: int = 3,
                         artifact_cache=None, device=None) -> "VortexStepper":
         """Rebuild a stepper from a checkpoint directory (written by either
-        package): tree and payload restored bit-exact onto ``device``, the
-        plan rebuilt from the restored leaf counts."""
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED)
+        package, on any number of parts): tree and payload restored bit-exact
+        onto ``device`` or every rank of ``mesh``, the plan rebuilt from the
+        restored leaf counts."""
         mgr = CheckpointManager(directory, keep=checkpoint_keep)
         step = mgr.latest_step() if step is None else step
         if step is None:
@@ -565,7 +624,7 @@ class VortexStepper:
         out, meta = mgr.restore(cls._templates_from_meta(meta), step=step)
         st = cls.__new__(cls)
         st._init_config(
-            p=meta["p"], dt=meta["dt"], mesh=None,
+            p=meta["p"], dt=meta["dt"], mesh=mesh,
             plan_method=plan_method or meta.get("plan_method", "model"),
             dynamic=dynamic, plan_grid=plan_grid, overlap=overlap,
             pipeline=pipeline,
@@ -666,15 +725,20 @@ class VortexStepper:
                      if f.site == "teleport" else f
                      for f in active)
 
-    def _run_rk2(self, dt, faults=(), reference=False):
+    def _run_rk2(self, dt, faults=(), plan=None, reference=False):
         """One rk2 attempt from the CURRENT (tree, payload); adopts nothing.
 
-        ``reference=True`` runs P2P and M2L through the kernels' plain
-        versions, the ladder's last compute rung (CPU only).  Waits for the device and
-        takes ``ok``, ``occ`` and the health word to the host in one copy;
+        ``plan`` overrides the stepper's plan on a mesh.  ``reference=True``
+        runs the serial route with the kernels' plain versions, the
+        ladder's last compute rung (CPU only; on a mesh every rank runs it
+        whole).  Waits for the device and takes
+        ``ok``, ``occ`` and the health word to the host in one copy;
         returns ``(tree, payload, ok, occ, health)``."""
+        mesh = None if reference else self.mesh
         tree, payload, ok, occ, health = rk2_step(
-            self.tree, dt, self.payload, p=self.p, guard=self.guard,
+            self.tree, dt, self.payload, p=self.p, mesh=mesh,
+            plan=None if mesh is None else (plan or self.plan),
+            overlap=self.overlap, pipeline=self.pipeline, guard=self.guard,
             faults=faults, plain=reference, device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -688,7 +752,7 @@ class VortexStepper:
     def _recover(self, first_health: np.ndarray):
         """Walk the recovery ladder for the step that just faulted.
 
-        Returns ``(tree, payload, occ, health, rung, releveled)``
+        Returns ``(tree, payload, occ, health, rung, releveled, replanned)``
         with the recovered step's state, or ``(None, ..., "rollback", ...)``
         after a checkpoint rollback (the step did NOT advance), or raises
         :class:`StepperFaultError` once every enabled rung is exhausted.
@@ -714,7 +778,7 @@ class VortexStepper:
             t = run(self.dt)
             note(f"retry_{r + 1}", t[4])
             if hw.ok(t[4]):
-                return t[0], t[1], t[3], t[4], f"retry_{r + 1}", False
+                return t[0], t[1], t[3], t[4], f"retry_{r + 1}", False, False
         # rung 2: halved dt, two half-steps covering the same interval, so
         # a recovered trajectory stays comparable to an unfaulted one
         if pol.halve_dt:
@@ -727,24 +791,35 @@ class VortexStepper:
                 self.tree, self.payload = saved
                 note("half_dt_2", t2[4])
                 if hw.ok(t2[4]):
-                    return t2[0], t2[1], t2[3], t2[4], "half_dt", False
+                    return t2[0], t2[1], t2[3], t2[4], "half_dt", False, False
         # rung 3: host re-level at freshly chosen depth/capacity
         if pol.relevel:
             self._relevel()
             t = run(self.dt)
             note("relevel", t[4])
             if hw.ok(t[4]):
-                return t[0], t[1], t[3], t[4], "relevel", True
+                return t[0], t[1], t[3], t[4], "relevel", True, False
         # rung 4: root-box expansion (particles escaped the domain)
         if pol.expand_domain and saw_ood:
             self._expand_domain()
             t = run(self.dt)
             note("expand_domain", t[4])
             if hw.ok(t[4]):
-                return t[0], t[1], t[3], t[4], "expand_domain", True
-        # rung 5: plan fallback block -> slab -> uniform needs more than one
-        # part; one part has no simpler plan, so it is skipped as in the
-        # reference (it comes with plans across parts: ROADMAP Queue 1 item 5)
+                return t[0], t[1], t[3], t[4], "expand_domain", True, False
+        # rung 5: plan fallback block -> slab -> uniform (bad plan/exchange)
+        if pol.plan_fallback and self.mesh is not None and self.nparts > 1:
+            for name, fb in self._fallback_plans():
+                t = run(self.dt, plan=fb)
+                note(f"plan_{name}", t[4])
+                if hw.ok(t[4]):
+                    self.plan = fb
+                    self.plan_grid = None
+                    counts = self.counts()
+                    self.subtree_assign = assignment_from_plan(
+                        fb, self.params.cut)
+                    self._cached_lb = plan_stats(fb, counts,
+                                                 self.params)["load_balance"]
+                    return t[0], t[1], t[3], t[4], f"plan_{name}", False, True
         # rung 6: the kernels' plain versions, on the CPU only: on the card a
         # kernel that keeps failing the health check goes on to rollback or
         # StepperFaultError, whose report carries every attempt's health
@@ -752,18 +827,34 @@ class VortexStepper:
             t = run(self.dt, reference=True)
             note("reference", t[4])
             if hw.ok(t[4]):
-                return t[0], t[1], t[3], t[4], "reference", False
+                return t[0], t[1], t[3], t[4], "reference", False, False
         # rung 7: rollback to the last good checkpoint (once per step)
         fault_step = self.step_count + 1
+        if pol.rollback and self._ckpt is not None:
+            self.wait_checkpoint()      # every rank sees the same snapshots
         if (pol.rollback and self._ckpt is not None
                 and fault_step not in self._rolled_back_steps
                 and self._ckpt.latest_step() is not None):
             self._rolled_back_steps.add(fault_step)
             self.rollback()
-            return None, None, 0, first_health, "rollback", False
+            return None, None, 0, first_health, "rollback", False, False
         raise StepperFaultError(FaultReport(
             step=fault_step, attempts=attempts,
             plan=self.plan.describe(), level=self.params.level, dt=self.dt))
+
+    def _fallback_plans(self):
+        """Simpler-plan candidates in escalation order, the current plan and
+        infeasible geometries excluded (a slab needs 2 leaf rows a part)."""
+        out = []
+        if (1 << self.params.level) < 2 * self.nparts:
+            return out
+        if isinstance(self.plan, BlockPlan) and self.plan.grid[1] > 1:
+            out.append(("slab", plan_from_counts(self.counts(), self.params,
+                                                 self.nparts, method="model")))
+        uni = uniform_plan(self.params.level, self.nparts)
+        if uni != self.plan:
+            out.append(("uniform", uni))
+        return out
 
     # -- stepping ------------------------------------------------------------
 
@@ -774,15 +865,15 @@ class VortexStepper:
         recovery ladder on any fault; a rollback record carries
         ``recovered="rollback"`` and does NOT advance ``step_count``."""
         t0 = time.perf_counter()
-        recovered, releveled = "", False
+        recovered, releveled, fb_replanned = "", False, False
         tree, payload, ok, occ, health = self._run_rk2(
             self.dt, faults=self._active_faults(0))
         if self.guard:
             if not hw.ok(health):
-                (tree, payload, occ, health, recovered,
-                 releveled) = self._recover(health)
+                (tree, payload, occ, health, recovered, releveled,
+                 fb_replanned) = self._recover(health)
                 if tree is None:        # rolled back: step did not advance
-                    seconds = time.perf_counter() - t0
+                    seconds = self._step_seconds(t0)
                     rec = StepRecord(step=self.step_count, seconds=seconds,
                                      load_balance=self._cached_lb,
                                      replanned=False, releveled=False,
@@ -803,19 +894,19 @@ class VortexStepper:
                     "increase slots_headroom or lower target_per_box")
         # the timer covers everything the step actually cost, including a
         # re-level/recovery when one happened
-        seconds = time.perf_counter() - t0
+        seconds = self._step_seconds(t0)
         self.tree, self.payload = tree, payload
         self.step_count += 1
         if self.faults is not None:
             # host-side fault site: corrupt this step's wall-clock sample
             seconds *= self.faults.time_factor(self.step_count)
-        replanned = False
+        replanned = fb_replanned
         self._counts_cache = None       # tree advanced: drop stale counts
         if self.step_count % self.replan_every == 0:
             # occ came to the host with the step's outputs: the check
             # itself syncs nothing extra
             action = self.maybe_replan(occ=int(occ))
-            replanned = action == "replan"
+            replanned = replanned or action == "replan"
             releveled = releveled or action == "relevel"
         rec = StepRecord(step=self.step_count, seconds=seconds,
                          load_balance=self._cached_lb,
@@ -828,6 +919,12 @@ class VortexStepper:
                 and self.step_count % self.checkpoint_every == 0):
             self.save_checkpoint()
         return rec
+
+    def _step_seconds(self, t0: float) -> float:
+        """Host seconds since ``t0``; on a mesh the largest rank's, so every
+        rank records, and decides on, the same time."""
+        seconds = time.perf_counter() - t0
+        return seconds if self.mesh is None else self.mesh.all_reduce_max(seconds)
 
     def stats(self) -> dict:
         return plan_stats(self.plan, self.counts(), self.params)

@@ -1,8 +1,10 @@
-"""The port's two examples, run as a user runs them, on the CPU at a small
-size: ``examples/torch_quickstart.py`` (FMM against the direct sum) and
+"""The port's examples, run as a user runs them, on the CPU at a small
+size: ``examples/torch_quickstart.py`` (FMM against the direct sum),
 ``examples/torch_vortex_sim.py`` (the stepper's orbit invariant, a
-checkpoint written and resumed, the debug-NaN lane, and the refusal of the
-sharded options)."""
+checkpoint written and resumed, the debug-NaN lane, two ranks, and the
+refusal of rank options that do not fit) and
+``examples/torch_laplace_probe.py`` (Laplace at a probe grid on four ranks,
+against the direct sum)."""
 import os
 import subprocess
 import sys
@@ -45,8 +47,30 @@ def test_torch_vortex_sim_checkpoints_and_resumes_on_cpu(tmp_path):
     assert "step   3: max |r - r0|" in r.stdout
 
 
-@pytest.mark.parametrize("args", [("--devices", "4"), ("--plan-grid", "2x2")])
+@pytest.mark.parametrize("args", [("--ranks", "3", "--plan-grid", "2x2"),
+                                  ("--plan-grid", "2by2")])
 def test_torch_vortex_sim_refuses_the_sharded_options(args):
+    """Rank options that do not fit: a grid of 4 tiles for 3 ranks, and a
+    grid that is not PrxPc."""
     r = _run("torch_vortex_sim.py", *args, "--device", "cpu", timeout=120)
     assert r.returncode != 0
-    assert "sharded driver" in r.stderr and "not ported" in r.stderr
+    assert "--plan-grid" in r.stderr and ("needs 4 ranks" in r.stderr
+                                          or "must look like" in r.stderr)
+
+
+def test_torch_vortex_sim_on_two_ranks_on_cpu():
+    r = _run("torch_vortex_sim.py", "--n-side", "24", "--steps", "2", "--p", "8",
+             "--ranks", "2", "--plan", "dynamic", "--replan-every", "1",
+             "--device", "cpu")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "plan=dynamic devices=2 device=cpu" in r.stdout
+    assert "step   2: max |r - r0|" in r.stdout and r.stdout.rstrip().endswith("OK")
+
+
+def test_torch_laplace_probe_on_four_ranks_on_cpu():
+    r = _run("torch_laplace_probe.py", "--n-charges", "2000", "--probe-side", "24",
+             "--ranks", "4", "--device", "cpu")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "plan=model ranks=4 device=cpu" in r.stdout
+    assert "vs direct sum: potential rel err" in r.stdout
+    assert r.stdout.rstrip().endswith("OK")

@@ -31,6 +31,8 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    for module in ("core/parallel_fmm.py", "launch/mesh.py"):
+        assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -39,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_port_examples_import_no_jax_and_no_reference():
     files = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(files) == 2
+    assert len(files) == 3
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -79,6 +81,24 @@ def test_entry_points_raise_without_a_card():
         rk2_step(tree, 1e-3, p=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tree_from_numpy(tree.z.numpy(), tree.q.numpy(), tree.mask.numpy(), 2, 0.01)
+
+
+def test_sharded_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core.parallel_fmm import (parallel_fmm_evaluate,
+                                               parallel_fmm_p2p_prefetch)
+    from repro_torch.core.quadtree import build_tree
+    from repro_torch.launch.mesh import make_local_mesh, spawn_world
+    rng = np.random.default_rng(0)
+    pos, gamma = rng.uniform(size=(50, 2)), rng.normal(size=50)
+    tree, _ = build_tree(pos, gamma, level=2, sigma=0.01, device="cpu")
+    for call in (lambda: parallel_fmm_evaluate(tree, 8),
+                 lambda: parallel_fmm_p2p_prefetch(tree),
+                 lambda: make_local_mesh(),
+                 lambda: spawn_world(print, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_lm_entry_points_raise_without_a_card():

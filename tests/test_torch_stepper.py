@@ -344,19 +344,24 @@ def test_stepper_matches_reference_over_four_steps():
     np.testing.assert_allclose(_by_id(st, len(pos0)), _by_id(js, len(pos0)),
                                rtol=0, atol=5e-5)
     assert st.modeled_step_work() == js.modeled_step_work()
-    # one part: the reference has no simpler plan, the port no plan-fallback rung
-    assert st.nparts == 1 and js._fallback_plans() == []
+    # one part: neither package has a simpler plan to fall back on
+    assert st.nparts == 1 and js._fallback_plans() == st._fallback_plans() == []
 
 
 def test_stepper_refuses_a_mesh_and_a_multi_part_grid(tmp_path):
+    """A mesh on another device than ``device``, and a grid of more tiles
+    than parts (the reference's error), are refused."""
     from repro_torch.core.vortex import lamb_oseen_particles
+    from repro_torch.launch.mesh import make_local_mesh
     pos0, gamma0, sigma = lamb_oseen_particles(12)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        VortexStepper(pos0, gamma0, sigma, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="needs 4 parts"):
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        VortexStepper(pos0, gamma0, sigma, mesh=make_local_mesh(device="cpu"),
+                      device="meta")
+    with pytest.raises(ValueError, match="4 tiles for 1 devices"):
         VortexStepper(pos0, gamma0, sigma, plan_grid=(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        VortexStepper.from_checkpoint(str(tmp_path), mesh=object())
+    with pytest.raises(ValueError, match="4 tiles for 1 devices"):
+        VortexStepper(pos0, gamma0, sigma, plan_grid=(2, 2),
+                      mesh=make_local_mesh(device="cpu"))
     # one tile, and the autotuner over one part, run as the slab plan
     for grid in ((1, 1), "auto"):
         st = VortexStepper(pos0, gamma0, sigma, p=6, plan_grid=grid, device="cpu")
