@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
 (vortex steps, the sharded driver and stepper on 4 ranks sharing the card,
-Laplace and tracer evaluations, the host-side planner) and Yi-6B serving at
-full width.
+Laplace and tracer evaluations, the host-side planner, the FMM service with
+its batched buckets) and Yi-6B serving at full width.
 
-Run from the repository root with no arguments:
+Run from the repository root with no arguments (``--seed`` seeds phase
+fmm_serve's jobs, 0 by default):
 
     python3 chip_smoke.py
 
@@ -83,6 +84,29 @@ Phases, each printing one JSON line:
               the autotuned plan's kind and grid, the Eq-20 load balance of
               the model, uniform and autotuned plans, host ms; the model
               slab plan's balance must be no lower than the uniform plan's;
+6b. fmm_serve — ``FmmServiceEngine`` (``serve/fmm_service.py``) on the card,
+              jobs made from ``--seed`` with numpy: wave A, 8 vortex
+              one-shots of 100,000 uniform sources (level 7, p = 17, one
+              bucket (8, 128, 128, 32)); wave B, the lattice and the lattice
+              with other strengths at level 10 (bucket (2, 1024, 1024, 4));
+              waves C and D, 4 Laplace and 4 tracer one-shots at p = 16 with
+              a 256 x 256 probe grid.  Each bucket exactly one P2P launch of
+              its mode and one M2L launch per level 2..L, no plain call;
+              each job within 1e-6 of its serial ``fmm_evaluate`` on the
+              card (wave B's job 0 also of phase 3's velocity, and its error
+              against f64 phase 3's), probe jobs within 1e-5 of f64 at 1,024
+              probes; the batched P2P and M2L launches at each bucket's
+              shapes against their plain versions and bit for bit one launch
+              a grid; the whale rejected with its price, a repeat of wave A
+              that adds no launch configuration, operator or split, a
+              deferred and promoted backlog; a paper-size session streamed
+              with prefetch, bit for bit a plain ``VortexStepper``, cache
+              hits counted, ``restore_session`` bit for bit; the sharded lane
+              on 4 gloo ranks (wave B's job 0 through the priced plan, exact
+              launches a rank, the same on every rank, within 1e-6 of the
+              batched lane) and a 2-step session on the mesh, bit for bit on
+              every rank.  Prints each bucket's batched and serial-sum ms,
+              latencies, cache stats, peak bytes and the phase's seconds;
 7. attn_vs_plain — the three flash-attention kernels against their
               plain version.  The bf16 tensor-core kernel at Yi-6B's
               prefill shape (4, 32, 4, 2048, 128) causal, at
@@ -127,7 +151,9 @@ Phases, each printing one JSON line:
               kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
-the FMM kernels, and again for the stepper's four steps in phase 4b, on
+the FMM kernels, and again for the stepper's four steps in phase 4b, for
+each bucket's drain, the backlog and the session's steps in phase
+fmm_serve and on each of its ranks before the sharded lane, on
 each rank of phase 4c before each counted evaluation and before the
 sharded stepper's steps, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
@@ -141,6 +167,7 @@ sources beside this file, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import shutil
@@ -159,7 +186,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.petfmm_vortex import CONFIG  # noqa: E402
 from repro_torch.core import expansions as ex  # noqa: E402
 from repro_torch.core import fmm, health as hw  # noqa: E402
-from repro_torch.core.cost_model import ModelParams  # noqa: E402
+from repro_torch.core.cost_model import ModelParams, array_digest  # noqa: E402
+from repro_torch.core import equations as eqs  # noqa: E402
 from repro_torch.core.equations import LAPLACE, TRACER, VORTEX  # noqa: E402
 from repro_torch.core import plan as fmm_plan  # noqa: E402
 from repro_torch.core.quadtree import Tree  # noqa: E402
@@ -175,6 +203,7 @@ from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa:
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve import fmm_service as svc  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -192,6 +221,10 @@ P2P_OPS_REGULARIZED = 18
 # (divide, exp, subtract) when sigma is finite.
 P2P_OPS_LAPLACE_SINGULAR = 23
 P2P_OPS_LAPLACE_REGULARIZED = 26
+# (mode, singular) -> operations per live pair
+P2P_OPS = {("base", True): P2P_OPS_SINGULAR, ("base", False): P2P_OPS_REGULARIZED,
+           ("laplace", True): P2P_OPS_LAPLACE_SINGULAR,
+           ("laplace", False): P2P_OPS_LAPLACE_REGULARIZED}
 
 SLOTS = 8
 LAPLACE_P = LAPLACE.default_p    # 16: the log expansion's order
@@ -263,6 +296,22 @@ SIMT_CASES = [(*RG_ATTN, torch.float32),
               (*RG_ATTN, torch.bfloat16),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
               (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
+# phase fmm_serve: the serving engine (serve/fmm_service.py) on the card
+SVC_N = 100_000                   # sources a one-shot job of waves A, C and D
+SVC_WAVE_A = 8                    # vortex one-shots: one bucket at capacity 8
+SVC_WAVE_C = 4                    # Laplace (wave C) and tracer (wave D) probe jobs
+SVC_P_LAPLACE = 16
+SVC_PROBES = np.linspace(0.06, 0.94, 256)   # a 256 x 256 grid, about 9 a level-7 box
+SVC_SIGMA = 1e-3                  # the far field starts a level-7 box (7.8 sigma) away
+SVC_SAMPLES = 1024
+SVC_TOL = 1e-6                    # a batched job against its serial evaluation
+SVC_PROBE_TOL = 1e-5              # probe jobs against f64
+SVC_F64_MATCH = 1e-6              # wave B job 0's error vs f64 against phase 3's
+SVC_MAX_JOB = 1e12                # admits the paper-size sessions, rejects the whale
+SVC_SHARD_AT = 1e10               # on a mesh, wave B's job 0 takes the sharded lane
+SVC_SESSION_KW = dict(target_per_box=0.7, slots_headroom=2.0)   # phase 4b's tree
+SVC_SESSION_STEPS = 3
+SVC_MESH_STEPS = 2
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = 2088
@@ -345,7 +394,7 @@ def p2p_runtime_instance(zh, qh, mh, sigma) -> torch.Tensor:
     out = torch.empty((rows, cols, s), dtype=torch.complex64, device=zh.device)
     singular = sigma is None
     err = p2p._lib().p2p_launch(
-        zh.data_ptr(), qh.data_ptr(), mh.data_ptr(), None, None, out.data_ptr(), rows,
+        zh.data_ptr(), qh.data_ptr(), mh.data_ptr(), None, None, out.data_ptr(), 1, rows,
         cols, s, s, 1, ty, tx, 1.0 if singular else 2.0 * sigma * sigma, int(singular),
         threads + 32, smem, torch.cuda.current_stream().cuda_stream)
     require(err == 0, f"p2p run-time instance: CUDA error {err}")
@@ -425,9 +474,7 @@ def check_p2p_mode(tree, sigma, mode: str, targets=None, holes: bool = False):
     if mt is not None:
         nbytes += mt.numel() + int(mt.sum()) * 8
     pairs = live_pairs(zh, mh, zt, mt)
-    per_pair = {("base", True): P2P_OPS_SINGULAR, ("base", False): P2P_OPS_REGULARIZED,
-                ("laplace", True): P2P_OPS_LAPLACE_SINGULAR,
-                ("laplace", False): P2P_OPS_LAPLACE_REGULARIZED}[mode, sigma is None]
+    per_pair = P2P_OPS[mode, sigma is None]
     b_ms, b_by = bound_ms(nbytes, pairs * per_pair)
     return dict(name="p2p", mode=mode, passive=mt is not None, sigma=sigma,
                 holes=holes, live_targets=int(live.sum()), shape=list(got.shape),
@@ -1092,6 +1139,530 @@ def sharded_phase(pos, gamma, sigma, p, w_reg, sample, exact_sing, state4) -> di
     return {"p2p": p2p_n, "m2l": m2l_n, "per_rank": per_rank, "shapes": shapes}
 
 
+def svc_budget(max_queue_flops: float = 1e13) -> "svc.ServiceBudget":
+    return svc.ServiceBudget(max_job_flops=SVC_MAX_JOB, max_queue_flops=max_queue_flops,
+                             shard_threshold_flops=SVC_SHARD_AT)
+
+
+def svc_jobs(rng, count, equation, p, positions=None, targets=None) -> list:
+    """``count`` one-shot jobs of ``SVC_N`` uniform sources in [0.05, 0.95]^2
+    (or at ``positions``) with seeded normal strengths."""
+    return [svc.FmmJob(
+        positions=rng.uniform(0.05, 0.95, (SVC_N, 2)) if positions is None
+        else positions[i], strength=rng.standard_normal(SVC_N), equation=equation,
+        targets=targets, p=p, sigma=SVC_SIGMA, tenant=f"{equation}-{i}")
+        for i in range(count)]
+
+
+def svc_trees(bucket, jobs) -> list:
+    """Each job's (tree, index) and (targets, index) as the engine builds them."""
+    out = []
+    for j in jobs:
+        spec = eqs.get_equation(j.equation)
+        t = build_tree(j.positions, j.strength, bucket.level, j.sigma, slots=bucket.slots,
+                       charge_scale=spec.charge_scale)
+        tt = None if j.targets is None else build_tree(
+            j.targets, np.zeros(len(j.targets)), bucket.level, j.sigma,
+            slots=bucket.tgt_slots)
+        out.append((t, tt))
+    return out
+
+
+def svc_gather(out, index, nout: int) -> torch.Tensor:
+    if nout == 1:
+        return gather_particle_values(out, index)
+    return torch.stack([gather_particle_values(out[..., c], index)
+                        for c in range(nout)], dim=-1)
+
+
+def serve_wave(engine, name: str, jobs: list) -> dict:
+    """Submit ``jobs`` (one bucket), then drain them with the launch counters
+    zeroed just before and read just after: exactly one P2P launch of the
+    bucket's mode, one M2L launch per level 2..L, and no plain call."""
+    jids = [engine.submit(j) for j in jobs]
+    buckets = {r.bucket for r in engine.queue}
+    require(len(engine.queue) == len(jobs) and len(buckets) == 1,
+            f"wave {name}: {len(engine.queue)} jobs queued in {len(buckets)} buckets")
+    bucket = engine.queue[0].bucket
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_fmm_counts()
+    ops.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    engine.drain()
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+    spec = eqs.get_equation(bucket.equation)
+    mode = eqs.p2p_mode(spec) + ("_passive" if bucket.tgt_slots else "")
+    want = {"p2p": {mode: 1}, "m2l": bucket.level - 1}
+    require(counts == want and plain_calls == 0,
+            f"wave {name}: launches {counts}, plain {plain_calls}; expected {want}")
+    results = [engine.result(j) for j in jids]
+    return dict(wave=name, bucket=dataclasses.asdict(bucket), mode=mode,
+                capacity=results[0].batch_capacity, jobs=len(jobs),
+                drain_host_ms=drain_ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts, results=results, key=bucket, spec=spec)
+
+
+def serial_vs_batched(wave: dict, jobs: list) -> tuple[dict, tuple]:
+    """Each job of ``wave`` against the serial ``fmm_evaluate`` of its own
+    tree on the card (rel L2 within ``SVC_TOL``, and whether bit for bit),
+    then the bucket's batched evaluation and the same jobs' serial
+    evaluations timed by CUDA events in this process.  Returns the record
+    and the stacked batch inputs."""
+    b, spec = wave["key"], wave["spec"]
+    trees = svc_trees(b, jobs)
+    errs, exact = [], []
+    for (t, tt), res in zip(trees, wave["results"]):
+        tgt = None if tt is None else tt[0]
+        serial = fmm.fmm_evaluate(t[0], b.p, eq=spec, targets=tgt)
+        want = svc_gather(serial, t[1] if tt is None else tt[1], spec.nout)
+        got = torch.as_tensor(res.out, device=want.device)
+        errs.append(rel_l2(got, want))
+        exact.append(bool(torch.equal(got, want)))
+    require(max(errs) <= SVC_TOL, f"wave {wave['wave']}: batched vs serial rel L2 "
+                                  f"{max(errs)} > {SVC_TOL}")
+    cap = wave["capacity"]
+    z, q, m = svc.stack_trees([t[0] for t, _ in trees], cap)
+    if b.tgt_slots:
+        tz, _, tm = svc.stack_trees([tt[0] for _, tt in trees], cap)
+        batched = lambda: svc.batched_fmm_eval_targets(  # noqa: E731
+            z, q, m, tz, tm, level=b.level, sigma=b.sigma, p=b.p, eq=spec)
+    else:
+        tz = tm = None
+        batched = lambda: svc.batched_fmm_eval(  # noqa: E731
+            z, q, m, level=b.level, sigma=b.sigma, p=b.p, eq=spec)
+
+    def serial_all():
+        for t, tt in trees:
+            fmm.fmm_evaluate(t[0], b.p, eq=spec, targets=None if tt is None else tt[0])
+    iters = 3 if b.level >= 10 else 10
+    rec = {"rel_l2_vs_serial": errs, "gate_vs_serial": SVC_TOL,
+           "bit_for_bit_vs_serial": exact,
+           "batched_ms": cuda_ms(batched, iters=iters),
+           "serial_sum_ms": cuda_ms(serial_all, iters=iters)}
+    return rec, (z, q, m, tz, tm)
+
+
+def check_p2p_batched(z, q, m, sigma, zt=None, mt=None, mode="base") -> dict:
+    """The batched P2P launch at a bucket's shapes against its plain version
+    (rel L2 within ``KERNEL_TOL``) and against one launch per grid (bit for
+    bit), with both timed and the bound of the batch's live pairs."""
+    pad = (0, 0, 1, 1, 1, 1)
+    zh, qh, mh = F.pad(z, pad), F.pad(q, pad), F.pad(m, pad)
+    B = zh.shape[0]
+    call = lambda fn: fn(zh, qh, mh, sigma, zt, mt, mode)  # noqa: E731
+
+    def per_item():
+        return torch.stack([p2p.p2p_cuda(
+            zh[b].clone(), qh[b].clone(), mh[b].clone(), sigma,
+            None if zt is None else zt[b].clone(), None if mt is None else mt[b].clone(),
+            mode) for b in range(B)])
+    got, want, items = call(p2p.p2p_cuda), call(p2p.p2p_plain), per_item()
+    torch.cuda.synchronize()
+    live = mh[:, 1:-1, 1:-1] if mt is None else mt
+    live = live if got.ndim == live.ndim else live[..., None].expand(got.shape)
+    err = rel_l2(got[live], want[live])
+    same = bool(torch.equal(got, items))
+    name = f"p2p {mode} batch {B}"
+    require(err <= KERNEL_TOL, f"{name}: rel L2 vs plain {err} > {KERNEL_TOL}")
+    require(same, f"{name}: the batched launch differs from one launch per grid")
+    require(bool((got[~live] == 0).all()), f"{name}: a masked target is not 0")
+    ms = cuda_ms(lambda: call(p2p.p2p_cuda), iters=20)
+    items_ms = cuda_ms(per_item, iters=5)
+    plain_ms = cuda_ms(lambda: call(p2p.p2p_plain), iters=2, warmup=1)
+    nbytes = mh.numel() + int(mh.sum()) * 16 + got.numel() * 8
+    if mt is not None:
+        nbytes += mt.numel() + int(mt.sum()) * 8
+    pairs = sum(live_pairs(zh[b], mh[b], None if zt is None else zt[b],
+                           None if mt is None else mt[b]) for b in range(B))
+    per_pair = P2P_OPS[mode, sigma is None]
+    b_ms, b_by = bound_ms(nbytes, pairs * per_pair)
+    return dict(name="p2p", mode=mode + ("_passive" if mt is not None else ""),
+                shape=list(zh.shape), out_shape=list(got.shape),
+                launch=list(p2p.launch_config(zh.shape[-1], got.shape[3],
+                                              p2p.MODES[mode].nout)[:3]),
+                rel_l2=err, max_abs_err=float((got[live] - want[live]).abs().max()),
+                bit_for_bit_per_item=same, ms=ms, per_item_ms=items_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, live_pairs=pairs,
+                bytes=nbytes, ops=pairs * per_pair, library_ms=None)
+
+
+def check_m2l_batched(me, level, p, eq) -> dict:
+    """The batched M2L launch on a bucket's leaf stacks against its plain
+    version and one launch per stack, timed, with the bound and the
+    yardstick matmul of the unfolded batch."""
+    me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
+    stack, (PR, _), (PC, _) = ex.m2l_slab_stack(me_halo, p, 0, ex.M2L_HALO)
+    W = ops.folded_operator(eq, p, level, stack.device)
+    B, K = stack.shape[0], 4 * p
+    per_item = lambda: torch.stack([m2l.m2l_cuda(stack[b].clone(), W)  # noqa: E731
+                                    for b in range(B)])
+    got, want, items = m2l.m2l_cuda(stack, W), m2l.m2l_plain(stack, W), per_item()
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    same = bool(torch.equal(got, items))
+    require(err <= KERNEL_TOL, f"m2l batch {B} level {level}: rel L2 {err} > {KERNEL_TOL}")
+    require(same, f"m2l batch {B} level {level}: the batched launch differs from one "
+                  f"launch per stack")
+    iters = 20 if level >= 8 else 100
+    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=iters)
+    items_ms = cuda_ms(per_item, iters=max(iters // 4, 5))
+    plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=max(iters // 10, 3))
+    unfolded = torch.cat([stack[:, 1 + Dy:1 + Dy + PR, 1 + Dx:1 + Dx + PC]
+                          for (Dx, Dy) in ex.PARENT_NEIGH8], dim=-1).reshape(-1, 8 * K)
+    w_cat = W.reshape(8 * K, K)
+    library_ms = cuda_ms(lambda: torch.matmul(unfolded, w_cat), iters=iters)
+    nnz = int((W.reshape(8, 4, p, 4, p).abs().amax(dim=(2, 4)) > 0).sum())
+    ops_ = B * PR * PC * nnz * p * p * 8
+    nbytes = (stack.numel() + W.numel() + got.numel()) * 8
+    return dict(name="m2l", level=level, p=p, equation=eq.name, shape=list(stack.shape),
+                rel_l2=err, max_abs_err=float((got - want).abs().max()),
+                bit_for_bit_per_item=same, ms=ms, per_item_ms=items_ms,
+                plain_ms=plain_ms, **f32_product_bound(nbytes, ops_),
+                library_ms=library_ms, bytes=nbytes, ops=ops_)
+
+
+def probe_errors(wave: dict, jobs: list, rng) -> dict:
+    """Each probe job against the float64 direct sum at ``SVC_SAMPLES``
+    sampled probes (Laplace: the potential's real part and the field)."""
+    probes = jobs[0].targets
+    pick = np.sort(rng.choice(len(probes), SVC_SAMPLES, replace=False))
+    z_at = probes[pick, 0] + 1j * probes[pick, 1]
+    laplace = wave["spec"].nout == 2
+    errs = []
+    for j, res in zip(jobs, wave["results"]):
+        exact = direct_f64(j.positions, j.strength, z_at, j.sigma, laplace=laplace)
+        got = torch.as_tensor(res.out[pick], device=exact.device)
+        e = ({"potential": rel_l2(got[:, 0].real.double(), exact[:, 0].real),
+              "field": rel_l2(got[:, 1].to(torch.complex128), exact[:, 1])}
+             if laplace else {"velocity": rel_l2(got.to(torch.complex128), exact)})
+        for channel, v in e.items():
+            require(v <= SVC_PROBE_TOL, f"wave {wave['wave']} {channel}: rel L2 vs f64 "
+                                        f"{v} > {SVC_PROBE_TOL}")
+        errs.append(e)
+    return {"rel_l2_vs_f64": errs, "gate_vs_f64": SVC_PROBE_TOL, "samples": SVC_SAMPLES}
+
+
+def emit_wave(wave: dict, **extra) -> dict:
+    row = {k: v for k, v in wave.items() if k not in ("results", "key", "spec")}
+    row.update(extra)
+    emit({"phase": "fmm_serve", **row})
+    return row
+
+
+def serve_session(engine, pos, gamma, sigma, p, ck_dir) -> dict:
+    """A paper-size trajectory session through the engine: three RK2 steps
+    streamed with prefetch (2 P2P and 18 M2L launches a step), bit for bit a
+    plain ``VortexStepper`` with the same arguments at every step, the
+    artifact cache's hits, and ``restore_session`` bit for bit."""
+    cache0 = dict(engine.cache.stats())
+    sid = engine.submit(svc.FmmJob(positions=pos, strength=gamma, steps=SVC_SESSION_STEPS,
+                                   p=p, dt=DT, sigma=sigma, tenant="session"))
+    ses = engine.session(sid)
+    require((ses.stepper.params.level, ses.stepper.params.slots) == (CONFIG.level, SLOTS),
+            f"session tree {dataclasses.asdict(ses.stepper.params)}")
+    plain = VortexStepper(pos, gamma, sigma, p=p, dt=DT, **SVC_SESSION_KW)
+    torch.cuda.synchronize()
+    zero_fmm_counts()
+    ops.PLAIN_CALLS = 0
+    cache_open = dict(engine.cache.stats())
+    t0 = time.perf_counter()
+    streamed = list(ses.stream(SVC_SESSION_STEPS, prefetch=True))
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+    want = {"p2p": {"base": 2 * SVC_SESSION_STEPS},
+            "m2l": 2 * (CONFIG.level - 1) * SVC_SESSION_STEPS}
+    require(counts == want and plain_calls == 0,
+            f"session launches {counts}, plain {plain_calls}; expected {want}")
+    cache_steps = dict(engine.cache.stats())
+    require(cache_steps["hits"] - cache_open["hits"] == 2 * SVC_SESSION_STEPS
+            and cache_steps["misses"] == cache_open["misses"],
+            f"session steps' cache {cache_open} -> {cache_steps}: expected "
+            f"{2 * SVC_SESSION_STEPS} hits and no miss")
+    for i, pos_i, rec in streamed:
+        plain.step()
+        require(np.array_equal(pos_i, plain.particles()[0]) and hw.ok(hw.unpack(rec.health)),
+                f"session step {i}: positions differ from the plain stepper's, or "
+                f"health {rec.health}")
+    state = (ses.stepper.tree.z, ses.stepper.tree.q, ses.stepper.tree.mask)
+    require(all(torch.equal(a, b) for a, b in zip(
+        state, (plain.tree.z, plain.tree.q, plain.tree.mask))),
+        "the session's tree is not the plain stepper's")
+    ses.stepper.save_checkpoint()
+    ses.stepper.wait_checkpoint()
+    (rid, restore_ms) = host_ms(lambda: engine.restore_session(ck_dir))
+    back = engine.session(rid).stepper
+    same = all(torch.equal(a, b) for a, b in zip(
+        (back.tree.z, back.tree.q, back.tree.mask), state))
+    engine.step_session(rid)
+    engine.step_session(sid)
+    same_step = all(torch.equal(a, b) for a, b in zip(
+        (back.tree.z, back.tree.q, back.tree.mask),
+        (ses.stepper.tree.z, ses.stepper.tree.q, ses.stepper.tree.mask)))
+    require(same and same_step, f"restore_session: state bit for bit {same}, the next "
+                                f"step bit for bit {same_step}")
+    return {"phase": "fmm_serve", "wave": "session", "n": len(pos),
+            "params": dataclasses.asdict(ses.stepper.params),
+            "price_flops": ses.price.total_flops, "steps": SVC_SESSION_STEPS,
+            "step_ms": [rec.seconds * 1e3 for _, _, rec in streamed],
+            "stream_host_ms": stream_ms, "launches": counts,
+            "bit_for_bit_plain_stepper": True, "cache_before": cache0,
+            "cache_at_open": cache_open, "cache_after_steps": cache_steps,
+            "restore_session_host_ms": restore_ms, "restore_bit_for_bit": True}
+
+
+def serve_rank(mesh, spec: dict) -> dict:
+    """The sharded lane on one rank: the engine on a ``RankMesh`` routes the
+    lattice job (wave B's job 0) to ``parallel_fmm_evaluate`` under the
+    priced plan, with exactly ``kernel_launches(plan)`` launches; then a
+    two-step session on the mesh."""
+    pos, gamma, sigma = lamb_oseen_particles(spec["m_side"], sigma=CONFIG.sigma,
+                                             spacing_ratio=CONFIG.spacing_ratio)
+    p, level = spec["p"], CONFIG.level
+    engine = svc.FmmServiceEngine(mesh=mesh, budget=svc_budget(),
+                                  session_kwargs=SVC_SESSION_KW)
+    jid = engine.submit(svc.FmmJob(positions=pos, strength=gamma, level=level, p=p,
+                                   sigma=sigma, tenant="sharded"))
+    rec = engine.queue[0]
+    require(rec.price.lane == "sharded", f"rank {mesh.rank}: lane {rec.price.lane}")
+    counts = svc._leaf_counts(pos, level)
+    params = ModelParams(level=level, cut=min(level - 1, 4), p=p,
+                         slots=rec.bucket.slots, nout=1)
+    plan = fmm_plan.plan_from_counts(counts, params, mesh.size, method="model")
+    mesh.barrier()
+    torch.cuda.synchronize()
+    zero_fmm_counts()
+    ops.PLAIN_CALLS = 0
+    _, ms = host_ms(engine.drain)
+    got, plain_calls = fmm_counts(), ops.PLAIN_CALLS
+    want = pf.kernel_launches(plan)
+    want = {"p2p": {"base": want["p2p"]}, "m2l": want["m2l"]}
+    require(got == want and plain_calls == 0,
+            f"rank {mesh.rank} sharded lane: launches {got}, plain {plain_calls}; "
+            f"expected {want}")
+    res = engine.result(jid)
+    sid = engine.submit(svc.FmmJob(positions=pos, strength=gamma, steps=SVC_MESH_STEPS,
+                                   p=p, dt=DT, sigma=sigma, tenant="mesh-session"))
+    zero_fmm_counts()
+    steps = list(engine.session(sid).stream(SVC_MESH_STEPS))
+    st = engine.session(sid).stepper
+    state = [t.cpu().numpy() for t in (st.tree.z, st.tree.q, st.tree.mask)]
+    return {"rank": mesh.rank, "out": res.out, "latency_ms": res.latency_s * 1e3,
+            "drain_host_ms": ms, "launches": got, "plan": plan.describe(),
+            "price": dataclasses.asdict(res.price),
+            "session_digest": array_digest(*state),
+            "session_step_ms": [r.seconds * 1e3 for _, _, r in steps],
+            "session_launches": fmm_counts(), "session_level": st.params.level,
+            "session_plan": st.plan.describe(), "stats": engine.stats(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def fmm_serve_phase(dev, pos, gamma, sigma, p, w_reg_at, sample, err_reg, seed) -> dict:
+    """Phase fmm_serve: ``FmmServiceEngine`` on the card.  Waves A-D, each one
+    bucket drained with the launches counted (one P2P and L-1 M2L), the
+    batched kernels at each bucket's shapes against their plain versions and
+    one launch per grid, the whale rejected with its price, a repeat of
+    wave A with fresh charges that adds no launch configuration, a deferred
+    and promoted backlog, a paper-size session, and the sharded lane on
+    ``RANKS`` gloo ranks.  Returns the launches and the batched rows."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    ck_dir = Path(tempfile.mkdtemp(prefix="serve_ckpt_", dir=root))
+    engine = svc.FmmServiceEngine(budget=svc_budget(),
+                                  session_kwargs={**SVC_SESSION_KW,
+                                                  "checkpoint_dir": str(ck_dir)})
+    rows, kernel_rows, launches = {}, {"p2p": [], "m2l": []}, {"p2p": {}, "m2l": 0}
+
+    def count(wave):
+        for mode, n in wave["launches"]["p2p"].items():
+            launches["p2p"][mode] = launches["p2p"].get(mode, 0) + n
+        launches["m2l"] += wave["launches"]["m2l"]
+
+    try:
+        # -- wave A: 8 vortex one-shots at N = 100,000, level auto, p = 17 --
+        jobs_a = svc_jobs(rng, SVC_WAVE_A, "vortex", p)
+        wave = serve_wave(engine, "A", jobs_a)
+        require(wave["capacity"] == SVC_WAVE_A, f"wave A capacity {wave['capacity']}")
+        timing, (z, q, m, _, _) = serial_vs_batched(wave, jobs_a)
+        kernel_rows["p2p"].append(check_p2p_batched(z, q, m, SVC_SIGMA))
+        me = fmm.upward_sweep(Tree(z=z, q=q, mask=m, level=wave["key"].level,
+                                   sigma=SVC_SIGMA), p)[wave["key"].level]
+        kernel_rows["m2l"].append(check_m2l_batched(me, wave["key"].level, p, VORTEX))
+        del z, q, m, me
+        count(wave)
+        rows["A"] = emit_wave(wave, **timing)
+        # -- wave B: 2 lattice jobs at the paper's size, level 10 ---------------
+        jobs_b = [svc.FmmJob(positions=pos, strength=g, level=CONFIG.level, p=p,
+                             sigma=sigma, tenant=f"lattice-{i}")
+                  for i, g in enumerate((gamma, gamma * rng.uniform(0.5, 1.5, len(gamma))))]
+        wave = serve_wave(engine, "B", jobs_b)
+        b_job0 = wave["results"][0].out
+        job0 = torch.as_tensor(b_job0, device=dev)
+        err_phase3 = rel_l2(job0, w_reg_at)
+        require(err_phase3 <= SVC_TOL, f"wave B job 0 vs phase 3's serial velocity: rel L2 "
+                                       f"{err_phase3} > {SVC_TOL}")
+        exact = direct_sum_f64(pos, gamma, sample, sigma)
+        err_f64 = rel_l2(job0[torch.as_tensor(sample, device=dev)].to(torch.complex128),
+                         exact)
+        require(abs(err_f64 - err_reg) <= SVC_F64_MATCH,
+                f"wave B job 0 vs f64 {err_f64}, phase 3's {err_reg}")
+        timing, (z, q, m, _, _) = serial_vs_batched(wave, jobs_b)
+        kernel_rows["p2p"].append(check_p2p_batched(z, q, m, sigma))
+        me = fmm.upward_sweep(Tree(z=z, q=q, mask=m, level=CONFIG.level, sigma=sigma),
+                              p)[CONFIG.level]
+        kernel_rows["m2l"].append(check_m2l_batched(me, CONFIG.level, p, VORTEX))
+        del z, q, m, me, exact
+        count(wave)
+        rows["B"] = emit_wave(
+            wave, job0_rel_l2_vs_phase3=err_phase3,
+            job0_bit_for_bit_phase3=bool(torch.equal(job0, w_reg_at)),
+            job0_rel_l2_vs_f64=err_f64, phase3_rel_l2_vs_f64=err_reg, **timing)
+        del job0
+        torch.cuda.empty_cache()
+        # -- waves C and D: Laplace and tracer at a 256 x 256 probe grid -------
+        px, py = np.meshgrid(SVC_PROBES, SVC_PROBES, indexing="xy")
+        probes = np.stack([px.ravel(), py.ravel()], axis=1)
+        src_c = [rng.uniform(0.05, 0.95, (SVC_N, 2)) for _ in range(SVC_WAVE_C)]
+        for name, eq_name, order in (("C", "laplace", SVC_P_LAPLACE),
+                                     ("D", "tracer", SVC_P_LAPLACE)):
+            jobs = svc_jobs(rng, SVC_WAVE_C, eq_name, order, positions=src_c,
+                            targets=probes)
+            wave = serve_wave(engine, name, jobs)
+            errs = probe_errors(wave, jobs, rng)
+            timing, (z, q, m, tz, tm) = serial_vs_batched(wave, jobs)
+            spec = wave["spec"]
+            kernel_rows["p2p"].append(check_p2p_batched(
+                z, torch.complex(q.real, torch.zeros_like(q.real)) if spec.q_is_real else q,
+                m, SVC_SIGMA, tz, tm, eqs.p2p_mode(spec)))
+            if name == "C":
+                me = fmm.upward_sweep(Tree(z=z, q=q, mask=m, level=wave["key"].level,
+                                           sigma=SVC_SIGMA), order, eq=spec)
+                kernel_rows["m2l"].append(check_m2l_batched(
+                    me[wave["key"].level], wave["key"].level, order, spec))
+                del me
+            del z, q, m, tz, tm
+            count(wave)
+            rows[name] = emit_wave(wave, tgt_slots=wave["key"].tgt_slots, **errs, **timing)
+        # -- admission: the whale is rejected with its price -------------------
+        whale = svc.FmmJob(positions=rng.uniform(0.0, 1.0, (200_000, 2)),
+                           strength=np.ones(200_000), level=12, p=24, sigma=SVC_SIGMA,
+                           tenant="whale")
+        try:
+            engine.submit(whale)
+            raise RuntimeError("the whale was not rejected")
+        except svc.JobRejected as e:
+            require(isinstance(e.price, svc.JobPrice)
+                    and e.price.total_flops > SVC_MAX_JOB,
+                    f"whale rejected at {e.price}")
+            whale_price = dataclasses.asdict(e.price)
+        # -- a repeat of wave A, fresh charges: no new launch configuration ----
+        entries = svc.batched_cache_entries()
+        caches = (ops.folded_operator.cache_info().currsize, len(m2l._SPLITS))
+        repeat = [dataclasses.replace(j, strength=rng.standard_normal(SVC_N))
+                  for j in jobs_a]
+        wave = serve_wave(engine, "A_repeat", repeat)
+        count(wave)
+        after = (svc.batched_cache_entries(),
+                 ops.folded_operator.cache_info().currsize, len(m2l._SPLITS))
+        require(after == (entries, *caches),
+                f"repeat wave grew (jit_entries, folded operators, splits) from "
+                f"{(entries, *caches)} to {after}")
+        rows["A_repeat"] = emit_wave(wave, jit_entries=entries,
+                                     folded_operators=caches[0], splits=caches[1])
+        # -- admission: a backlog deferred, then promoted -----------------------
+        # the CPU test's prediction (test_backlog_defers_then_promotes): with
+        # max_queue_flops 1.5 jobs' worth, the first job is admitted and each
+        # later one deferred, then promoted one drain pass at a time
+        before = dict(engine.counters)
+        backlog = svc_jobs(rng, 3, "laplace", SVC_P_LAPLACE, positions=src_c,
+                           targets=probes)
+        engine.submit(backlog[0])
+        per_job = engine.queue[0].price.total_flops
+        engine.budget = svc_budget(max_queue_flops=1.5 * per_job)
+        for j in backlog[1:]:
+            engine.submit(j)
+        queued = (len(engine.queue), len(engine.deferred))
+        zero_fmm_counts()
+        engine.drain()
+        delta = {k: engine.counters[k] - before[k]
+                 for k in ("submitted", "admitted", "deferred", "promoted", "batches",
+                           "batched_jobs", "rejected")}
+        want = {"submitted": 3, "admitted": 3, "deferred": 2, "promoted": 2,
+                "batches": 3, "batched_jobs": 3, "rejected": 0}
+        require(queued == (1, 2) and delta == want,
+                f"backlog: queued {queued}, counters moved {delta}; expected (1, 2), {want}")
+        count({"launches": fmm_counts()})
+        engine.budget = svc_budget()
+        emit({"phase": "fmm_serve", "wave": "admission", "whale_price": whale_price,
+              "budget_max_job_flops": SVC_MAX_JOB, "backlog_queued": list(queued),
+              "backlog_counters": delta, "expected": want,
+              "max_queue_flops": 1.5 * per_job})
+        # -- a paper-size session, streamed with prefetch ------------------------
+        rows["session"] = serve_session(engine, pos, gamma, sigma, p, str(ck_dir))
+        emit(rows["session"])
+        for mode, n in rows["session"]["launches"]["p2p"].items():
+            launches["p2p"][mode] = launches["p2p"].get(mode, 0) + n
+        launches["m2l"] += rows["session"]["launches"]["m2l"]
+        stats = engine.stats()
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    # -- the sharded lane and a session on RANKS gloo ranks sharing the card ---
+    t0 = time.perf_counter()
+    ranks = spawn_world(serve_rank, RANKS, device="cuda", timeout_s=RANK_TIMEOUT_S,
+                        args=({"m_side": int(round(CONFIG.num_particles ** 0.5)),
+                               "p": p},))
+    world_s = time.perf_counter() - t0
+    first = ranks[0]
+    for r in ranks[1:]:
+        require(np.array_equal(r["out"], first["out"])
+                and r["session_digest"] == first["session_digest"],
+                f"rank {r['rank']}'s sharded result or session differs from rank 0's")
+    sharded_err = rel_l2(torch.as_tensor(first["out"]), torch.as_tensor(b_job0))
+    require(sharded_err <= SVC_TOL, f"sharded lane vs wave B's batched job 0: rel L2 "
+                                    f"{sharded_err} > {SVC_TOL}")
+    for r in ranks:
+        launches["p2p"]["base"] = launches["p2p"].get("base", 0) + \
+            r["launches"]["p2p"]["base"] + r["session_launches"]["p2p"].get("base", 0)
+        launches["m2l"] += r["launches"]["m2l"] + r["session_launches"]["m2l"]
+    emit({"phase": "fmm_serve", "wave": "sharded", "ranks": RANKS,
+          "note": f"{RANKS} ranks share one card over gloo: not a scaling result",
+          "world_seconds": world_s, "plan": first["plan"], "price": first["price"],
+          "launches_per_rank": first["launches"],
+          "rel_l2_vs_wave_b_batched": sharded_err, "gate": SVC_TOL,
+          "bit_for_bit_across_ranks": True,
+          "drain_host_ms": [r["drain_host_ms"] for r in ranks],
+          "latency_ms": [r["latency_ms"] for r in ranks],
+          "session_level": first["session_level"], "session_plan": first["session_plan"],
+          "session_step_ms": [r["session_step_ms"] for r in ranks],
+          "session_launches_per_rank": first["session_launches"],
+          "session_bit_for_bit_across_ranks": True,
+          "peak_bytes": [r["peak_bytes"] for r in ranks]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "fmm_serve_summary", "seconds": seconds,
+          "latency": stats["latency"], "batch_utilization": stats["batch_utilization"],
+          "cache": stats["cache"], "jit_entries": stats["jit_entries"],
+          "counters": {k: v for k, v in stats.items()
+                       if k not in ("latency", "cache", "batch_utilization", "jit_entries")},
+          "buckets": {k: {"shape": [v["capacity"], 1 << v["bucket"]["level"],
+                                    1 << v["bucket"]["level"], v["bucket"]["slots"]],
+                          "drain_host_ms": v["drain_host_ms"],
+                          "batched_ms": v.get("batched_ms"),
+                          "serial_sum_ms": v.get("serial_sum_ms"),
+                          "peak_bytes": v["peak_bytes"]}
+                      for k, v in rows.items() if k in ("A", "B", "C", "D", "A_repeat")}})
+    buckets = {k: {"shape": [v["capacity"], 1 << v["bucket"]["level"],
+                             1 << v["bucket"]["level"], v["bucket"]["slots"]],
+                   "tgt_slots": v["bucket"]["tgt_slots"], "launches": v["launches"]}
+               for k, v in rows.items() if k in ("A", "B", "C", "D", "A_repeat")}
+    return {"launches": launches, "kernel_rows": kernel_rows, "buckets": buckets}
+
+
 def stage_ms(tree, p) -> dict:
     """CUDA-event milliseconds per stage of one velocity evaluation plus one
     rebin, through the port's stage functions."""
@@ -1354,6 +1925,10 @@ def prefill_by_route(prefill, other: str) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase fmm_serve's jobs (numpy)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
                  "runs the port on a CUDA card only")
@@ -1431,7 +2006,8 @@ def main() -> None:
     w_at = gather_particle_values(w_sing, index)[torch.as_tensor(sample, device=dev)]
     err_sing = rel_l2(w_at.to(torch.complex128), direct_sum_f64(pos, gamma, sample, None))
     w_reg = fmm.fmm_velocity(tree, p)
-    w_at = gather_particle_values(w_reg, index)[torch.as_tensor(sample, device=dev)]
+    w_reg_at = gather_particle_values(w_reg, index)       # phase fmm_serve's wave B
+    w_at = w_reg_at[torch.as_tensor(sample, device=dev)]
     err_reg = rel_l2(w_at.to(torch.complex128), direct_sum_f64(pos, gamma, sample, sigma))
     emit({"phase": "fmm", "n": n_particles, "level": level, "p": p, "slots": SLOTS,
           "sigma": sigma, "leaf_box": box_size(level),
@@ -1493,6 +2069,15 @@ def main() -> None:
     # -- 6. the host-side planner at the paper's counts and processor count -
     plan_phase(index0.counts, level, p)
     del tree0
+    torch.cuda.empty_cache()
+
+    # -- 6b. main path: the FMM service on the card ---------------------------
+    served = fmm_serve_phase(dev, pos, gamma, sigma, p, w_reg_at, sample, err_reg,
+                             args.seed)
+    del w_reg_at
+    launches["p2p"] += served["launches"]["p2p"].get("base", 0)
+    launches["m2l"] += served["launches"]["m2l"]
+    torch.cuda.empty_cache()
 
     # -- 7. flash attention against its plain version ------------------------
     # the tensor-core kernels' timed cases are the shape the serve phases'
@@ -1571,7 +2156,8 @@ def main() -> None:
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": max(x["max_abs_err"] for x in rows + [
-                 v for k, v in extra.get("sharded_shapes", {}).items()]),
+                 v for k, v in extra.get("sharded_shapes", {}).items()]
+                 + extra.get("batched", {}).get("rows", [])),
              "rel_l2": max(x["rel_l2"] for x in rows),
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1615,6 +2201,12 @@ def main() -> None:
               sharded_launches_per_rank_per_evaluation={
                   k: v["p2p"]["base"] for k, v in sharded["per_rank"].items()},
               sharded_shapes=sharded_shapes("p2p"),
+              batched={"rows": served["kernel_rows"]["p2p"],
+                       "launches_by_mode": served["launches"]["p2p"],
+                       "per_bucket": served["buckets"],
+                       "launches_counted_in": "phase fmm_serve: each bucket's drain, the "
+                                              "backlog, the session's steps and the "
+                                              f"sharded lane on each of {RANKS} ranks"},
               runtime_instance_ms=p2p_rows[0]["runtime_instance_ms"],
               modes={"laplace": mode_entry(lap_rows, equations["laplace"], "laplace",
                                            "phase 5: fmm_evaluate(eq=LAPLACE), singular"),
@@ -1630,7 +2222,11 @@ def main() -> None:
                                   "stepper's four steps)",
               sharded_launches_per_rank_per_evaluation={
                   k: v["m2l"] for k, v in sharded["per_rank"].items()},
-              sharded_shapes=sharded_shapes("m2l")),
+              sharded_shapes=sharded_shapes("m2l"),
+              batched={"rows": served["kernel_rows"]["m2l"],
+                       "per_bucket": {k: {"shape": v["shape"], "launches": v["launches"]["m2l"]}
+                                      for k, v in served["buckets"].items()},
+                       "launches_counted_in": "phase fmm_serve, as P2P's"}),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",

@@ -18,6 +18,9 @@ parent-neighbor block operator, whose zero blocks are the parity masks.
 
 The operator builders are numpy (complex128) and identical to the
 reference package's; the stages are torch functions on dense level grids.
+Every stage takes grids with leading batch axes (``(..., n, n, p)``, the
+serving engine's bucket of jobs) and box centres that broadcast over them;
+without one it computes the same products as with one.
 """
 from __future__ import annotations
 
@@ -135,7 +138,8 @@ def _as_op(op, default, p: int, device: torch.device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Stage implementations (dense level grids).
-# Grids: me / le at level l have shape (n, n, p), n = 2**l, row-major (iy,ix).
+# Grids: me / le at level l have shape (..., n, n, p), n = 2**l, row-major
+# (iy, ix), with any leading batch axes "...".
 # ---------------------------------------------------------------------------
 
 
@@ -150,7 +154,8 @@ def _powers(zhat: torch.Tensor, p: int) -> torch.Tensor:
 def p2m(z: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
         centers: torch.Tensor, r: float, p: int,
         coeff: np.ndarray | None = None) -> torch.Tensor:
-    """Particles -> normalized MEs at the leaf level.  -> (n, n, p).
+    """Particles -> normalized MEs at the leaf level.  (..., n, n, s) ->
+    (..., n, n, p); ``centers`` (n, n) broadcasts over the batch.
 
     ``coeff`` is an optional (p,) per-order charge map ``c_k``:
     ``ahat_k = c_k sum q zhat^k``; None is the velocity kernel's identity.
@@ -162,24 +167,25 @@ def p2m(z: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
     """
     zhat = torch.where(mask, (z - centers[..., None]) / r, 0)   # (n, n, s)
     pw = _powers(zhat, p)                          # (n, n, s, p)
-    me = torch.einsum("yxs,yxsk->yxk", torch.where(mask, q, 0), pw)
+    me = torch.einsum("...s,...sk->...k", torch.where(mask, q, 0), pw)
     if coeff is not None:
         me = me * torch.as_tensor(coeff, dtype=me.dtype, device=me.device)
     return me
 
 
 def m2m(me_child: torch.Tensor, p: int, op=None) -> torch.Tensor:
-    """Child level grid (2ny, 2nx, p) -> parent grid (ny, nx, p).
+    """Child level grid (..., 2ny, 2nx, p) -> parent grid (..., ny, nx, p).
 
     ``op`` overrides the (4, p, p) translation tensor (None: the velocity
     kernel's, kept on the device after first use).
     """
     op = _as_op(op, m2m_operator, p, me_child.device)
-    ny, nx = me_child.shape[0] // 2, me_child.shape[1] // 2
-    c = me_child.reshape(ny, 2, nx, 2, p)          # [py, cy, px, cx, k]
+    lead = me_child.shape[:-3]
+    ny, nx = me_child.shape[-3] // 2, me_child.shape[-2] // 2
+    c = me_child.reshape(*lead, ny, 2, nx, 2, p)   # [..., py, cy, px, cx, k]
     # CHILD_OFFSETS order is (cy, cx) row-major -> index c = cy*2+cx
-    c = c.permute(0, 2, 1, 3, 4).reshape(ny, nx, 4, p)
-    return torch.einsum("yxck,cmk->yxm", c, op)
+    c = c.transpose(-4, -3).reshape(*lead, ny, nx, 4, p)
+    return torch.einsum("...ck,cmk->...m", c, op)
 
 
 def parity_mask(n: int, validity_o: np.ndarray) -> np.ndarray:
@@ -217,21 +223,25 @@ M2L_HALO = 2   # child rows/cols of ghost data needed by an even-aligned slab
 
 
 def to_parent_planes(grid: torch.Tensor, p: int) -> torch.Tensor:
-    """(2R, 2C, p) even-aligned child grid -> (R, C, 4p) parent planes.
+    """(..., 2R, 2C, p) even-aligned child grid -> (..., R, C, 4p) parent
+    planes.
 
     Plane ``c = cy*2 + cx`` (CHILD_OFFSETS order) holds the child with local
     parity (cy, cx); row 0 of ``grid`` must have even global parity.
     """
-    R, C = grid.shape[0] // 2, grid.shape[1] // 2
-    g = grid.reshape(R, 2, C, 2, p).permute(0, 2, 1, 3, 4)
-    return g.reshape(R, C, 4 * p)
+    lead = grid.shape[:-3]
+    R, C = grid.shape[-3] // 2, grid.shape[-2] // 2
+    g = grid.reshape(*lead, R, 2, C, 2, p).transpose(-4, -3)
+    return g.reshape(*lead, R, C, 4 * p)
 
 
 def from_parent_planes(stack: torch.Tensor, p: int) -> torch.Tensor:
-    """(R, C, 4p) parent planes -> (2R, 2C, p) child grid (inverse layout)."""
-    R, C = stack.shape[0], stack.shape[1]
-    g = stack.reshape(R, C, 2, 2, p).permute(0, 2, 1, 3, 4)
-    return g.reshape(2 * R, 2 * C, p)
+    """(..., R, C, 4p) parent planes -> (..., 2R, 2C, p) child grid (inverse
+    layout)."""
+    lead = stack.shape[:-3]
+    R, C = stack.shape[-3], stack.shape[-2]
+    g = stack.reshape(*lead, R, C, 2, 2, p).transpose(-4, -3)
+    return g.reshape(*lead, 2 * R, 2 * C, p)
 
 
 def m2l_slab_geometry(rows: int, row0: int, halo: int) -> tuple[int, int, int]:
@@ -268,37 +278,37 @@ def m2l_slab_stack(me_halo: torch.Tensor, p: int, row0: int, halo: int,
     ``col_halo>0`` the slab carries column ghosts and the same geometry
     algebra runs on the column axis, anchored at ``col0``.  Returns
     ``(stack, (PR, rshift), (PC, cshift))`` with ``stack`` a contiguous
-    (PR+2, PC+2, 4p) tensor.
+    (..., PR+2, PC+2, 4p) tensor.
     """
-    rows = me_halo.shape[0] - 2 * halo
+    rows = me_halo.shape[-3] - 2 * halo
     lo, PR, rshift = m2l_slab_geometry(rows, row0, halo)
-    sub = me_halo[lo:lo + 2 * (PR + 2)]
+    sub = me_halo[..., lo:lo + 2 * (PR + 2), :, :]
     if col_halo == 0:
-        cols = me_halo.shape[1]
+        cols = me_halo.shape[-2]
         if cols % 2:
             raise ValueError("M2L slab columns must span the full (even) width")
         sub = F.pad(sub, (0, 0, 2, 2))
         PC, cshift = cols // 2, 0
     else:
-        cols = me_halo.shape[1] - 2 * col_halo
+        cols = me_halo.shape[-2] - 2 * col_halo
         clo, PC, cshift = m2l_slab_geometry(cols, col0, col_halo)
-        sub = sub[:, clo:clo + 2 * (PC + 2)]
+        sub = sub[..., clo:clo + 2 * (PC + 2), :]
     stack = to_parent_planes(sub, p).contiguous()
     return stack, (PR, rshift), (PC, cshift)
 
 
 def folded_contract(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """The folded M2L contraction: (PR+2, PC+2, 4p) parent planes against
-    the (8, 4p, 4p) block operator -> (PR, PC, 4p), unscaled.
+    """The folded M2L contraction: (..., PR+2, PC+2, 4p) parent planes
+    against the (8, 4p, 4p) block operator -> (..., PR, PC, 4p), unscaled.
 
     ``acc[y, x] = sum_d stack[1 + Dy + y, 1 + Dx + x] @ W[d]`` over the 8
     ``PARENT_NEIGH8`` offsets.
     """
-    PR, PC = stack.shape[0] - 2, stack.shape[1] - 2
-    acc = torch.zeros((PR, PC, stack.shape[2]), dtype=stack.dtype,
-                      device=stack.device)
+    PR, PC = stack.shape[-3] - 2, stack.shape[-2] - 2
+    acc = torch.zeros(stack.shape[:-3] + (PR, PC, stack.shape[-1]),
+                      dtype=stack.dtype, device=stack.device)
     for d, (Dx, Dy) in enumerate(PARENT_NEIGH8):
-        acc = acc + stack[1 + Dy:1 + Dy + PR, 1 + Dx:1 + Dx + PC, :] @ W[d]
+        acc = acc + stack[..., 1 + Dy:1 + Dy + PR, 1 + Dx:1 + Dx + PC, :] @ W[d]
     return acc
 
 
@@ -308,36 +318,37 @@ def m2l_folded(me_halo: torch.Tensor, level: int, p: int, row0: int = 0,
                contract=folded_contract) -> torch.Tensor:
     """Parity-folded M2L over a slab/tile with ghost data attached.
 
-    ``me_halo``: (rows + 2*halo, cols + 2*col_halo, p) — the interior plus
+    ``me_halo``: (..., rows + 2*halo, cols + 2*col_halo, p) — the interior plus
     ``halo`` ghost rows above and below and ``col_halo`` ghost columns
     left and right (zeros at domain edges).  ``row0``/``col0`` are the
     global indices of the first interior row/column and anchor the parity
-    pattern.  Returns the (rows, cols, p) LE slab.
+    pattern.  Returns the (..., rows, cols, p) LE slab.
 
     ``op``/``scale`` override the folded block operator and the dimension
     scalar (defaults: the velocity kernel's).  ``contract`` computes the
     stack-by-operator contraction: the plain ``folded_contract`` here, the
     CUDA kernel's dispatcher in ``kernels/ops.py``.
     """
-    rows = me_halo.shape[0] - 2 * halo
-    cols = me_halo.shape[1] - 2 * col_halo
+    rows = me_halo.shape[-3] - 2 * halo
+    cols = me_halo.shape[-2] - 2 * col_halo
     stack, (PR, rshift), (PC, cshift) = m2l_slab_stack(me_halo, p, row0, halo,
                                                        col0, col_halo)
     W = _as_op(op, m2l_folded_operator, p, me_halo.device)
     if scale is None:
         scale = float(2.0 ** level)          # 1 / box_size(level), exact
-    le = from_parent_planes(contract(stack, W), p)        # (2PR, 2PC, p)
-    le = le[rshift:rshift + rows, cshift:cshift + cols]
+    le = from_parent_planes(contract(stack, W), p)        # (..., 2PR, 2PC, p)
+    le = le[..., rshift:rshift + rows, cshift:cshift + cols, :]
     return le * scale
 
 
 def l2l(le_parent: torch.Tensor, p: int, op=None) -> torch.Tensor:
-    """Parent grid (ny, nx, p) -> child grid (2ny, 2nx, p)."""
+    """Parent grid (..., ny, nx, p) -> child grid (..., 2ny, 2nx, p)."""
     op = _as_op(op, l2l_operator, p, le_parent.device)
-    ny, nx = le_parent.shape[0], le_parent.shape[1]
-    c = torch.einsum("yxl,cml->yxcm", le_parent, op)  # (ny, nx, 4, m)
-    c = c.reshape(ny, nx, 2, 2, p).permute(0, 2, 1, 3, 4)
-    return c.reshape(2 * ny, 2 * nx, p)
+    lead = le_parent.shape[:-3]
+    ny, nx = le_parent.shape[-3], le_parent.shape[-2]
+    c = torch.einsum("...l,cml->...cm", le_parent, op)  # (..., ny, nx, 4, m)
+    c = c.reshape(*lead, ny, nx, 2, 2, p).transpose(-4, -3)
+    return c.reshape(*lead, 2 * ny, 2 * nx, p)
 
 
 def l2p_eval(le: torch.Tensor, z: torch.Tensor, centers: torch.Tensor,
@@ -348,17 +359,19 @@ def l2p_eval(le: torch.Tensor, z: torch.Tensor, centers: torch.Tensor,
     ``modes`` entries each emit one complex channel: ``"value"`` is the LE
     polynomial itself (the velocity for the vortex kernel) and ``"ngrad"``
     its negated z-derivative ``-(1/r) sum_l l bhat_l zhat^(l-1)``.
-    Returns (n, n, s) for one mode, (n, n, s, len(modes)) otherwise.
+    ``le`` (..., n, n, p) and ``z`` (..., n, n, s) share their leading
+    batch axes; ``centers`` (n, n) broadcasts over them.  Returns
+    (..., n, n, s) for one mode, (..., n, n, s, len(modes)) otherwise.
     """
     zhat = (z - centers[..., None]) / r
     pw = _powers(zhat, p)                          # (n, n, s, p)
     outs = []
     for mode in modes:
         if mode == "value":
-            outs.append(torch.einsum("yxl,yxsl->yxs", le, pw))
+            outs.append(torch.einsum("...l,...sl->...s", le, pw))
         elif mode == "ngrad":
             lw = torch.arange(1, p, dtype=le.real.dtype, device=le.device)
-            outs.append(-torch.einsum("yxl,yxsl->yxs", le[..., 1:] * lw,
+            outs.append(-torch.einsum("...l,...sl->...s", le[..., 1:] * lw,
                                       pw[..., :p - 1]) / r)
         else:
             raise ValueError(f"unknown l2p mode {mode!r}")

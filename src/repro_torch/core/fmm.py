@@ -11,6 +11,11 @@ Every kernel-specific piece comes from an
 on an equation's name.  ``fmm_velocity`` is the vortex-kernel wrapper over
 the generic ``fmm_evaluate``; passing ``targets`` evaluates the sources'
 field at a separate batch of passive target points (the ``tracer`` mode).
+
+The serial driver also takes a tree whose arrays carry a leading batch
+axis, ``(B, n, n, s)``: B independent evaluations at one level, one P2P
+launch and one M2L launch per level 2..L for the whole batch (the serving
+engine's bucket of jobs, what ``vmap`` of the reference driver computes).
 """
 from __future__ import annotations
 
@@ -63,17 +68,17 @@ def p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
     spec's :meth:`pairwise` (the complex-division form for the vortex
     kernel) — a second route beside the kernel's plain version, and the
     only one for a spec whose formula the kernel lacks.  ``z_tgt``
-    (rows, cols, st) evaluates the sources' field at separate target
+    ([B,] rows, cols, st) evaluates the sources' field at separate target
     points; None keeps source == target."""
     eq = eqs.get_equation(eq)
-    rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
-    zt = z_halo[1:1 + rows, 1:1 + cols] if z_tgt is None else z_tgt
+    rows, cols = z_halo.shape[-3] - 2, z_halo.shape[-2] - 2
+    zt = z_halo[..., 1:1 + rows, 1:1 + cols, :] if z_tgt is None else z_tgt
     out = None
     for (dx, dy) in P2P_OFFSETS:
-        zs = z_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
-        qs = q_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
-        ms = mask_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
-        w = eq.pairwise(zt, zs, qs, ms, sigma)
+        window = (..., slice(1 + dy, 1 + dy + rows), slice(1 + dx, 1 + dx + cols),
+                  slice(None))
+        w = eq.pairwise(zt, z_halo[window], q_halo[window], mask_halo[window],
+                        sigma)
         out = w if out is None else out + w
     return out
 
@@ -209,7 +214,8 @@ def _centers_on(level: int, device: torch.device) -> torch.Tensor:
 
 
 def upward_sweep(tree: Tree, p: int, eq=None) -> list[torch.Tensor]:
-    """Build normalized MEs for every level; returns me[l] for l=0..L."""
+    """Build normalized MEs for every level; returns me[l] for l=0..L,
+    each ([B,] 2**l, 2**l, p)."""
     eq = eqs.get_equation(eq)
     L = tree.level
     me = [None] * (L + 1)
@@ -242,8 +248,8 @@ def near_field(tree: Tree, p2p_fn=None, z_tgt=None,
                mask_tgt=None) -> torch.Tensor:
     """P2P over the 3x3 stencil (the tree's sigma; None is singular).
 
-    ``z_tgt``/``mask_tgt`` (n, n, st) evaluate at passive targets instead
-    of the sources.  Returns (n, n, s|st[, C]).
+    ``z_tgt``/``mask_tgt`` ([B,] n, n, st) evaluate at passive targets
+    instead of the sources.  Returns ([B,] n, n, s|st[, C]).
     """
     slab = p2p_fn or p2p_slab_fn()
     pad = (0, 0, 1, 1, 1, 1)
@@ -265,7 +271,10 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
     (n, n, s, eq.nout) in the spec's channel order (Laplace: potential,
     field).  ``targets``, a second :class:`Tree` at the same level holding
     passive target points (charges ignored), switches to source != target
-    evaluation: the output is per target slot, (n, n, st[, C]).
+    evaluation: the output is per target slot, (n, n, st[, C]).  Trees
+    whose arrays carry a leading batch axis B (``targets`` with the same B)
+    evaluate B systems at once, each as it would alone, with one P2P and
+    one M2L launch per level for the batch; the output leads with B.
     ``device`` (None: the CUDA card) must hold both trees.
     ``with_health=True`` additionally returns a ``health.N_FIELDS`` int32
     health word (non-finite sentinels on the leaf expansion coefficients
@@ -278,6 +287,9 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
         raise ValueError(f"equation {eq.name!r} requires a targets tree")
     if targets is not None and targets.level != tree.level:
         raise ValueError("targets tree level != source tree level")
+    if targets is not None and targets.z.shape[:-3] != tree.z.shape[:-3]:
+        raise ValueError(f"targets batch {tuple(targets.z.shape[:-3])} != "
+                         f"sources batch {tuple(tree.z.shape[:-3])}")
     dev = resolve_device(device)
     check_on(dev, tree.z, tree.q, tree.mask)
     if targets is not None:

@@ -50,7 +50,12 @@
 // - The operator's 20 structural zero p x p blocks are multiplied like the
 //   rest: their 2p x 2p real blocks do not align with the 8 x 8 steps.
 //
-// Layouts: stack (PR+2, PC+2, K), out (PR, PC, K), complex64; W_split
+// Batch: B stacks of these shapes on a leading axis, one launch with B on
+// gridDim.z; block z stages its halo tile from, and writes to, its own
+// slice (64-bit offsets).  The operator is shared by the whole batch and
+// streamed per block as for one stack.
+//
+// Layouts: stack (B, PR+2, PC+2, K), out (B, PR, PC, K), complex64; W_split
 // (8, K, K, 4) f32; contiguous, 16-byte aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +152,8 @@ m2l_kernel(const float* __restrict__ stack, const float* __restrict__ wsplit,
   // the halo tile, zero past the stack's edge
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int SW = PC + 2, vpp = K2 / 4;                     // float4s per parent
+  stack += blockIdx.z * ((size_t)(PR + 2) * SW * K2);      // this block's stack
+  out += blockIdx.z * ((size_t)PR * PC * K);
   for (int i = tid; i < HY * HX * vpp; i += THREADS) {
     const int c = i / vpp, v = i - c * vpp;
     const int gy = y0 + c / HX, gx = x0 + c % HX;
@@ -237,13 +244,13 @@ m2l_kernel(const float* __restrict__ stack, const float* __restrict__ wsplit,
 }
 
 template <int NTW, int JG>
-int launch(const void* stack, const void* wsplit, void* out, int PR, int PC, int p,
-           cudaStream_t stream) {
+int launch(const void* stack, const void* wsplit, void* out, int batch, int PR, int PC,
+           int p, cudaStream_t stream) {
   const int smem = smem_bytes(p);
   const cudaError_t e = cudaFuncSetAttribute(
       m2l_kernel<NTW, JG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((PC + TX - 1) / TX, (PR + TY - 1) / TY);
+  const dim3 grid((PC + TX - 1) / TX, (PR + TY - 1) / TY, batch);
   m2l_kernel<NTW, JG><<<grid, THREADS, smem, stream>>>(
       (const float*)stack, (const float*)wsplit, (float2*)out, PR, PC, p);
   return (int)cudaGetLastError();
@@ -257,16 +264,18 @@ extern "C" int m2l_smem_bytes(int p) {
   return smem_bytes(p);
 }
 
-// W is the split operator W_split (8, 4p, 4p, 4) f32.
-extern "C" int m2l_launch(const void* stack, const void* W, void* out, int PR,
-                          int PC, int p, void* stream) {
-  if (p < 1 || p > MAX_P || PR < 1 || PC < 1 || (PR + TY - 1) / TY > 65535)
+// W is the split operator W_split (8, 4p, 4p, 4) f32; batch: the stacks on
+// the leading axis (1 to 65535).
+extern "C" int m2l_launch(const void* stack, const void* W, void* out, int batch,
+                          int PR, int PC, int p, void* stream) {
+  if (p < 1 || p > MAX_P || PR < 1 || PC < 1 || (PR + TY - 1) / TY > 65535 ||
+      batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int half = (p + 1) / 2;
-  if (half <= 4) return launch<4, 4>(stack, W, out, PR, PC, p, st);
-  if (half <= 9) return launch<9, 3>(stack, W, out, PR, PC, p, st);
-  return launch<16, 4>(stack, W, out, PR, PC, p, st);
+  if (half <= 4) return launch<4, 4>(stack, W, out, batch, PR, PC, p, st);
+  if (half <= 9) return launch<9, 3>(stack, W, out, batch, PR, PC, p, st);
+  return launch<16, 4>(stack, W, out, batch, PR, PC, p, st);
 }
 
 // What one TF32 tensor-core pass reads of each x[i]: out[i] = x[i] * 1.

@@ -50,9 +50,15 @@
 // division are the IEEE-accurate forms; each sum visits its sources in
 // stencil order (neighbour rows, boxes, slots).
 //
-// Layouts: z, q complex64 (rows+2, cols+2, s) as float2, 16-byte aligned;
-// mask uint8 (same), 8-byte aligned; zt complex64 and mt uint8
-// (rows, cols, st); out complex64 (rows, cols, st[, 2]).
+// Batch: B independent grids of these shapes, stacked on a leading axis,
+// run in one launch with B on gridDim.z; block z offsets every pointer by
+// its grid's slice (64-bit offsets), and the tiles and shared memory do not
+// depend on B.  A bucket of jobs of the serving engine is one launch.
+//
+// Layouts: z, q complex64 (B, rows+2, cols+2, s) as float2, 16-byte aligned;
+// mask uint8 (same), 8-byte aligned, and so is every slice at s = 8, where
+// a box's mask is one 8-byte word; zt complex64 and mt uint8
+// (B, rows, cols, st); out complex64 (B, rows, cols, st[, 2]).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -163,6 +169,17 @@ p2p_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
   const int so = st * NOUT;                                  // output values a box
   const int TY = TY_ ? TY_ : ty_arg, TX = TX_ ? TX_ : tx_arg;
   const int HX = TX + 2, NB = (TY + 2) * HX;
+  // this block's grid of the batch
+  const size_t src_slice = (size_t)(rows + 2) * (cols + 2) * s;
+  const size_t tgt_slice = (size_t)rows * cols * st;
+  z += blockIdx.z * src_slice;
+  q += blockIdx.z * src_slice;
+  m += blockIdx.z * src_slice;
+  if constexpr (PASSIVE) {
+    zt += blockIdx.z * tgt_slice;
+    mt += blockIdx.z * tgt_slice;
+  }
+  out += blockIdx.z * tgt_slice * NOUT;
   extern __shared__ float4 smem[];
   float4* rec = smem;                                        // NB * s
   float2* obuf = reinterpret_cast<float2*>(rec + NB * s);    // TY * TX * so
@@ -288,7 +305,7 @@ p2p_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
 
 template <int S_, int TY_, int TX_, int NOUT, bool PASSIVE>
 int launch(const void* z, const void* q, const void* m, const void* zt,
-           const void* mt, void* out, int rows, int cols, int s, int st, int ty,
+           const void* mt, void* out, int batch, int rows, int cols, int s, int st, int ty,
            int tx, float two_s2, int singular, int threads, int smem,
            cudaStream_t stream) {
   auto kernel = p2p_kernel<S_, TY_, TX_, NOUT, PASSIVE>;
@@ -297,7 +314,7 @@ int launch(const void* z, const void* q, const void* m, const void* zt,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((cols + tx - 1) / tx, (rows + ty - 1) / ty);
+  const dim3 grid((cols + tx - 1) / tx, (rows + ty - 1) / ty, batch);
   kernel<<<grid, threads, smem, stream>>>(
       (const float2*)z, (const float2*)q, (const uint8_t*)m, (const float2*)zt,
       (const uint8_t*)mt, (float2*)out, rows, cols, s, st, ty, tx, two_s2,
@@ -307,33 +324,35 @@ int launch(const void* z, const void* q, const void* m, const void* zt,
 
 }  // namespace
 
-// zt, mt: passive targets (rows, cols, st), or both null for the sources as
-// targets (st == s); nout: 1 (vortex) or 2 (Laplace); ty x tx target boxes a
-// block, threads and smem as kernels/p2p.py's launch_config gives them;
-// returns 0 or a cudaError_t.
+// batch: the grids stacked on the leading axis (1 to 65535); zt, mt: passive
+// targets (batch, rows, cols, st), or both null for the sources as targets
+// (st == s); nout: 1 (vortex) or 2 (Laplace); ty x tx target boxes a block,
+// threads and smem as kernels/p2p.py's launch_config gives them; returns 0
+// or a cudaError_t.
 extern "C" int p2p_launch(const void* z, const void* q, const void* m,
-                          const void* zt, const void* mt, void* out, int rows,
-                          int cols, int s, int st, int nout, int ty, int tx,
-                          float two_s2, int singular, int threads, int smem,
-                          void* stream) {
+                          const void* zt, const void* mt, void* out, int batch,
+                          int rows, int cols, int s, int st, int nout, int ty,
+                          int tx, float two_s2, int singular, int threads,
+                          int smem, void* stream) {
   const int nb = (ty + 2) * (tx + 2);
   const bool passive = zt != nullptr;
   if (rows <= 0 || cols <= 0 || s <= 0 || s > MAX_SLOTS || st <= 0 ||
       st > MAX_SLOTS || (nout != 1 && nout != 2) || passive != (mt != nullptr) ||
       (!passive && st != s) || ty <= 0 || tx <= 0 || threads % 32 ||
       threads < 32 || threads > 1024 || nb > (1 << 24) ||
-      smem != smem_bytes(ty, tx, s, st, nout) || (rows + ty - 1) / ty > 65535)
+      smem != smem_bytes(ty, tx, s, st, nout) || (rows + ty - 1) / ty > 65535 ||
+      batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t sm = (cudaStream_t)stream;
   if (!passive && nout == 1 && s == 8 && ty == 16 && tx == 16 &&
       threads == round32(18 * 18))
-    return launch<8, 16, 16, 1, false>(z, q, m, zt, mt, out, rows, cols, s, st,
-                                       ty, tx, two_s2, singular, threads, smem, sm);
+    return launch<8, 16, 16, 1, false>(z, q, m, zt, mt, out, batch, rows, cols, s,
+                                       st, ty, tx, two_s2, singular, threads, smem, sm);
   if (nout == 1)
     return (passive ? launch<0, 0, 0, 1, true> : launch<0, 0, 0, 1, false>)(
-        z, q, m, zt, mt, out, rows, cols, s, st, ty, tx, two_s2, singular,
+        z, q, m, zt, mt, out, batch, rows, cols, s, st, ty, tx, two_s2, singular,
         threads, smem, sm);
   return (passive ? launch<0, 0, 0, 2, true> : launch<0, 0, 0, 2, false>)(
-      z, q, m, zt, mt, out, rows, cols, s, st, ty, tx, two_s2, singular,
+      z, q, m, zt, mt, out, batch, rows, cols, s, st, ty, tx, two_s2, singular,
       threads, smem, sm);
 }

@@ -22,6 +22,11 @@ operator (:func:`split_operator`) through a ring of bulk async copies; the
 cached per operator tensor (:func:`cached_split`), so each operator that
 ``ops.folded_operator`` caches is split once.
 
+Every stack may carry a leading batch axis ``B``: one launch for the
+whole batch, B on the kernel's ``gridDim.z``, all against one operator
+(the serving engine's bucket of jobs, what ``vmap`` of the TPU kernel
+computes).
+
 ``m2l_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
@@ -36,6 +41,7 @@ from . import _build, tf32
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_P = 32          # the kernel's register tile: 16 n-tiles per warp
+MAX_BATCH = 65535   # stacks a launch takes: the batch is gridDim.z
 
 LAUNCHES = 0        # kernel launches since the last reset
 
@@ -43,7 +49,7 @@ _SPLITS = WeakIdKeyDictionary()   # operator tensor -> its split_operator form
 
 
 def m2l_plain(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """(PR+2, PC+2, 4p) parent planes x (8, 4p, 4p) -> (PR, PC, 4p)."""
+    """([B,] PR+2, PC+2, 4p) parent planes x (8, 4p, 4p) -> ([B,] PR, PC, 4p)."""
     return ex.folded_contract(stack, W)
 
 
@@ -72,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("m2l")
     if lib.m2l_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.m2l_launch.argtypes = [vp, vp, vp, i, i, i, vp]
+        lib.m2l_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
         lib.m2l_launch.restype = i
         lib.m2l_smem_bytes.argtypes = [i]
         lib.m2l_smem_bytes.restype = i
@@ -80,9 +86,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`.
-    The kernel reads ``W`` in its split form, :func:`cached_split`."""
+    """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`: one
+    launch for a 3-D stack or a 4-D batch of them.  The kernel reads ``W``
+    in its split form, :func:`cached_split`."""
     global LAUNCHES
+    if (stack.ndim not in (3, 4) or stack.shape[-3] < 3 or stack.shape[-2] < 3
+            or (stack.ndim == 4 and not 1 <= stack.shape[0] <= MAX_BATCH)):
+        raise ValueError(f"stack must be ([B,] PR+2, PC+2, 4p) with 1 <= B <= "
+                         f"{MAX_BATCH}, got {tuple(stack.shape)}")
     for name, t in (("stack", stack), ("W", W)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -92,10 +103,7 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if W.device != stack.device:
         raise ValueError(f"W on {W.device}, stack on {stack.device}")
-    if stack.ndim != 3 or stack.shape[0] < 3 or stack.shape[1] < 3:
-        raise ValueError(f"stack must be (PR+2, PC+2, 4p), got "
-                         f"{tuple(stack.shape)}")
-    K = stack.shape[2]
+    K = stack.shape[-1]
     if K % 4 or tuple(W.shape) != (8, K, K):
         raise ValueError(f"W must be (8, {K}, {K}) with {K} = 4p, got "
                          f"{tuple(W.shape)}")
@@ -106,11 +114,12 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"p={p} exceeds the kernel's shared-memory limit: "
                          f"p <= {MAX_P}")
     W_split = cached_split(W)
-    PR, PC = stack.shape[0] - 2, stack.shape[1] - 2
-    out = torch.empty((PR, PC, K), dtype=torch.complex64, device=stack.device)
+    lead = tuple(stack.shape[:-3])                   # () or (B,)
+    PR, PC = stack.shape[-3] - 2, stack.shape[-2] - 2
+    out = torch.empty(lead + (PR, PC, K), dtype=torch.complex64, device=stack.device)
     stream = torch.cuda.current_stream(stack.device).cuda_stream
     err = lib.m2l_launch(stack.data_ptr(), W_split.data_ptr(), out.data_ptr(),
-                         PR, PC, p, stream)
+                         lead[0] if lead else 1, PR, PC, p, stream)
     if err:
         raise RuntimeError(f"m2l kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -8,6 +8,9 @@ caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
 ``flash_attention`` serves the LM's prefill attention; it picks one of its
 three kernels by ``flash_attn.route`` (device, dtype, head dim).
 
+Every P2P and M2L wrapper passes a leading batch axis through to its
+kernel: a batch of grids is one launch, and one count.
+
 ``plain=True`` runs the kernels' plain versions and is taken on CPU
 tensors only (a CUDA tensor raises): the stepper's recovery ladder asks
 for it on its ``reference`` rung on the CPU, and every such call adds one
@@ -39,10 +42,10 @@ def _count_plain(t: torch.Tensor) -> None:
 
 def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
                    mask_tgt=None, eq=None, plain: bool = False):
-    """P2P over a slab with ±1 ghost rows/cols attached -> (rows, cols, st)
-    or (rows, cols, st, eq.nout); ``z_tgt``/``mask_tgt`` (rows, cols, st)
-    are passive targets (None: the sources, ``st = s``).  Masked targets
-    get 0.
+    """P2P over a slab with ±1 ghost rows/cols attached, ([B,] rows+2,
+    cols+2, s) -> ([B,] rows, cols, st) or ([B,] rows, cols, st, eq.nout);
+    ``z_tgt``/``mask_tgt`` ([B,] rows, cols, st) are passive targets (None:
+    the sources, ``st = s``).  Masked targets get 0.
 
     A spec whose ``p2p_terms`` the kernel computes (``equations.p2p_mode``)
     goes to the kernel or its plain version; any other runs on the CPU
@@ -61,8 +64,9 @@ def p2p_apply_slab(z_halo, q_halo, mask_halo, sigma, z_tgt=None,
         from ..core.fmm import p2p_slab_reference
         out = p2p_slab_reference(z_halo, q_halo, mask_halo, sigma, z_tgt=z_tgt,
                                  eq=eq)
-        live = mask_halo[1:-1, 1:-1] if z_tgt is None else mask_tgt
-        return torch.where(live if out.ndim == 3 else live[..., None], out, 0)
+        live = mask_halo[..., 1:-1, 1:-1, :] if z_tgt is None else mask_tgt
+        return torch.where(live if out.ndim == live.ndim else live[..., None],
+                           out, 0)
     if z_halo.device.type == "cpu":
         return _p2p.p2p_plain(z_halo, q_halo, mask_halo, sigma, z_tgt, mask_tgt,
                               mode)
@@ -102,7 +106,7 @@ def m2l_apply_slab(me_halo, level: int, p: int, row0: int = 0,
 
 
 def m2l_apply(me, level: int, p: int, eq=None, plain: bool = False):
-    """Parity-folded M2L for one level's full (ny, nx, p) ME grid."""
+    """Parity-folded M2L for one level's full ([B,] ny, nx, p) ME grid."""
     me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     return m2l_apply_slab(me_halo, level, p, eq=eq, plain=plain)
 

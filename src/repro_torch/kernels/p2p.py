@@ -15,6 +15,11 @@ Targets are the sources themselves, or a separate ``(rows, cols, st)``
 block of passive targets ``z_tgt`` with its ``mask_tgt`` (no halo; ``st``
 may differ from ``s``).  Masked targets get 0.
 
+Every array may carry a leading batch axis ``B``: B independent grids in
+one launch, B on the kernel's ``gridDim.z`` (the serving engine's bucket of
+jobs, what ``vmap`` of the TPU kernel computes).  The output then carries
+it too; a grid's result does not depend on the others in its batch.
+
 Bound on an H100: bytes — the mask read whole, the z and q of live slots
 read once and the output written whole (about 88 MB at the paper's size,
 level 10 with 8 slots, of which the output is 67 MB; Laplace's two
@@ -42,6 +47,7 @@ from . import _build
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_THREADS = 1024
 MAX_SLOTS = 256     # csrc/p2p.cu's tag keeps a target's slot in 8 bits
+MAX_BATCH = 65535   # grids a launch takes: the batch is gridDim.z
 # target-box tiles (TY, TX), largest first, each the choice for some s up to
 # MAX_SLOTS: 16 x 16 stages 1.27x its boxes
 TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
@@ -95,24 +101,26 @@ def p2p_plain(z_halo: torch.Tensor, q_halo: torch.Tensor,
               z_tgt: torch.Tensor | None = None,
               mask_tgt: torch.Tensor | None = None,
               mode: str = "base") -> torch.Tensor:
-    """(rows+2, cols+2, s) halo'd z/q/mask -> (rows, cols, st) complex, or
-    (rows, cols, st, 2) for ``mode="laplace"`` (potential, field).
+    """([B,] rows+2, cols+2, s) halo'd z/q/mask -> ([B,] rows, cols, st)
+    complex, or ([B,] rows, cols, st, 2) for ``mode="laplace"`` (potential,
+    field).
 
-    ``z_tgt``/``mask_tgt`` (rows, cols, st) are passive targets; None
+    ``z_tgt``/``mask_tgt`` ([B,] rows, cols, st) are passive targets; None
     evaluates at the sources (``st = s``).  Masked target slots get 0, as
     in the kernel.
     """
     eq = MODES[mode]
-    rows, cols = z_halo.shape[0] - 2, z_halo.shape[1] - 2
+    rows, cols = z_halo.shape[-3] - 2, z_halo.shape[-2] - 2
     if z_tgt is None:
-        z_tgt, mask_tgt = z_halo[1:1 + rows, 1:1 + cols], mask_halo[1:1 + rows, 1:1 + cols]
+        z_tgt = z_halo[..., 1:1 + rows, 1:1 + cols, :]
+        mask_tgt = mask_halo[..., 1:1 + rows, 1:1 + cols, :]
     tx, ty = z_tgt.real[..., :, None], z_tgt.imag[..., :, None]
     acc = [torch.zeros(z_tgt.shape, dtype=torch.float32, device=z_tgt.device)
            for _ in range(2 * eq.nout)]
     for (dx, dy) in P2P_OFFSETS:
-        zs = z_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
-        qs = q_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
-        ms = mask_halo[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
+        window = (..., slice(1 + dy, 1 + dy + rows), slice(1 + dx, 1 + dx + cols),
+                  slice(None))
+        zs, qs, ms = z_halo[window], q_halo[window], mask_halo[window]
         ddx = tx - zs.real[..., None, :]                  # (rows, cols, st, s)
         ddy = ty - zs.imag[..., None, :]
         r2 = ddx * ddx + ddy * ddy
@@ -135,7 +143,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.p2p_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, i, i, vp]
         fn.restype = i
     return lib
@@ -160,11 +168,13 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
              z_tgt: torch.Tensor | None = None,
              mask_tgt: torch.Tensor | None = None,
              mode: str = "base") -> torch.Tensor:
-    """Launch the CUDA P2P kernel; same contract as :func:`p2p_plain`."""
+    """Launch the CUDA P2P kernel; same contract as :func:`p2p_plain`: one
+    launch for a 3-D grid or a 4-D batch of them."""
     global LAUNCHES
-    if z_halo.ndim != 3 or z_halo.shape[0] < 3 or z_halo.shape[1] < 3:
-        raise ValueError(f"z_halo must be (rows+2, cols+2, s), got "
-                         f"{tuple(z_halo.shape)}")
+    if (z_halo.ndim not in (3, 4) or z_halo.shape[-3] < 3 or z_halo.shape[-2] < 3
+            or (z_halo.ndim == 4 and not 1 <= z_halo.shape[0] <= MAX_BATCH)):
+        raise ValueError(f"z_halo must be ([B,] rows+2, cols+2, s) with 1 <= B <= "
+                         f"{MAX_BATCH}, got {tuple(z_halo.shape)}")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: the P2P kernel computes {sorted(MODES)}")
     if (z_tgt is None) != (mask_tgt is None):
@@ -173,18 +183,25 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
                            ("q_halo", q_halo, torch.complex64),
                            ("mask_halo", mask_halo, torch.bool)):
         _check(name, t, dtype, z_halo.shape, z_halo.device)
-    rows, cols, s = z_halo.shape[0] - 2, z_halo.shape[1] - 2, z_halo.shape[2]
+    lead = tuple(z_halo.shape[:-3])                  # () or (B,)
+    batch = lead[0] if lead else 1
+    rows, cols, s = z_halo.shape[-3] - 2, z_halo.shape[-2] - 2, z_halo.shape[-1]
     passive = z_tgt is not None
     if passive:
-        if z_tgt.ndim != 3 or tuple(z_tgt.shape[:2]) != (rows, cols):
-            raise ValueError(f"z_tgt must be ({rows}, {cols}, st), got "
+        if z_tgt.ndim != z_halo.ndim or tuple(z_tgt.shape[:-1]) != lead + (rows, cols):
+            raise ValueError(f"z_tgt must be {lead + (rows, cols)} + (st,), got "
                              f"{tuple(z_tgt.shape)}")
         _check("z_tgt", z_tgt, torch.complex64, z_tgt.shape, z_halo.device)
         _check("mask_tgt", mask_tgt, torch.bool, z_tgt.shape, z_halo.device)
-    st = z_tgt.shape[2] if passive else s
+    st = z_tgt.shape[-1] if passive else s
+    # csrc/p2p.cu reads a box's mask at s = 8 as one 8-byte word: every grid
+    # of the batch must start on an 8-byte boundary there
+    if s == 8 and lead and mask_halo.stride(0) % 8:
+        raise ValueError(f"mask_halo's grids are {mask_halo.stride(0)} bytes "
+                         f"apart: the s = 8 kernel needs a multiple of 8")
     nout = MODES[mode].nout
     ty, tx, threads, smem = launch_config(s, st, nout)
-    out = torch.empty((rows, cols, st) + ((nout,) if nout > 1 else ()),
+    out = torch.empty(lead + (rows, cols, st) + ((nout,) if nout > 1 else ()),
                       dtype=torch.complex64, device=z_halo.device)
     singular = sigma is None
     two_s2 = 1.0 if singular else 2.0 * sigma * sigma
@@ -193,7 +210,7 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
                             mask_halo.data_ptr(),
                             z_tgt.data_ptr() if passive else None,
                             mask_tgt.data_ptr() if passive else None,
-                            out.data_ptr(), rows, cols, s, st, nout, ty, tx,
+                            out.data_ptr(), batch, rows, cols, s, st, nout, ty, tx,
                             two_s2, int(singular), threads, smem, stream)
     if err:
         raise RuntimeError(f"p2p kernel launch failed: CUDA error {err}")

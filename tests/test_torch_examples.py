@@ -4,7 +4,11 @@ size: ``examples/torch_quickstart.py`` (FMM against the direct sum),
 checkpoint written and resumed, the debug-NaN lane, two ranks, and the
 refusal of rank options that do not fit) and
 ``examples/torch_laplace_probe.py`` (Laplace at a probe grid on four ranks,
-against the direct sum)."""
+against the direct sum), ``examples/torch_fmm_serve_demo.py`` (the
+four-tenant serving drill on four ranks, at the reference drill's
+arguments), ``examples/torch_partition_demo.py`` (the paper's Fig 5
+partition map, the reference demo's output line for line) and the serving
+CLI on two ranks."""
 import os
 import subprocess
 import sys
@@ -74,3 +78,40 @@ def test_torch_laplace_probe_on_four_ranks_on_cpu():
     assert "plan=model ranks=4 device=cpu" in r.stdout
     assert "vs direct sum: potential rel err" in r.stdout
     assert r.stdout.rstrip().endswith("OK")
+
+
+def test_torch_fmm_serve_demo_on_four_ranks_on_cpu():
+    r = _run("torch_fmm_serve_demo.py", "--ranks", "4", "--device", "cpu", "--n", "220",
+             "--steps", "2", "--p", "6")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "== fmm_serve_demo: 4 rank(s) on cpu" in r.stdout
+    assert "oversized job rejected as priced" in r.stdout
+    assert "steady-state retraces: 0" in r.stdout
+    assert r.stdout.count("vs f64 direct sum") == 6
+    assert r.stdout.count("vs serial reference") == 2
+    assert r.stdout.rstrip().endswith("== fmm_serve_demo: OK")
+
+
+@pytest.mark.parametrize("distribution", ["uniform", "two-cluster"])
+def test_torch_partition_demo_prints_the_reference_map(distribution):
+    r = _run("torch_partition_demo.py", "--distribution", distribution, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    ref = subprocess.run([sys.executable, str(ROOT / "examples" / "partition_demo.py"),
+                          "--distribution", distribution], capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT),
+                         env=dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu"))
+    assert ref.returncode == 0, ref.stderr
+    assert r.stdout == ref.stdout
+    assert "== model: LB=" in r.stdout
+
+
+def test_fmm_serve_cli_on_two_ranks_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.fmm_serve", "--ranks", "2",
+                        "--device", "cpu", "--jobs", "4", "--n", "150", "--steps", "1",
+                        "--p", "6"], capture_output=True, text=True, timeout=300, env=env,
+                       cwd=str(ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "== fmm_serve: 2 rank(s) on cpu" in r.stdout
+    assert "jit_entries=" in r.stdout
+    assert r.stdout.rstrip().endswith("== fmm_serve: OK")

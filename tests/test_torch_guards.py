@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
-    for module in ("core/parallel_fmm.py", "launch/mesh.py"):
+    for module in ("core/parallel_fmm.py", "launch/mesh.py",
+                   "serve/fmm_service.py", "launch/fmm_serve.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -41,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_port_examples_import_no_jax_and_no_reference():
     files = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(files) == 3
+    assert len(files) == 5
+    for example in ("torch_fmm_serve_demo.py", "torch_partition_demo.py"):
+        assert ROOT / "examples" / example in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -126,3 +129,27 @@ def test_engine_refuses_parameters_on_another_device():
     params = init_params(SMOKE_CONFIG, device="meta")
     with pytest.raises(ValueError, match="expected cpu"):
         ServeEngine(params, SMOKE_CONFIG, batch_slots=1, max_len=16, device="cpu")
+
+
+def test_fmm_service_entry_points_raise_without_a_card():
+    """The engine, the CLI and the demo run on the card unless asked for
+    the CPU: without a card they raise, on one rank and on several."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import importlib.util
+    from repro_torch.launch import fmm_serve
+    from repro_torch.serve import fmm_service as svc
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        svc.FmmServiceEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        svc.ensure_device(svc.Tree(z=np.zeros((4, 4, 1)), q=np.zeros((4, 4, 1)),
+                                   mask=np.zeros((4, 4, 1), bool), level=2, sigma=0.1))
+    for argv in ([], ["--ranks", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fmm_serve.main(argv)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fmm_serve_demo", ROOT / "examples" / "torch_fmm_serve_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.drill(None, demo.parse(["--ranks", "1"]))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import equations as eqs
 from repro_torch.core import expansions as ex
 from repro_torch.core.equations import VORTEX
 from repro_torch.kernels import m2l, ops, p2p, ref
@@ -525,3 +526,110 @@ def test_fmm_velocity_kernel_route_matches_plain_route(cuda):
         assert (p2p.LAUNCHES - b0, m2l.LAUNCHES - m0) == (1, 4)
         want = fmm_velocity(t_cpu, 17, device="cpu")
         assert _rel(got.cpu(), want) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The batch axis: B grids in one launch (the serving engine's buckets)
+# ---------------------------------------------------------------------------
+
+BATCHES = (1, 3, 8)
+# (mode, passive, s, st): the vortex formula through the s = 8 compile-time
+# instance and a run-time s, Laplace at the sources, and both passive modes
+BATCH_P2P_CASES = [("base", False, 8, 8), ("base", False, 5, 5),
+                   ("laplace", False, 6, 6), ("base", True, 5, 7),
+                   ("laplace", True, 8, 4)]
+
+
+def _stacked_mode_inputs(B, ny, nx, s, st, passive, seed, device):
+    items = [_mode_inputs(ny, nx, s, st, passive, seed + b, device) for b in range(B)]
+    return tuple(None if items[0][k] is None else torch.stack([it[k] for it in items])
+                 for k in range(5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("mode,passive,s,st", BATCH_P2P_CASES)
+@pytest.mark.parametrize("sigma", [None, 0.05])
+def test_p2p_kernel_batch_matches_plain_and_per_item_launches(cuda, B, mode, passive,
+                                                              s, st, sigma):
+    """One launch for B ragged grids: rel 1e-5 against the batched plain
+    version over live targets, exact zeros at masked ones, and bit for bit
+    the B launches of one grid each (a block's arithmetic does not depend
+    on its grid's place in the batch); a 3-D call is the batch of one."""
+    zh, qh, mh, zt, mt = _stacked_mode_inputs(B, 37, 21, s, st, passive, s * 10 + B,
+                                              cuda)
+    key = mode + ("_passive" if passive else "")
+    before, total = p2p.LAUNCHES_BY_MODE[key], p2p.LAUNCHES
+    got = p2p.p2p_cuda(zh, qh, mh, sigma, zt, mt, mode)
+    torch.cuda.synchronize()
+    assert (p2p.LAUNCHES_BY_MODE[key], p2p.LAUNCHES) == (before + 1, total + 1)
+    items = [p2p.p2p_cuda(zh[b].clone(), qh[b].clone(), mh[b].clone(), sigma,
+                          None if zt is None else zt[b].clone(),
+                          None if mt is None else mt[b].clone(), mode) for b in range(B)]
+    assert got.shape == (B,) + items[0].shape
+    assert torch.equal(got, torch.stack(items))
+    assert torch.equal(p2p.p2p_cuda(zh[0].clone(), qh[0].clone(), mh[0].clone(), sigma,
+                                    None if zt is None else zt[0].clone(),
+                                    None if mt is None else mt[0].clone(), mode)[None],
+                       p2p.p2p_cuda(zh[:1].clone(), qh[:1].clone(), mh[:1].clone(), sigma,
+                                    None if zt is None else zt[:1].clone(),
+                                    None if mt is None else mt[:1].clone(), mode))
+    want = p2p.p2p_plain(zh, qh, mh, sigma, zt, mt, mode)
+    live = (mh[:, 1:-1, 1:-1] if mt is None else mt)
+    live = (live if got.ndim == 4 else live[..., None]).expand(got.shape)
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_p2p_kernel_refuses_a_batch_of_targets_that_does_not_match(cuda):
+    zh, qh, mh, zt, mt = _stacked_mode_inputs(3, 6, 5, 4, 3, True, 0, cuda)
+    with pytest.raises(ValueError, match="z_tgt"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt[:2].contiguous(), mt[:2].contiguous())
+    with pytest.raises(ValueError, match="z_tgt"):
+        p2p.p2p_cuda(zh, qh, mh, 0.05, zt[0].contiguous(), mt[0].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("p", [16, 17])      # Laplace's order and the paper's
+def test_m2l_kernel_batch_matches_plain_and_per_item_launches(cuda, B, p):
+    """One launch for B stacks against one operator: rel 1e-5 against the
+    batched plain version, bit for bit B launches of one stack each; a 3-D
+    call is the batch of one."""
+    rng = np.random.default_rng(B * 100 + p)
+    K = 4 * p
+    stack = torch.as_tensor(rng.normal(size=(B, 13 + 2, 11 + 2, K))
+                            + 1j * rng.normal(size=(B, 13 + 2, 11 + 2, K)),
+                            dtype=torch.complex64, device=cuda)
+    W = ops.folded_operator(eqs.LAPLACE if p == 16 else VORTEX, p, 5, cuda)
+    before = m2l.LAUNCHES
+    got = m2l.m2l_cuda(stack, W)
+    torch.cuda.synchronize()
+    assert m2l.LAUNCHES == before + 1
+    items = torch.stack([m2l.m2l_cuda(stack[b].clone(), W) for b in range(B)])
+    assert got.shape == (B, 13, 11, K)
+    assert torch.equal(got, items)
+    assert torch.equal(m2l.m2l_cuda(stack[0].clone(), W)[None],
+                       m2l.m2l_cuda(stack[:1].clone(), W))
+    assert _rel(got.cpu(), m2l.m2l_plain(stack, W).cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_fmm_evaluate_on_a_batched_tree_launches_each_kernel_once_a_level(cuda):
+    """A bucket of 3 trees through the serial driver on the card: one P2P
+    launch and one M2L launch per level 2..L, each tree within 1e-5 of its
+    own evaluation on the CPU."""
+    from repro_torch.core.fmm import fmm_evaluate
+    from repro_torch.core.quadtree import Tree, build_tree
+    rng = np.random.default_rng(2)
+    trees = [build_tree(rng.uniform(size=(2000, 2)), rng.normal(size=2000), level=5,
+                        sigma=0.01, slots=16, device="cpu")[0] for _ in range(3)]
+    stack = lambda f: torch.stack([getattr(t, f) for t in trees]).to(cuda)  # noqa: E731
+    batch = Tree(z=stack("z"), q=stack("q"), mask=stack("mask"), level=5, sigma=0.01)
+    b0, m0 = p2p.LAUNCHES, m2l.LAUNCHES
+    got = fmm_evaluate(batch, 17, device=cuda)
+    torch.cuda.synchronize()
+    assert (p2p.LAUNCHES - b0, m2l.LAUNCHES - m0) == (1, 4)
+    for b, t in enumerate(trees):
+        assert _rel(got[b].cpu(), fmm_evaluate(t, 17, device="cpu")) < 1e-5
