@@ -26,7 +26,11 @@ Phases, each printing one JSON line:
               with real charges (mollified, singular, with holes), and the
               base formula at the passive targets of a 2048 x 2048
               cell-centred probe grid (4 a leaf box; mollified, singular,
-              with holes in the target mask);
+              with holes in the target mask); past the first limits,
+              P2P's streaming form at 512 and 2048 slots (base, and
+              Laplace at passive targets) and M2L's wide form at p = 40
+              and 64 (alone and 4 stacks at once), timed, with the
+              bound and, for M2L, the complex matmul yardstick;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
@@ -72,6 +76,17 @@ Phases, each printing one JSON line:
               recovered on ``plan_slab``.  Prints per rank and plan the
               host ms of each evaluation and step, the staged bytes and
               staging ms, and peak memory;
+4d. drill   — the kill-drill supervisor (``launch/supervisor.py``) at
+              4c's tree on gloo ranks sharing the card: rank 2 of 4
+              SIGKILLed mid-step 4, the run completed at step 6 on (0, 1,
+              3), every survivor bit for bit the others and a clean
+              3-rank ``spawn_world`` restore from the same checkpoint,
+              every step exactly 2 x ``parallel_fmm.kernel_launches(plan)``
+              P2P and M2L launches a rank and no plain call; rank 1 of 3
+              SIGSTOPped at step 3, detected in under 120 s, completed at
+              step 5 on (0, 2).  Prints each drill's detect and restore
+              seconds, each generation's spawn-to-first-step seconds and
+              the steps' host ms;
 5. equations — ``fmm_evaluate(eq=LAPLACE)`` at p = 16 on the lattice with
               real charges, and ``fmm_evaluate(eq=TRACER, targets=probe
               grid)`` at p = 17, singular, each held to a float64 direct sum
@@ -107,6 +122,10 @@ Phases, each printing one JSON line:
               batched lane) and a 2-step session on the mesh, bit for bit on
               every rank.  Prints each bucket's batched and serial-sum ms,
               latencies, cache stats, peak bytes and the phase's seconds;
+              then (``fmm_serve_wide``) a clustered job of 512 slots, a
+              p = 40 job and an ordinary job in one drain: exactly one
+              streaming P2P and three wide M2L launches, no plain call,
+              each job within 1e-5 of the same engine on the CPU;
 7. attn_vs_plain — the three flash-attention kernels against their
               plain version.  The bf16 tensor-core kernel at Yi-6B's
               prefill shape (4, 32, 4, 2048, 128) causal, at
@@ -155,7 +174,8 @@ the FMM kernels, and again for the stepper's four steps in phase 4b, for
 each bucket's drain, the backlog and the session's steps in phase
 fmm_serve and on each of its ranks before the sharded lane, on
 each rank of phase 4c before each counted evaluation and before the
-sharded stepper's steps, each gated evaluation of phase 5 for P2P's Laplace and
+sharded stepper's steps, on each rank of phase 4d around each step, the
+drain of phase fmm_serve_wide, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
 kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the SIMT one) and read
@@ -204,6 +224,8 @@ from repro_torch.models.transformer import (forward, init_cache, init_params,  #
                                              param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve import fmm_service as svc  # noqa: E402
+from repro_torch.launch import supervisor as sv  # noqa: E402
+from repro_torch.parallel import resilience as rz  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -312,6 +334,23 @@ SVC_SHARD_AT = 1e10               # on a mesh, wave B's job 0 takes the sharded 
 SVC_SESSION_KW = dict(target_per_box=0.7, slots_headroom=2.0)   # phase 4b's tree
 SVC_SESSION_STEPS = 3
 SVC_MESH_STEPS = 2
+# the kernels past their first limits (P2P's 256 slots, M2L's p = 32): the
+# FMM service's clustered bucket (level 3, 512 slots) and a denser one, in
+# the base and Laplace-at-passive-targets modes; M2L at p = 40 (the p = 40
+# job's leaf stack, level 4: 8 x 8 parents) and 64, alone and 4 at once
+WIDE_P2P_CASES = [(512, 8, "base", False), (512, 8, "laplace", True),
+                  (2048, 4, "base", False), (2048, 4, "laplace", True)]  # (s, side, mode, passive)
+# (p, batch); 37: a short last K chunk and uneven column slices (19 + 18)
+WIDE_M2L_CASES = [(37, None), (37, 4), (40, None), (40, 4), (64, None), (64, 4)]
+WIDE_M2L_PARENTS = 8
+WIDE_SIGMA = 1e-2
+# phase drill: the kill-drill supervisor at phase 4c's tree on gloo ranks
+# sharing the card: SIGKILL rank 2 of 4 mid-step 4 (run to step 6), SIGSTOP
+# rank 1 of 3 at step 3 (run to step 5)
+DRILL_KILL = dict(world=4, target=6, rank=2, step=4, min_world=2)
+DRILL_HANG = dict(world=3, target=5, rank=1, step=3, min_world=1)
+DRILL_DETECT_S = 120.0
+DRILL_MAX_WALL = 300.0
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = 2088
@@ -517,6 +556,100 @@ def check_m2l(me, level, p):
                 bytes=nbytes, ops=ops_)
 
 
+def wide_p2p_inputs(s, side, passive, seed, dev):
+    """A ``side x side`` grid of boxes (halo'd) with up to ``s`` sources a
+    box, inside the box, prefix-filled to a random count with a quarter of
+    them emptied again; passive targets ``s`` a box, a third masked."""
+    rng = np.random.default_rng(seed)
+    H = side + 2
+    iy, ix = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
+    def inside(shape, off):                     # noqa: E306
+        return ((ix[off:H - off, off:H - off, None] - 1 + rng.random(shape)) / side
+                + 1j * (iy[off:H - off, off:H - off, None] - 1 + rng.random(shape)) / side)
+    z = inside((H, H, s), 0)
+    q = rng.normal(size=(H, H, s)) + 1j * rng.normal(size=(H, H, s))
+    fill = rng.integers(s // 4, s + 1, size=(H, H, 1))
+    mask = (np.arange(s) < fill) & (rng.random((H, H, s)) > 0.25)
+    zt = mt = None
+    if passive:
+        zt, mt = inside((side, side, s), 1), rng.random((side, side, s)) > 0.3
+    put = lambda a, dt: None if a is None else torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return (put(z, torch.complex64), put(q, torch.complex64), put(mask, torch.bool),
+            put(zt, torch.complex64), put(mt, torch.bool))
+
+
+def check_p2p_wide(s, side, mode, passive, dev):
+    """P2P's streaming form (past 256 slots) against its plain version."""
+    zh, qh, mh, zt, mt = wide_p2p_inputs(s, side, passive, s + side, dev)
+    nout = p2p.MODES[mode].nout
+    launch = p2p.launch_config(s, s, nout)
+    require(launch == (1, 1, p2p.STREAM_THREADS, p2p.STREAM_SMEM),
+            f"p2p s={s} {mode}: launch {launch} is not the streaming form")
+    call = lambda fn: fn(zh, qh, mh, WIDE_SIGMA, zt, mt, mode)  # noqa: E731
+    before = p2p.STREAM_LAUNCHES
+    got = call(p2p.p2p_cuda)
+    torch.cuda.synchronize()
+    require(p2p.STREAM_LAUNCHES == before + 1, f"p2p s={s}: no streaming launch")
+    want = call(p2p.p2p_plain)
+    live = mh[1:-1, 1:-1] if mt is None else mt
+    live = live if got.ndim == 3 else live[..., None].expand(got.shape)
+    name = f"p2p stream s={s} {mode}{' passive' if passive else ''}"
+    err = rel_l2(got[live], want[live])
+    max_abs = float((got[live] - want[live]).abs().max())
+    require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{name}: non-finite")
+    require(bool((got[~live] == 0).all()), f"{name}: a masked target is not 0")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: call(p2p.p2p_cuda), iters=10)
+    plain_ms = cuda_ms(lambda: call(p2p.p2p_plain), iters=2, warmup=1)
+    nbytes = mh.numel() + int(mh.sum()) * 16 + got.numel() * 8
+    if mt is not None:
+        nbytes += mt.numel() + int(mt.sum()) * 8
+    pairs = live_pairs(zh, mh, zt, mt)
+    ops_ = pairs * P2P_OPS[mode, False]
+    b_ms, b_by = bound_ms(nbytes, ops_)
+    return dict(name="p2p_stream", slots=s, mode=mode, passive=passive,
+                shape=list(got.shape), launch=list(launch[:3]), rel_l2=err,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, live_pairs=pairs, bytes=nbytes, ops=ops_, library_ms=None)
+
+
+def check_m2l_wide(p, batch, dev):
+    """M2L's wide form (past p = 32) against its plain version, with the
+    complex ``torch.matmul`` yardstick."""
+    rng = np.random.default_rng(p + (batch or 0))
+    K, n = 4 * p, WIDE_M2L_PARENTS
+    shape = ((batch,) if batch else ()) + (n + 2, n + 2, K)
+    stack = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                            dtype=torch.complex64, device=dev)
+    W = ops.folded_operator(VORTEX, p, 4, dev)
+    before = m2l.WIDE_LAUNCHES
+    got = m2l.m2l_cuda(stack, W)
+    torch.cuda.synchronize()
+    require(m2l.WIDE_LAUNCHES == before + 1, f"m2l p={p}: no wide-form launch")
+    want = m2l.m2l_plain(stack, W)
+    err = rel_l2(got, want)
+    max_abs = float((got - want).abs().max())
+    name = f"m2l wide p={p} batch={batch}"
+    require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{name}: non-finite")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=50)
+    plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=10)
+    lead = stack.shape[:-3]
+    unfolded = torch.cat([stack[..., 1 + Dy:1 + Dy + n, 1 + Dx:1 + Dx + n, :]
+                          for (Dx, Dy) in ex.PARENT_NEIGH8], dim=-1).reshape(-1, 8 * K)
+    w_cat = W.reshape(8 * K, K)
+    lib_err = rel_l2(torch.matmul(unfolded, w_cat).reshape(lead + (n, n, K)), want)
+    library_ms = cuda_ms(lambda: torch.matmul(unfolded, w_cat), iters=50)
+    nnz_blocks = int((W.reshape(8, 4, p, 4, p).abs().amax(dim=(2, 4)) > 0).sum())
+    ops_ = (batch or 1) * n * n * nnz_blocks * p * p * 8
+    nbytes = (stack.numel() + W.numel() + got.numel()) * 8
+    return dict(name="m2l_wide", p=p, batch=batch, shape=list(stack.shape),
+                smem=m2l.smem_bytes(p), rel_l2=err, max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, **f32_product_bound(nbytes, ops_),
+                library_ms=library_ms, library_rel_l2=lib_err,
+                nonzero_blocks=nnz_blocks, bytes=nbytes, ops=ops_)
+
+
 def direct_f64(pos, strength, z_tgt, sigma, laplace: bool = False, chunk=128):
     """Float64 direct sum on the card at the points ``z_tgt`` (complex,
     host): the velocity kernel's one channel, (T,), or with ``laplace``
@@ -552,7 +685,7 @@ def direct_sum_f64(pos, gamma, targets, sigma):
 
 
 def zero_fmm_counts() -> None:
-    p2p.LAUNCHES = m2l.LAUNCHES = 0
+    p2p.LAUNCHES = m2l.LAUNCHES = p2p.STREAM_LAUNCHES = m2l.WIDE_LAUNCHES = 0
     for mode in p2p.LAUNCHES_BY_MODE:
         p2p.LAUNCHES_BY_MODE[mode] = 0
 
@@ -1924,6 +2057,177 @@ def prefill_by_route(prefill, other: str) -> dict:
     return times
 
 
+def wide_jobs(seed):
+    """The jobs the card route refused before the kernels took any slot
+    count and order (ROADMAP Queue 3): 400 particles clustered in one leaf
+    box plus two far ones (bucket slots 512), 2,000 uniform ones at p = 40,
+    and an ordinary job; ``tests/test_torch_fmm_service.py`` holds the CPU
+    engine to the reference's on them."""
+    rng = np.random.default_rng(seed)
+    pos = np.vstack([0.5 + 0.0625 * rng.random((400, 2)), [[0.05, 0.05], [0.95, 0.95]]])
+    clustered = dict(positions=pos, strength=rng.normal(size=402), sigma=WIDE_SIGMA)
+    rng = np.random.default_rng(seed + 1)
+    deep = dict(positions=rng.uniform(size=(2000, 2)), strength=rng.normal(size=2000),
+                p=40, sigma=WIDE_SIGMA)
+    rng = np.random.default_rng(seed + 2)
+    ordinary = dict(positions=rng.uniform(0.1, 0.9, size=(220, 2)),
+                    strength=rng.normal(size=220), sigma=WIDE_SIGMA)
+    return [clustered, deep, ordinary]
+
+
+def wide_jobs_phase(dev, seed) -> dict:
+    """Phase fmm_serve_wide: the three jobs of :func:`wide_jobs` in one drain
+    on the card (three buckets), counted: the clustered bucket is P2P's
+    streaming form, the p = 40 bucket M2L's wide form at levels 2..4; no
+    plain call, every job served, each within 1e-5 of the CPU engine."""
+    outs, buckets = {}, None
+    for where in ("cpu", dev):
+        engine = svc.FmmServiceEngine(device=where)
+        jids = [engine.submit(svc.FmmJob(**kw)) for kw in wide_jobs(seed)]
+        buckets = [dataclasses.asdict(r.bucket) for r in engine.queue]
+        if where != "cpu":
+            torch.cuda.synchronize()
+            zero_fmm_counts()
+            ops.PLAIN_CALLS = 0
+        t0 = time.perf_counter()
+        engine.drain()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            counts = {"p2p": fmm_counts()["p2p"], "m2l": m2l.LAUNCHES,
+                      "p2p_stream": p2p.STREAM_LAUNCHES, "m2l_wide": m2l.WIDE_LAUNCHES,
+                      "plain": ops.PLAIN_CALLS}
+        require(not engine.queue and engine.counters["batches"] == 3,
+                f"wide jobs on {where}: {len(engine.queue)} left, counters "
+                f"{engine.counters}")
+        outs[str(where)] = [engine.result(j).out for j in jids]
+    shapes = [(b["level"], b["slots"], b["p"]) for b in buckets]
+    require(shapes == [(3, 512, 12), (4, 32, 40), (2, 32, 12)],
+            f"wide jobs' buckets {shapes}")
+    want = {"p2p": {"base": 3}, "m2l": sum(b[0] - 1 for b in shapes),
+            "p2p_stream": 1, "m2l_wide": 3, "plain": 0}
+    require(counts == want, f"wide jobs' launches {counts}, expected {want}")
+    errs = []
+    for got, cpu in zip(outs[str(dev)], outs["cpu"]):
+        require(got.shape == cpu.shape and np.isfinite(got).all(),
+                "a wide job's output is not finite or has the wrong shape")
+        errs.append(float(np.linalg.norm(got - cpu) / np.linalg.norm(cpu)))
+    require(max(errs) <= KERNEL_TOL, f"wide jobs vs the CPU engine: rel L2 {errs}")
+    emit({"phase": "fmm_serve_wide", "buckets": shapes, "launches": counts,
+          "rel_l2_vs_cpu_engine": errs, "gate": KERNEL_TOL, "drain_host_ms": drain_ms})
+    return counts
+
+
+def drill_config(coord: str, m_side: int, p: int, spec: dict) -> "sv.SupervisorConfig":
+    return sv.SupervisorConfig(
+        world=spec["world"], target_step=spec["target"], coord_dir=coord,
+        n_side=m_side, p=p, dt=DT, target_per_box=SVC_SESSION_KW["target_per_box"],
+        checkpoint_every=2,
+        checkpoint_keep=8, device="cuda",
+        watchdog=rz.WatchdogPolicy(compile_grace=120.0, teardown_grace=30.0,
+                                   agree_timeout=60.0),
+        restart=rz.RestartPolicy(min_world=spec["min_world"], backoff_base=0.1),
+        max_wall=DRILL_MAX_WALL)
+
+
+def drill_run(coord: str, m_side: int, p: int, spec: dict, site: str):
+    """One drill; returns the result, the survivors' trees and records."""
+    cfg = drill_config(coord, m_side, p, spec)
+    faults = FaultInjector(FaultSpec(site=site, step=spec["step"], device=spec["rank"]))
+    t0 = time.perf_counter()
+    try:
+        result = sv.Supervisor(cfg, faults=faults).run()
+    except rz.MeshFaultError as e:
+        logs = sorted(Path(coord).rglob("*.log"))
+        tails = "\n".join(f"--- {f}\n{f.read_text(errors='replace')[-2000:]}" for f in logs)
+        raise RuntimeError(f"{site} drill did not survive: {e}\n{tails}") from e
+    seconds = time.perf_counter() - t0
+    trees, records = {}, {}
+    for r in result.ranks:
+        with np.load(Path(result.result_dir) / f"result_{r}.npz") as z:
+            trees[r] = {k: z[k] for k in ("z", "q", "mask")}
+        records[r] = json.loads((Path(result.result_dir) / f"result_{r}.json").read_text())
+    first = trees[result.ranks[0]]
+    for r, t in trees.items():
+        require(all(np.array_equal(t[k], first[k]) for k in t),
+                f"{site} drill: survivor {r} differs from rank {result.ranks[0]}")
+    for r, rec in records.items():
+        for s in rec["steps"]:
+            require(s["recovered"] == "" and s["plain"] == 0
+                    and (s["p2p"], s["m2l"]) == (s["expected"]["p2p"], s["expected"]["m2l"]),
+                    f"{site} drill, rank {r}, step {s['step']}: {s}")
+    require(len(result.faults) == 1, f"{site} drill: {len(result.faults)} faults")
+    rep = result.faults[0]
+    require(rep.detect_seconds is not None and rep.detect_seconds < DRILL_DETECT_S,
+            f"{site} drill: detected in {rep.detect_seconds} s")
+    return cfg, result, first, records, seconds
+
+
+def drill_phase(m_side: int, p: int) -> dict:
+    """Phase drill: the kill-drill supervisor at phase 4c's tree (the
+    lattice, level 10, 8 slots, p = 17) on gloo ranks sharing the card.
+    SIGKILL rank 2 of 4 mid-step 4: the run completes at step 6 on (0, 1,
+    3), every survivor bit for bit the others and a clean 3-rank restore
+    from the same checkpoint, every step exactly
+    ``parallel_fmm.kernel_launches(plan)`` P2P and M2L launches an
+    evaluation a rank and no plain call.  SIGSTOP rank 1 of 3 at step 3:
+    detected in under 120 s, completed at step 5 on (0, 2).  Returns the
+    survivors' launches."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="drill_", dir=root))
+    out, launches = {}, {"p2p": 0, "m2l": 0}
+    try:
+        for name, spec, site, ranks in (("kill", DRILL_KILL, "proc_kill", (0, 1, 3)),
+                                        ("hang", DRILL_HANG, "proc_hang", (0, 2))):
+            cfg, result, tree, records, seconds = drill_run(
+                str(work / name), m_side, p, spec, site)
+            require(result.success and result.ranks == ranks
+                    and result.final_step == spec["target"],
+                    f"{name} drill ended on {result.ranks} at {result.final_step}")
+            rep = result.faults[0]
+            require(spec["rank"] in rep.dead + rep.hung, f"{name} drill: {rep}")
+            meta = json.loads((Path(cfg.checkpoint_dir) / f"step_{rep.restore_step}"
+                               / "meta.json").read_text())
+            require((meta["level"], meta["slots"], meta["cut"]) == (CONFIG.level, SLOTS, PLAN_CUT),
+                    f"{name} drill's tree {meta}")
+            row = {"world": spec["world"], "fault": f"{site} rank {spec['rank']} "
+                   f"step {spec['step']}", "survivors": list(result.ranks),
+                   "restore_step": rep.restore_step, "detect_seconds": rep.detect_seconds,
+                   "restore_seconds": rep.restore_seconds,
+                   "first_step_seconds": rep.first_step_seconds,
+                   "generations": [{k: g[k] for k in ("generation", "ranks", "outcome",
+                                                      "spawn_to_restored_s",
+                                                      "spawn_to_first_step_s")}
+                                   for g in result.generations],
+                   "step_host_ms": {r: [s["host_ms"] for s in rec["steps"]]
+                                    for r, rec in records.items()},
+                   "launches_per_step": records[ranks[0]]["steps"][0]["expected"],
+                   "plan": records[ranks[0]]["plan"], "seconds": seconds}
+            for rec in records.values():
+                launches["p2p"] += sum(s["p2p"] for s in rec["steps"])
+                launches["m2l"] += sum(s["m2l"] for s in rec["steps"])
+            if name == "kill":
+                t0 = time.perf_counter()
+                clean = spawn_world(sv.clean_restore, len(ranks), device="cuda",
+                                    timeout_s=RANK_TIMEOUT_S,
+                                    args=(cfg.checkpoint_dir, rep.restore_step,
+                                          spec["target"], sv.restore_kwargs(cfg)))
+                row["clean_restore_seconds"] = time.perf_counter() - t0
+                for c in clean:
+                    require(all(np.array_equal(tree[k], c[k]) for k in tree),
+                            "kill drill: the survivors are not bit for bit a clean "
+                            f"{len(ranks)}-rank restore from step {rep.restore_step}")
+                row["bit_for_bit_clean_restore"] = True
+            out[name] = row
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "drill", "note": "gloo ranks share one card: not a scaling result",
+          **out, "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1985,7 +2289,10 @@ def main() -> None:
     me0 = fmm.upward_sweep(tree0, p)
     m2l_rows = [check_m2l(me0[level], level, p), check_m2l(me0[2], 2, p)]
     del me0
-    for row in p2p_rows + lap_rows + passive_rows + m2l_rows:
+    # past the first limits: P2P's streaming form, M2L's wide form
+    wide_p2p_rows = [check_p2p_wide(*case, dev) for case in WIDE_P2P_CASES]
+    wide_m2l_rows = [check_m2l_wide(*case, dev) for case in WIDE_M2L_CASES]
+    for row in p2p_rows + lap_rows + passive_rows + m2l_rows + wide_p2p_rows + wide_m2l_rows:
         emit({"phase": "kernel_vs_plain", **row})
 
     # -- 3. main path: build_tree -> fmm on the card, vs float64 ----------
@@ -2060,6 +2367,11 @@ def main() -> None:
     launches["m2l"] += sharded["m2l"]
     torch.cuda.empty_cache()
 
+    # -- 4d. main path: the kill-drill supervisor on gloo ranks --------------
+    drilled = drill_phase(m_side, p)
+    launches["p2p"] += drilled["p2p"]
+    launches["m2l"] += drilled["m2l"]
+
     # -- 5. main path: Laplace and tracer evaluations on the card, vs f64 ----
     equations = equations_phase(dev, pos, gamma, sigma, p, tree0, index0, sample,
                                 tree_lap, probes, probe_pos, probe_index)
@@ -2077,6 +2389,11 @@ def main() -> None:
     del w_reg_at
     launches["p2p"] += served["launches"]["p2p"].get("base", 0)
     launches["m2l"] += served["launches"]["m2l"]
+    wide = wide_jobs_phase(dev, args.seed)
+    launches["p2p"] += wide["p2p"]["base"]
+    launches["m2l"] += wide["m2l"]
+    launches["p2p_stream"] = wide["p2p_stream"]
+    launches["m2l_wide"] = wide["m2l_wide"]
     torch.cuda.empty_cache()
 
     # -- 7. flash attention against its plain version ------------------------
@@ -2195,9 +2512,10 @@ def main() -> None:
         entry(p2p_rows, "p2p", "src/repro_torch/kernels/csrc/p2p.cu",
               "src/repro/kernels/p2p.py:46",
               launches_counted_in="phases 3-4 (fmm, three rk2_steps), 4b "
-                                  "(the stepper's four steps) and 4c (on each of "
+                                  "(the stepper's four steps), 4c (on each of "
                                   f"{RANKS} ranks: one evaluation per plan and the "
-                                  "stepper's four steps)",
+                                  "stepper's four steps) and 4d (each drill's "
+                                  "survivors' steps)",
               sharded_launches_per_rank_per_evaluation={
                   k: v["p2p"]["base"] for k, v in sharded["per_rank"].items()},
               sharded_shapes=sharded_shapes("p2p"),
@@ -2217,9 +2535,10 @@ def main() -> None:
         entry(m2l_rows, "m2l", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43",
               launches_counted_in="phases 3-4 (fmm, three rk2_steps), 4b "
-                                  "(the stepper's four steps) and 4c (on each of "
+                                  "(the stepper's four steps), 4c (on each of "
                                   f"{RANKS} ranks: one evaluation per plan and the "
-                                  "stepper's four steps)",
+                                  "stepper's four steps) and 4d (each drill's "
+                                  "survivors' steps)",
               sharded_launches_per_rank_per_evaluation={
                   k: v["m2l"] for k, v in sharded["per_rank"].items()},
               sharded_shapes=sharded_shapes("m2l"),
@@ -2227,6 +2546,21 @@ def main() -> None:
                        "per_bucket": {k: {"shape": v["shape"], "launches": v["launches"]["m2l"]}
                                       for k, v in served["buckets"].items()},
                        "launches_counted_in": "phase fmm_serve, as P2P's"}),
+        entry(wide_p2p_rows, "p2p_stream", "src/repro_torch/kernels/csrc/p2p.cu",
+              "src/repro/kernels/p2p.py:46",
+              launches_counted_in="phase fmm_serve_wide: the clustered job's bucket "
+                                  "(level 3, 512 slots) in a drain of three buckets",
+              cases=[{k: r[k] for k in ("slots", "mode", "passive", "shape", "ms",
+                                        "plain_ms", "bound_ms", "bound_by", "rel_l2",
+                                        "max_abs_err")} for r in wide_p2p_rows]),
+        entry(wide_m2l_rows, "m2l_wide", "src/repro_torch/kernels/csrc/m2l.cu",
+              "src/repro/kernels/m2l.py:43",
+              launches_counted_in="phase fmm_serve_wide: the p = 40 job's bucket "
+                                  "(level 4: levels 2..4) in a drain of three buckets",
+              cases=[{k: r[k] for k in ("p", "batch", "shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "fp32_simt_bound_ms",
+                                        "library_ms", "rel_l2", "max_abs_err")}
+                     for r in wide_m2l_rows]),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",

@@ -1,9 +1,23 @@
-"""Device choice and numeric settings for the port.
+"""Device choice and numeric settings for the port: the counterpart of
+``src/repro/configs/backend.py``.
 
 Every entry point (``build_tree``, ``fmm_velocity``, ``rk2_step``,
 ``init_params``, ``ServeEngine``) runs on the CUDA card unless the caller
 asks for ``device="cpu"``; without a card and without that request it
 raises instead of dropping to the CPU.
+
+The reference's knobs, and what each became here:
+
+* ``set_platform(platform)`` is not carried over: every entry point takes
+  ``device=`` and :func:`resolve_device` gives the card for ``None``, so a
+  process-wide default would only let a caller land on the CPU unasked.
+  The XLA GPU flags the reference appends tune XLA's scheduler and have no
+  torch counterpart.
+* ``set_cpu_cores(n)``: intra-op threads (``torch.set_num_threads``), not
+  host devices: a rank of the port is a process (``launch/mesh.py``).
+* ``jax_enable_x64(flag)`` is not carried over: torch's own
+  ``torch.set_default_dtype`` is that knob, and the port's kernels and
+  stages name their dtypes (complex64, float32) instead of following it.
 
 ``set_debug_nan(True)`` makes ``fmm_evaluate`` and ``rk2_step`` check each
 stage's output and raise at the first stage that made a non-finite value
@@ -16,6 +30,9 @@ bf16 products reduce in f32, as the reference's do
 sums to bf16.
 """
 from __future__ import annotations
+
+import os
+import warnings
 
 import torch
 
@@ -63,3 +80,17 @@ def check_finite(stage: str, *tensors: torch.Tensor) -> None:
         if not bool(torch.isfinite(x).all()):
             raise FloatingPointError(
                 f"stage {stage!r} made a non-finite value (set_debug_nan)")
+
+
+def set_cpu_cores(n: int) -> int:
+    """Run CPU work on ``n`` intra-op threads; more than the host has
+    warns and takes one fewer than it has.  Returns the count set."""
+    n = int(n)
+    total = os.cpu_count() or 1
+    if n > total:
+        warnings.warn(f"only {total} CPUs available, will use "
+                      f"{max(total - 1, 1)}", Warning)
+        n = total - 1
+    n = max(n, 1)
+    torch.set_num_threads(n)
+    return n

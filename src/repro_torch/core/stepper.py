@@ -50,7 +50,6 @@ import torch
 
 from ..checkpoint.manager import CheckpointManager, numpy_dtype, to_host
 from ..configs.backend import check_finite, check_on, resolve_device
-from ..kernels import p2p as kp2p
 from . import faults as flt
 from . import health as hw
 from . import partition as pt
@@ -274,9 +273,7 @@ class VortexStepper:
 
     ``domain`` maps physical coordinates onto the solver's unit square
     (identity by default); the domain-expansion rung grows it when
-    particles escape the root box.  On the card a tree whose leaf boxes
-    would need more slots than the P2P kernel takes raises ``ValueError``
-    before any launch.
+    particles escape the root box.
     """
 
     def __init__(self, positions: np.ndarray, gamma: np.ndarray, sigma: float,
@@ -377,12 +374,6 @@ class VortexStepper:
             need = max(2 * self.nparts, 4)
         return max(2, math.ceil(math.log2(need)))
 
-    def _check_slots(self, slots: int) -> None:
-        if self.device.type == "cuda" and slots > kp2p.MAX_SLOTS:
-            raise ValueError(
-                f"the tree needs {slots} slots a leaf box; the P2P kernel "
-                f"takes at most {kp2p.MAX_SLOTS} (kernels/p2p.py:MAX_SLOTS)")
-
     # -- externally-owned artifact cache (session re-entrancy) ---------------
 
     def _cached(self, key, builder):
@@ -436,7 +427,6 @@ class VortexStepper:
         ij = np.clip((positions * n).astype(np.int64), 0, n - 1)
         occ = np.bincount(ij[:, 1] * n + ij[:, 0], minlength=n * n).max()
         slots = max(int(math.ceil(occ * self.slots_headroom)), 2)
-        self._check_slots(slots)
         tree_key = ("tree", array_digest(positions, gamma), level, slots,
                     float(sigma_unit), complex(1.0 / (2j * np.pi)))
         self.tree, self.index = self._cached(
@@ -554,7 +544,6 @@ class VortexStepper:
         the plan from their counts (bit-exact: no host rebuild), on any
         number of parts whose least level the saved tree reaches; a tree
         too shallow for them is re-leveled on the host instead."""
-        self._check_slots(meta["slots"])
         t = out["tree"]
         self.tree = Tree(z=torch.as_tensor(t["z"], device=self.device),
                          q=torch.as_tensor(t["q"], device=self.device),

@@ -50,6 +50,21 @@
 // - The operator's 20 structural zero p x p blocks are multiplied like the
 //   rest: their 2p x 2p real blocks do not align with the 8 x 8 steps.
 //
+// Orders past MAX_P = 32: the register tile (NTW <= 16 n-tiles a warp, so
+// half = ceil(p / 2) <= 16) and shared memory (the halo tile and the W ring
+// come to about 252 KB at p = 40) both run out.  m2l_wide_kernel keeps the
+// 8 x 8 parents, the warps' layout and the 3xTF32 products, and cuts the
+// other two dimensions:
+// - the output columns into slices of at most 32 n-tiles (16 a warp), one
+//   slice a block (blockIdx.x = tile column * slices + slice), each
+//   streaming only its columns of W_split;
+// - K into chunks of KC = 4 k-steps: a chunk of the halo tile (10 x 10
+//   parents x 16 complex coefficients) and, for each of the 8 offsets, the
+//   chunk's 16 rows of the slice's W columns, double-buffered by 16-byte
+//   cp.async copies (the halo's past the stack's edge zero-filled).
+//   94,336 bytes of shared memory whatever p, so any order whose operator
+//   fits the card launches; the halo is read once a slice.
+//
 // Batch: B stacks of these shapes on a leading axis, one launch with B on
 // gridDim.z; block z stages its halo tile from, and writes to, its own
 // slice (64-bit offsets).  The operator is shared by the whole batch and
@@ -67,7 +82,7 @@ namespace {
 constexpr int TY = 8, TX = 8;            // parents per block
 constexpr int HY = TY + 2, HX = TX + 2;  // halo tile
 constexpr int THREADS = 256;
-constexpr int MAX_P = 32;                // 16 n-tiles per warp at most
+constexpr int MAX_P = 32;                // 16 n-tiles per warp at most: m2l_kernel
 constexpr int KC = 4;                    // k-steps per W piece
 constexpr int NS = 3;                    // W ring stages
 
@@ -243,6 +258,149 @@ m2l_kernel(const float* __restrict__ stack, const float* __restrict__ wsplit,
   }
 }
 
+// ---- orders past MAX_P ----
+constexpr int W_NT = 32;                  // n-tiles a column slice: 16 a warp
+constexpr int WH_PITCH = 8 * KC + 4;      // floats a parent in a halo chunk
+constexpr int WH_FLOATS = HY * HX * WH_PITCH;
+constexpr int WW_FLOATS = 4 * KC * 4 * W_NT * 4;  // 16 rows a x 128 columns b x 4
+constexpr int WIDE_SMEM = 2 * (WH_FLOATS + WW_FLOATS) * 4;
+
+// 16 bytes global -> shared, zero-filled when !valid (src then unread).
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+m2l_wide_kernel(const float* __restrict__ stack, const float* __restrict__ wsplit,
+                float2* __restrict__ out, int PR, int PC, int p, int nsl, int snt) {
+  extern __shared__ float4 smem4[];
+  float* halo_buf = reinterpret_cast<float*>(smem4);       // 2 x WH_FLOATS
+  float* w_buf = halo_buf + 2 * WH_FLOATS;                 // 2 x WW_FLOATS
+  const int K = 4 * p, K2 = 8 * p;
+  const int slice = blockIdx.x % nsl;
+  const int nts = slice * snt;                             // the slice's first n-tile
+  const int ns = min(snt, p - nts);                        // and its n-tiles
+  const int wsc = 4 * snt;                                 // complex columns a W row
+  const int nch = (p + KC - 1) / KC;                       // K chunks
+  const int npieces = 8 * nch;
+  const int y0 = blockIdx.y * TY, x0 = (blockIdx.x / nsl) * TX;
+  const int SW = PC + 2;
+  stack += blockIdx.z * ((size_t)(PR + 2) * SW * K2);
+  out += blockIdx.z * ((size_t)PR * PC * K);
+  const int tid = threadIdx.x;
+
+  // piece P = (chunk P / 8, offset P % 8): its W rows, and with offset 0
+  // the chunk's halo
+  auto issue = [&](int P) {
+    const int c = P / 8, d = P % 8;
+    const int kc = min(KC, p - KC * c);
+    if (d == 0) {
+      float* h = halo_buf + (c % 2) * WH_FLOATS;
+      const int per = 2 * kc;                              // float4s a parent
+      for (int i = tid; i < HY * HX * per; i += THREADS) {
+        const int par = i / per, v = i - par * per;
+        const int gy = y0 + par / HX, gx = x0 + par % HX;
+        const bool in = gy < PR + 2 && gx < SW;
+        const float* src = in ? stack + ((size_t)gy * SW + gx) * K2 + 32 * c + 4 * v
+                              : stack;
+        cp16(h + par * WH_PITCH + 4 * v, src, in);
+      }
+    }
+    float* w = w_buf + (P % 2) * WW_FLOATS;
+    const int rows = 4 * kc, per = 4 * ns;                 // float4s a row
+    for (int i = tid; i < rows * per; i += THREADS) {
+      const int r = i / per, v = i - r * per;
+      const float* src = wsplit + (((size_t)d * K + 16 * c + r) * K + 4 * nts + v) * 4;
+      cp16(w + (r * wsc + v) * 4, src, true);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mt = warp % 4;
+  const int half = (snt + 1) / 2;
+  const int nt_off = (warp / 4) * half;                    // within the slice
+  const int ntn = max(0, min(half, ns - nt_off));
+  const int s_bit = t & 1, u_bit = g & 1;
+  const uint32_t sign = (s_bit == 1 && u_bit == 0) ? 0x80000000u : 0u;
+  const int b_off = ((t / 2) * wsc + g / 2) * 4 + 2 * (s_bit ^ u_bit) + 16 * nt_off;
+
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  issue(0);
+  for (int P = 0; P < npieces; ++P) {
+    if (P + 1 < npieces) {
+      issue(P + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int c = P / 8, d = P % 8;
+    const int kc = min(KC, p - KC * c);
+    const int r = d < 4 ? d : d + 1;
+    const int Dy = r / 3 - 1, Dx = r % 3 - 1;
+    const float* h0 = halo_buf + (c % 2) * WH_FLOATS +
+                      ((2 * mt + 1 + Dy) * HX + (g + 1 + Dx)) * WH_PITCH + t;
+    const float* h1 = h0 + HX * WH_PITCH;
+    tf32x3::FragA fa[KC];
+#pragma unroll
+    for (int i = 0; i < KC; ++i)
+      if (i < kc)
+        fa[i] = tf32x3::split_a(h0[8 * i], h1[8 * i], h0[8 * i + 4], h1[8 * i + 4]);
+    const float* wp = w_buf + (P % 2) * WW_FLOATS + b_off;
+#pragma unroll
+    for (int jg = 0; jg < 16; jg += 4) {
+      if (jg < ntn) {
+        float part[4][4] = {};
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          if (i < kc) {
+            tf32x3::Split b0[4], b1[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const float* e0 = wp + 16 * i * wsc + 16 * (jg + jj);
+              const float2 v0 = *reinterpret_cast<const float2*>(e0);
+              const float2 v1 = *reinterpret_cast<const float2*>(e0 + 8 * wsc);
+              b0[jj] = {__float_as_uint(v0.x) ^ sign, __float_as_uint(v0.y) ^ sign};
+              b1[jj] = {__float_as_uint(v1.x) ^ sign, __float_as_uint(v1.y) ^ sign};
+            }
+            tf32x3::mma3(part, fa[i], b0, b1, ntn - jg);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (jg + jj < ntn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[jg + jj][e] += part[jj][e];
+      }
+    }
+    __syncthreads();                                       // buffers P % 2 free
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ty = y0 + 2 * mt + hr, tx = x0 + g;
+    if (ty >= PR || tx >= PC) continue;
+    float2* o = out + ((size_t)ty * PC + tx) * K + t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (j < ntn) o[4 * (nts + nt_off + j)] = make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
+  }
+}
+
+// Column slices of at most W_NT n-tiles, as even as p allows.
+void wide_slices(int p, int& nsl, int& snt) {
+  nsl = (p + W_NT - 1) / W_NT;
+  snt = (p + nsl - 1) / nsl;
+}
+
 template <int NTW, int JG>
 int launch(const void* stack, const void* wsplit, void* out, int batch, int PR, int PC,
            int p, cudaStream_t stream) {
@@ -258,20 +416,34 @@ int launch(const void* stack, const void* wsplit, void* out, int batch, int PR, 
 
 }  // namespace
 
-// Dynamic shared memory the kernel needs at order p, or -1 past MAX_P.
+// Dynamic shared memory the kernel needs at order p (the same for every
+// p past MAX_P), or -1 for p < 1.
 extern "C" int m2l_smem_bytes(int p) {
-  if (p < 1 || p > MAX_P) return -1;
-  return smem_bytes(p);
+  if (p < 1) return -1;
+  return p > MAX_P ? WIDE_SMEM : smem_bytes(p);
 }
 
 // W is the split operator W_split (8, 4p, 4p, 4) f32; batch: the stacks on
 // the leading axis (1 to 65535).
 extern "C" int m2l_launch(const void* stack, const void* W, void* out, int batch,
                           int PR, int PC, int p, void* stream) {
-  if (p < 1 || p > MAX_P || PR < 1 || PC < 1 || (PR + TY - 1) / TY > 65535 ||
+  if (p < 1 || p > (1 << 20) || PR < 1 || PC < 1 || (PR + TY - 1) / TY > 65535 ||
       batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (p > MAX_P) {
+    int nsl, snt;
+    wide_slices(p, nsl, snt);
+    const long long gx = (long long)((PC + TX - 1) / TX) * nsl;
+    if (gx > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        m2l_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)gx, (PR + TY - 1) / TY, batch);
+    m2l_wide_kernel<<<grid, THREADS, WIDE_SMEM, st>>>(
+        (const float*)stack, (const float*)W, (float2*)out, PR, PC, p, nsl, snt);
+    return (int)cudaGetLastError();
+  }
   const int half = (p + 1) / 2;
   if (half <= 4) return launch<4, 4>(stack, W, out, batch, PR, PC, p, st);
   if (half <= 9) return launch<9, 3>(stack, W, out, batch, PR, PC, p, st);

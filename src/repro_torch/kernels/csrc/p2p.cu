@@ -45,8 +45,19 @@
 //   written once.
 // The common vortex case (s = 8, sources as targets, 16 x 16 tile) is a
 // template instance with the slot count and the halo width as constants;
-// any other s (up to 256), tile, formula or target mode runs the same code
-// with them at run time.  Built without fast math, so expf, logf and the
+// any other s (up to TILE_SLOTS = 256), tile, formula or target mode runs
+// the same code with them at run time.
+// - Past 256 source or target slots a tag's 8 bits no longer hold the slot,
+//   and a halo tile's records stop fitting shared memory (a 2 x 2 tile holds
+//   about 640 slots).  There p2p_stream_kernel takes over: one block a
+//   target box and pass of 256 of its target slots (gridDim.z = batch x
+//   passes), one target a thread, and the live sources of its 3 x 3
+//   neighbourhood streamed through shared memory in chunks of 1024 records,
+//   each chunk packed by the same mask scan; the sums stay in registers and
+//   each thread writes its own output slot, zero where the target is dead.
+//   A block whose threads hold no live target stages nothing.  Each
+//   neighbour box's mask is read by 9 blocks a pass, and so are the live
+//   sources.  Built without fast math, so expf, logf and the
 // division are the IEEE-accurate forms; each sum visits its sources in
 // stencil order (neighbour rows, boxes, slots).
 //
@@ -65,7 +76,9 @@
 namespace {
 
 constexpr int MAX_WARPS = 32;
-constexpr int MAX_SLOTS = 256;    // kernels/p2p.py:MAX_SLOTS; a tag keeps the slot in 8 bits
+constexpr int TILE_SLOTS = 256;   // kernels/p2p.py:TILE_SLOTS; a tag keeps the slot in 8 bits
+constexpr int STREAM_THREADS = 256;   // kernels/p2p.py:STREAM_THREADS
+constexpr int STREAM_RECORDS = 1024;  // source records a chunk: 4 a thread
 
 // Shared memory of a TY x TX tile with s source slots, st target slots and
 // nout channels: live-source records sized for every slot live, the output
@@ -78,6 +91,10 @@ constexpr int smem_bytes(int ty, int tx, int s, int st, int nout) {
 }
 
 constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+// Shared memory of p2p_stream_kernel: a chunk of records and the warp sums
+// (kernels/p2p.py:STREAM_SMEM).
+constexpr int STREAM_SMEM = STREAM_RECORDS * 16 + MAX_WARPS * 4;
 
 // Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
 // total gets the block's sum.  Leaves the warp sums free for the next call.
@@ -116,6 +133,31 @@ __device__ __forceinline__ uint64_t live_bytes(uint64_t m8) {
   return m8 & 0x0101010101010101ull;
 }
 
+// One target (x, y) against one source record, NOUT complex channels as
+// (re, im) pairs: the vortex pair term (NOUT 1) or Laplace's potential and
+// field (NOUT 2), mollified unless singular; a coincident source adds 0.
+template <int NOUT>
+__device__ __forceinline__ void add_source(float x, float y, const float4 src,
+                                           float two_s2, int singular,
+                                           float (&acc)[2 * NOUT]) {
+  const float ddx = x - src.x, ddy = y - src.y;
+  const float r2 = ddx * ddx + ddy * ddy;
+  if (!(r2 > 0.f)) return;
+  if constexpr (NOUT == 1) {
+    float inv = 1.f / r2;
+    if (!singular) inv *= 1.f - expf(-r2 / two_s2);
+    acc[0] += (src.z * ddx + src.w * ddy) * inv;
+    acc[1] += (src.w * ddx - src.z * ddy) * inv;
+  } else {
+    const float w = singular ? 1.f : 1.f - expf(-r2 / two_s2);
+    const float pot = 0.5f * logf(r2) * w, inv = w / r2;
+    acc[0] += src.z * pot;
+    acc[1] += src.w * pot;
+    acc[2] -= (src.z * ddx + src.w * ddy) * inv;
+    acc[3] -= (src.w * ddx - src.z * ddy) * inv;
+  }
+}
+
 // The sums of one target (x, y) over the live sources of the 3 neighbour rows
 // of halo box b, NOUT complex channels as (re, im) pairs.
 template <int NOUT>
@@ -129,25 +171,8 @@ __device__ __forceinline__ void stencil_sums(float x, float y, int b, int HX,
   for (int dy = -1; dy <= 1; ++dy) {
     const int row = b + dy * HX;                       // boxes row-1 .. row+1
     const int end = start[row + 2];
-    for (int i = start[row - 1]; i < end; ++i) {
-      const float4 src = rec[i];
-      const float ddx = x - src.x, ddy = y - src.y;
-      const float r2 = ddx * ddx + ddy * ddy;
-      if (!(r2 > 0.f)) continue;
-      if constexpr (NOUT == 1) {
-        float inv = 1.f / r2;
-        if (!singular) inv *= 1.f - expf(-r2 / two_s2);
-        acc[0] += (src.z * ddx + src.w * ddy) * inv;
-        acc[1] += (src.w * ddx - src.z * ddy) * inv;
-      } else {
-        const float w = singular ? 1.f : 1.f - expf(-r2 / two_s2);
-        const float pot = 0.5f * logf(r2) * w, inv = w / r2;
-        acc[0] += src.z * pot;
-        acc[1] += src.w * pot;
-        acc[2] -= (src.z * ddx + src.w * ddy) * inv;
-        acc[3] -= (src.w * ddx - src.z * ddy) * inv;
-      }
-    }
+    for (int i = start[row - 1]; i < end; ++i)
+      add_source<NOUT>(x, y, rec[i], two_s2, singular, acc);
   }
 }
 
@@ -322,13 +347,107 @@ int launch(const void* z, const void* q, const void* m, const void* zt,
   return (int)cudaGetLastError();
 }
 
+// Any slot counts (the launcher sends it those past TILE_SLOTS): block
+// (blockIdx.x, blockIdx.y) owns target box (x, y) of the grid and blockIdx.z
+// = grid * passes + pass its target slots pass * STREAM_THREADS + threadIdx.x,
+// blockDim.x == STREAM_THREADS.  Sources are visited in stencil order
+// (neighbour rows, boxes, slots), as p2p_kernel visits them.
+template <int NOUT, bool PASSIVE>
+__global__ void __launch_bounds__(STREAM_THREADS)
+p2p_stream_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
+                  const uint8_t* __restrict__ m, const float2* __restrict__ zt,
+                  const uint8_t* __restrict__ mt, float2* __restrict__ out,
+                  int rows, int cols, int s, int st, float two_s2, int singular) {
+  const int passes = (st + STREAM_THREADS - 1) / STREAM_THREADS;
+  const int grid = blockIdx.z / passes, pass = blockIdx.z - grid * passes;
+  const size_t src_slice = (size_t)(rows + 2) * (cols + 2) * s;
+  const size_t tgt_slice = (size_t)rows * cols * st;
+  z += grid * src_slice;
+  q += grid * src_slice;
+  m += grid * src_slice;
+  if constexpr (PASSIVE) {
+    zt += grid * tgt_slice;
+    mt += grid * tgt_slice;
+  }
+  out += grid * tgt_slice * NOUT;
+  extern __shared__ float4 smem[];
+  float4* rec = smem;                                          // STREAM_RECORDS
+  int* wsum = reinterpret_cast<int*>(rec + STREAM_RECORDS);    // MAX_WARPS
+
+  const int tid = threadIdx.x, bx = blockIdx.x, by = blockIdx.y;
+  const int W = cols + 2;
+  const int nraw = 9 * s;                   // the neighbourhood's source slots
+  // this box's target slots: the passive block's, or the box's own sources
+  const float2* zk_ = PASSIVE ? zt : z;
+  const uint8_t* mk_ = PASSIVE ? mt : m;
+  const size_t tg = PASSIVE ? ((size_t)by * cols + bx) * st
+                            : ((size_t)(by + 1) * W + bx + 1) * s;
+  float2* o = out + ((size_t)by * cols + bx) * st * NOUT;
+
+  const int j = pass * STREAM_THREADS + tid;
+  const bool live = j < st && mk_[tg + j] != 0;
+  float x = 0.f, y = 0.f;
+  if (live) {
+    const float2 zk = zk_[tg + j];
+    x = zk.x;
+    y = zk.y;
+  }
+  float acc[2 * NOUT];
+#pragma unroll
+  for (int c = 0; c < 2 * NOUT; ++c) acc[c] = 0.f;
+  if (__syncthreads_or(live)) {
+    for (int r0 = 0; r0 < nraw; r0 += STREAM_RECORDS) {
+      // pack the chunk's live sources, STREAM_THREADS raw slots at a time
+      int n = 0;
+      for (int r = r0 + tid; r < r0 + STREAM_RECORDS; r += STREAM_THREADS) {
+        int on = 0;
+        float4 v;
+        if (r < nraw) {
+          const int nb = r / s, js = r - nb * s;
+          const size_t g = ((size_t)(by + nb / 3) * W + bx + nb % 3) * s + js;
+          if (m[g]) {
+            const float2 zj = z[g], qj = q[g];
+            v = make_float4(zj.x, zj.y, qj.x, qj.y);
+            on = 1;
+          }
+        }
+        int total;
+        const int k = n + block_excl_scan(on, wsum, total);
+        if (on) rec[k] = v;
+        n += total;
+      }
+      __syncthreads();
+      if (live)
+        for (int i = 0; i < n; ++i) add_source<NOUT>(x, y, rec[i], two_s2, singular, acc);
+      __syncthreads();                   // the chunk is free for the next
+    }
+  }
+  if (j < st)
+#pragma unroll
+    for (int c = 0; c < NOUT; ++c)
+      o[(size_t)j * NOUT + c] = live ? make_float2(acc[2 * c], acc[2 * c + 1])
+                                     : make_float2(0.f, 0.f);
+}
+
+template <int NOUT, bool PASSIVE>
+int launch_stream(const void* z, const void* q, const void* m, const void* zt,
+                  const void* mt, void* out, int batch, int rows, int cols, int s,
+                  int st, float two_s2, int singular, cudaStream_t stream) {
+  const dim3 grid(cols, rows, batch * ((st + STREAM_THREADS - 1) / STREAM_THREADS));
+  p2p_stream_kernel<NOUT, PASSIVE><<<grid, STREAM_THREADS, STREAM_SMEM, stream>>>(
+      (const float2*)z, (const float2*)q, (const uint8_t*)m, (const float2*)zt,
+      (const uint8_t*)mt, (float2*)out, rows, cols, s, st, two_s2, singular);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // batch: the grids stacked on the leading axis (1 to 65535); zt, mt: passive
 // targets (batch, rows, cols, st), or both null for the sources as targets
 // (st == s); nout: 1 (vortex) or 2 (Laplace); ty x tx target boxes a block,
-// threads and smem as kernels/p2p.py's launch_config gives them; returns 0
-// or a cudaError_t.
+// threads and smem as kernels/p2p.py's launch_config gives them (past
+// TILE_SLOTS source or target slots: 1 x 1, STREAM_THREADS, STREAM_SMEM);
+// returns 0 or a cudaError_t.
 extern "C" int p2p_launch(const void* z, const void* q, const void* m,
                           const void* zt, const void* mt, void* out, int batch,
                           int rows, int cols, int s, int st, int nout, int ty,
@@ -336,14 +455,26 @@ extern "C" int p2p_launch(const void* z, const void* q, const void* m,
                           int smem, void* stream) {
   const int nb = (ty + 2) * (tx + 2);
   const bool passive = zt != nullptr;
-  if (rows <= 0 || cols <= 0 || s <= 0 || s > MAX_SLOTS || st <= 0 ||
-      st > MAX_SLOTS || (nout != 1 && nout != 2) || passive != (mt != nullptr) ||
-      (!passive && st != s) || ty <= 0 || tx <= 0 || threads % 32 ||
-      threads < 32 || threads > 1024 || nb > (1 << 24) ||
-      smem != smem_bytes(ty, tx, s, st, nout) || (rows + ty - 1) / ty > 65535 ||
-      batch < 1 || batch > 65535)
+  if (rows <= 0 || cols <= 0 || s <= 0 || st <= 0 || s > (1 << 24) ||
+      st > (1 << 24) || (nout != 1 && nout != 2) || passive != (mt != nullptr) ||
+      (!passive && st != s) || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t sm = (cudaStream_t)stream;
+  if (s > TILE_SLOTS || st > TILE_SLOTS) {
+    if (ty != 1 || tx != 1 || threads != STREAM_THREADS || smem != STREAM_SMEM ||
+        rows > 65535 ||
+        (long long)batch * ((st + STREAM_THREADS - 1) / STREAM_THREADS) > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (nout == 1)
+      return (passive ? launch_stream<1, true> : launch_stream<1, false>)(
+          z, q, m, zt, mt, out, batch, rows, cols, s, st, two_s2, singular, sm);
+    return (passive ? launch_stream<2, true> : launch_stream<2, false>)(
+        z, q, m, zt, mt, out, batch, rows, cols, s, st, two_s2, singular, sm);
+  }
+  if (ty <= 0 || tx <= 0 || threads % 32 || threads < 32 || threads > 1024 ||
+      nb > (1 << 24) || smem != smem_bytes(ty, tx, s, st, nout) ||
+      (rows + ty - 1) / ty > 65535)
+    return (int)cudaErrorInvalidValue;
   if (!passive && nout == 1 && s == 8 && ty == 16 && tx == 16 &&
       threads == round32(18 * 18))
     return launch<8, 16, 16, 1, false>(z, q, m, zt, mt, out, batch, rows, cols, s,

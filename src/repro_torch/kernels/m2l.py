@@ -27,6 +27,12 @@ whole batch, B on the kernel's ``gridDim.z``, all against one operator
 (the serving engine's bucket of jobs, what ``vmap`` of the TPU kernel
 computes).
 
+Orders past ``TILE_P`` (32) outgrow the kernel's register tile and shared
+memory; they launch its wide form, which splits the output columns into
+slices of at most 32 n-tiles (a block each) and streams K in chunks of 16
+coefficients, halo and operator alike, so its shared memory does not
+depend on p (:func:`smem_bytes`).
+
 ``m2l_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
@@ -40,10 +46,26 @@ from ..core import expansions as ex
 from . import _build, tf32
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
-MAX_P = 32          # the kernel's register tile: 16 n-tiles per warp
+TILE_P = 32         # the register-tile kernel's orders: 16 n-tiles per warp
 MAX_BATCH = 65535   # stacks a launch takes: the batch is gridDim.z
+THREADS = 256       # 8 warps a block, either form
+WIDE_SMEM = 2 * (100 * 36 + 16 * 128 * 4) * 4   # csrc/m2l.cu:WIDE_SMEM
+
+
+def smem_bytes(p: int) -> int:
+    """Shared memory of the launch at order ``p``, as ``csrc/m2l.cu``'s
+    ``m2l_smem_bytes`` gives it: the 10 x 10 halo tile (parents ``8p + 4``
+    floats apart), a 3-stage ring of 4 k-steps of ``W_split`` and the ring's
+    barriers up to ``TILE_P``; past it, the wide form's two buffers of a
+    halo chunk and an operator piece."""
+    if p < 1:
+        raise ValueError(f"p={p}: the M2L kernel takes p >= 1")
+    if p > TILE_P:
+        return WIDE_SMEM
+    return 100 * (8 * p + 4) * 4 + 3 * 4 * (4 * 4 * p * 16) + 8 * 3 + 128
 
 LAUNCHES = 0        # kernel launches since the last reset
+WIDE_LAUNCHES = 0   # of them in the wide form (p past TILE_P)
 
 _SPLITS = WeakIdKeyDictionary()   # operator tensor -> its split_operator form
 
@@ -89,7 +111,7 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA M2L kernel; same contract as :func:`m2l_plain`: one
     launch for a 3-D stack or a 4-D batch of them.  The kernel reads ``W``
     in its split form, :func:`cached_split`."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     if (stack.ndim not in (3, 4) or stack.shape[-3] < 3 or stack.shape[-2] < 3
             or (stack.ndim == 4 and not 1 <= stack.shape[0] <= MAX_BATCH)):
         raise ValueError(f"stack must be ([B,] PR+2, PC+2, 4p) with 1 <= B <= "
@@ -110,9 +132,9 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     p = K // 4
     lib = _lib()
     smem = lib.m2l_smem_bytes(p)
-    if smem < 0 or smem > MAX_SMEM:
-        raise ValueError(f"p={p} exceeds the kernel's shared-memory limit: "
-                         f"p <= {MAX_P}")
+    if smem != smem_bytes(p) or smem > MAX_SMEM:
+        raise ValueError(f"p={p}: the kernel asks for {smem} bytes of shared "
+                         f"memory, kernels/m2l.py:smem_bytes {smem_bytes(p)}")
     W_split = cached_split(W)
     lead = tuple(stack.shape[:-3])                   # () or (B,)
     PR, PC = stack.shape[-3] - 2, stack.shape[-2] - 2
@@ -123,4 +145,5 @@ def m2l_cuda(stack: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"m2l kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    WIDE_LAUNCHES += p > TILE_P
     return out

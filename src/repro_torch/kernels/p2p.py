@@ -29,7 +29,11 @@ kernel works on live slots only: a block packs its halo tile's live
 sources into shared memory (a scan of the mask), gives one thread to each
 live target, and writes its whole output tile, zeros in the dead slots, in
 one coalesced pass.  :func:`launch_config` sizes the tile for the slot
-counts and channels.
+counts and channels.  Past ``TILE_SLOTS`` source or target slots (the
+slot tag's 8 bits; a tile's records would soon outgrow shared memory) the
+launch takes the kernel's streaming form instead: one block a target box
+and 256 of its target slots, the neighbourhood's live sources staged
+through shared memory in chunks.
 
 ``p2p_plain`` is the same function in plain PyTorch, with the formula of
 the spec's ``p2p_terms``; the CPU path and the kernel's checks use it.
@@ -46,17 +50,22 @@ from . import _build
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_THREADS = 1024
-MAX_SLOTS = 256     # csrc/p2p.cu's tag keeps a target's slot in 8 bits
+TILE_SLOTS = 256    # the tiled kernel's tag keeps a target's slot in 8 bits
 MAX_BATCH = 65535   # grids a launch takes: the batch is gridDim.z
 # target-box tiles (TY, TX), largest first, each the choice for some s up to
-# MAX_SLOTS: 16 x 16 stages 1.27x its boxes
+# TILE_SLOTS: 16 x 16 stages 1.27x its boxes
 TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
 SMEM_TARGET = 72 * 1024   # three blocks an SM
+# the streaming form past TILE_SLOTS (csrc/p2p.cu:p2p_stream_kernel): one
+# target box a block, 1024 source records a chunk and 32 warp sums
+STREAM_THREADS = 256
+STREAM_SMEM = 1024 * 16 + 32 * 4
 
 # each mode's formula: the spec whose ``p2p_terms`` it is
 MODES = {"base": VORTEX, "laplace": LAPLACE}
 
 LAUNCHES = 0        # kernel launches since the last reset
+STREAM_LAUNCHES = 0  # of them in the streaming form (past TILE_SLOTS)
 # the same launches by formula and targets: "base", "laplace",
 # "base_passive", "laplace_passive"
 LAUNCHES_BY_MODE = dict.fromkeys(
@@ -80,15 +89,18 @@ def launch_config(s: int, st: int | None = None,
                   nout: int = 1) -> tuple[int, int, int, int]:
     """``(TY, TX, threads, smem bytes)`` of the kernel's launch for ``s``
     source slots, ``st`` target slots (default ``s``) and ``nout``
-    channels: the largest tile of ``TILES`` within ``SMEM_TARGET`` (else
-    the largest within ``MAX_SMEM``), one thread per halo box."""
+    channels: up to ``TILE_SLOTS`` of each, the largest tile of ``TILES``
+    within ``SMEM_TARGET`` (else the largest within ``MAX_SMEM``), one
+    thread per halo box; past it, the streaming form's one box a block."""
     st = s if st is None else st
     for name, n in (("s", s), ("st", st)):
-        if not 1 <= n <= MAX_SLOTS:
+        if not 1 <= n <= 1 << 24:
             raise ValueError(f"{name}={n} slots: the P2P kernel takes 1 to "
-                             f"{MAX_SLOTS}")
+                             f"{1 << 24}")
     if nout not in (1, 2):
         raise ValueError(f"nout={nout}: the P2P kernel emits 1 or 2 channels")
+    if max(s, st) > TILE_SLOTS:
+        return 1, 1, STREAM_THREADS, STREAM_SMEM
     fits = [t for t in TILES if smem_bytes(*t, s, st, nout) <= MAX_SMEM]
     ty, tx = next((t for t in fits if smem_bytes(*t, s, st, nout) <= SMEM_TARGET),
                   fits[0])
@@ -170,7 +182,7 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
              mode: str = "base") -> torch.Tensor:
     """Launch the CUDA P2P kernel; same contract as :func:`p2p_plain`: one
     launch for a 3-D grid or a 4-D batch of them."""
-    global LAUNCHES
+    global LAUNCHES, STREAM_LAUNCHES
     if (z_halo.ndim not in (3, 4) or z_halo.shape[-3] < 3 or z_halo.shape[-2] < 3
             or (z_halo.ndim == 4 and not 1 <= z_halo.shape[0] <= MAX_BATCH)):
         raise ValueError(f"z_halo must be ([B,] rows+2, cols+2, s) with 1 <= B <= "
@@ -201,6 +213,10 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
                          f"apart: the s = 8 kernel needs a multiple of 8")
     nout = MODES[mode].nout
     ty, tx, threads, smem = launch_config(s, st, nout)
+    if max(s, st) > TILE_SLOTS and batch * -(-st // STREAM_THREADS) > MAX_BATCH:
+        raise ValueError(f"{batch} grids of {st} target slots: the streaming "
+                         f"form takes at most {MAX_BATCH} grids x passes of "
+                         f"{STREAM_THREADS}")
     out = torch.empty(lead + (rows, cols, st) + ((nout,) if nout > 1 else ()),
                       dtype=torch.complex64, device=z_halo.device)
     singular = sigma is None
@@ -215,5 +231,6 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
     if err:
         raise RuntimeError(f"p2p kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    STREAM_LAUNCHES += max(s, st) > TILE_SLOTS
     LAUNCHES_BY_MODE[mode + ("_passive" if passive else "")] += 1
     return out

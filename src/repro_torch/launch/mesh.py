@@ -17,7 +17,8 @@ several ranks runs over ``gloo``.
 
 :func:`spawn_world` starts a world of ``world`` processes (``spawn``, a
 ``file://`` store in a temporary directory: no network) and returns what
-each rank's function returned.
+each rank's function returned; :func:`join_world` joins a process that
+someone else started (``launch/supervisor.py``'s ranks) to its group.
 """
 from __future__ import annotations
 
@@ -206,18 +207,31 @@ def make_group_mesh(members, axis: str = "data", device=None) -> Optional[RankMe
                     backend=str(dist.get_backend(group)))
 
 
+def join_world(store: str, world: int, index: int, *, timeout_s: float,
+               device=None, backend: str = "gloo") -> RankMesh:
+    """Join this process, as member ``index`` of ``world``, to the group
+    whose ``file://`` store is ``store`` (a path that no earlier group
+    used), and return its mesh.  For processes started by someone else (a
+    supervisor's generation of ranks): every member calls it with the same
+    store and world.  The group's collectives, and the wait for the other
+    members, time out after ``timeout_s``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=index,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return make_world_mesh(world, device=dev)
+
+
 def _rank_main(rank: int, fn: Callable, world: int, device: str, backend: str,
                root: str, timeout_s: float, args: tuple) -> None:
-    dev = resolve_device(device)
-    if dev.type == "cpu":
+    if resolve_device(device).type == "cpu":
         torch.set_num_threads(1)
-    elif dev.index is not None:
-        torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"file://{root}/store",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+    mesh = join_world(f"{root}/store", world, rank, timeout_s=timeout_s,
+                      device=device, backend=backend)
     try:
-        out = fn(make_world_mesh(world, device=dev), *args)
+        out = fn(mesh, *args)
         with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:

@@ -222,6 +222,69 @@ def served():
     return dict(jobs=jobs, ref=ref, port=port, rids=rids, pids=pids)
 
 
+def wide_jobs():
+    """The jobs the port's card route once refused (ROADMAP Queue 3): 400
+    particles clustered in one leaf box plus two far ones (bucket slots
+    512), 2,000 uniform ones at p = 40, and an ordinary job."""
+    rng = np.random.default_rng(0)
+    pos = np.vstack([0.5 + 0.0625 * rng.random((400, 2)),
+                     [[0.05, 0.05], [0.95, 0.95]]])
+    clustered = dict(positions=pos, strength=rng.normal(size=402), sigma=1e-2)
+    rng = np.random.default_rng(1)
+    deep = dict(positions=rng.uniform(size=(2000, 2)), strength=rng.normal(size=2000),
+                p=40, sigma=1e-2)
+    src, q = _sources(220, seed=2)
+    return [clustered, deep, dict(positions=src, strength=q, sigma=1e-2)]
+
+
+WIDE_BUCKETS = [(3, 512, 12), (4, 32, 40), (2, 32, 12)]   # (level, slots, p)
+
+
+@pytest.fixture(scope="module")
+def wide_served():
+    """The three jobs of :func:`wide_jobs` through both engines, one drain
+    each; buckets and prices read before the drain."""
+    jobs = wide_jobs()
+    ref, port = _engines()
+    rids = [ref.submit(rsvc.FmmJob(**kw)) for kw in jobs]
+    pids = [port.submit(svc.FmmJob(**kw)) for kw in jobs]
+    seen = [(dataclasses.asdict(r.bucket), dataclasses.asdict(r.price),
+             dataclasses.asdict(q.bucket), dataclasses.asdict(q.price))
+            for r, q in zip(ref.queue, port.queue)]
+    ref.drain()
+    port.drain()
+    return dict(jobs=jobs, ref=ref, port=port, rids=rids, pids=pids, seen=seen)
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_wide_jobs_price_and_bucket_equal_the_reference(wide_served, i):
+    rb, rp, pb, pp = wide_served["seen"][i]
+    assert pb == rb and pp == rp
+    assert (pb["level"], pb["slots"], pb["p"]) == WIDE_BUCKETS[i]
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_wide_jobs_served_in_one_drain_match_the_reference(wide_served, i):
+    """One drain serves all three (three buckets).  The clustered and the
+    ordinary job are within 1e-5 of the reference engine.  At p = 40 the
+    reference engine's output is NaN (its P2M forms ``zhat**k`` for empty
+    slots too, which overflows f32 at this order already at level 4, the
+    kept divergence of ``test_p2m_finite_for_empty_slots_at_depth``), so
+    the port's is held to the reference's f64 ``direct_sum`` instead."""
+    from repro.core import equations as req
+    port, ref = wide_served["port"], wide_served["ref"]
+    assert port.counters["batches"] == ref.counters["batches"] == 3
+    got = port.result(wide_served["pids"][i]).out
+    want = np.asarray(ref.result(wide_served["rids"][i]).out)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    if WIDE_BUCKETS[i][2] == 40:
+        assert not np.isfinite(want).any()
+        job = wide_served["jobs"][i]
+        z = job["positions"][:, 0] + 1j * job["positions"][:, 1]
+        want = req.direct_sum(req.VORTEX, z, z, job["strength"], job["sigma"])
+    assert _rel(got, want) < 1e-5
+
+
 @pytest.mark.parametrize("i", range(5))
 def test_batched_results_match_the_reference(served, i):
     r = served["ref"].result(served["rids"][i])

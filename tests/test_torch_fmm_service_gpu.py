@@ -73,6 +73,50 @@ def test_bucket_on_the_card_matches_the_cpu_with_exact_launches(cuda, equation,
         assert _rel(got, want) < 1e-5
 
 
+def _wide_jobs():
+    """``test_torch_fmm_service.wide_jobs``: a clustered job (bucket slots
+    512), a job at p = 40, an ordinary job (no jax here, so a copy)."""
+    rng = np.random.default_rng(0)
+    pos = np.vstack([0.5 + 0.0625 * rng.random((400, 2)),
+                     [[0.05, 0.05], [0.95, 0.95]]])
+    clustered = dict(positions=pos, strength=rng.normal(size=402), sigma=1e-2)
+    rng = np.random.default_rng(1)
+    deep = dict(positions=rng.uniform(size=(2000, 2)), strength=rng.normal(size=2000),
+                p=40, sigma=1e-2)
+    rng = np.random.default_rng(2)
+    plain = dict(positions=rng.uniform(0.1, 0.9, size=(220, 2)),
+                 strength=rng.normal(size=220), sigma=1e-2)
+    return [clustered, deep, plain]
+
+
+@pytest.mark.gpu
+def test_jobs_past_the_kernels_first_limits_are_served_in_one_drain(cuda):
+    """The ROADMAP Queue 3 pin: the clustered job (512 slots), the p = 40 job
+    and an ordinary job in one drain on the card.  All three return, through
+    the kernels (one P2P launch a bucket, L - 1 M2L, no plain call), each
+    within 1e-5 of the same engine on the CPU (which the CPU tests hold to
+    the reference engine)."""
+    outs = {}
+    for dev in ("cpu", cuda):
+        engine = svc.FmmServiceEngine(device=dev)
+        jids = [engine.submit(svc.FmmJob(**kw)) for kw in _wide_jobs()]
+        buckets = [r.bucket for r in engine.queue]
+        assert [(b.level, b.slots, b.p) for b in buckets] == \
+            [(3, 512, 12), (4, 32, 40), (2, 32, 12)]
+        _zero()
+        ops.PLAIN_CALLS = 0
+        engine.drain()
+        assert not engine.queue and engine.counters["batches"] == 3
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert _counts() == ({"base": 3}, sum(b.level - 1 for b in buckets))
+            assert ops.PLAIN_CALLS == 0
+        outs[str(dev)] = [engine.result(j).out for j in jids]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert _rel(got, want) < 1e-5
+
+
 @pytest.mark.gpu
 def test_session_on_the_card_matches_the_cpu(cuda):
     """A streamed session: 2 P2P and 2 (L - 1) M2L launches a step on the

@@ -107,10 +107,10 @@ def test_p2p_plain_matches_reference_on_masks_with_holes(jx, ny, nx, s, sigma):
 
 
 def test_p2p_launch_fits_a_hopper_block():
-    """Every slot count the wrapper takes launches within one block's
+    """Every slot count the tiled kernel takes launches within one block's
     232,448 bytes of shared memory and 1024 threads, one thread per halo
     box, with the tile's records sized for every slot live."""
-    for s in range(1, p2p.MAX_SLOTS + 1):
+    for s in range(1, p2p.TILE_SLOTS + 1):
         ty, tx, threads, smem = p2p.launch_config(s)
         assert (ty, tx) in p2p.TILES
         assert smem == p2p.smem_bytes(ty, tx, s) <= p2p.MAX_SMEM, s
@@ -124,7 +124,7 @@ def test_p2p_launch_config_takes_the_large_tile_at_the_papers_slots():
 
 def _first_slots_of(tile):
     """The least slot count whose launch takes ``tile``, else None."""
-    return next((s for s in range(1, p2p.MAX_SLOTS + 1)
+    return next((s for s in range(1, p2p.TILE_SLOTS + 1)
                  if p2p.launch_config(s)[:2] == tile), None)
 
 
@@ -134,11 +134,13 @@ def test_p2p_every_tile_is_the_launch_of_some_slot_count(tile):
 
 
 def test_p2p_slot_range_is_the_tags_and_every_tile_is_chosen_in_it():
-    """Up to 256 slots, what the kernel's 8-bit slot tag holds; over that
-    range the launches take every tile of ``TILES`` and no other."""
-    assert p2p.MAX_SLOTS == 256
-    chosen = {p2p.launch_config(s)[:2] for s in range(1, p2p.MAX_SLOTS + 1)}
+    """Up to 256 slots, what the tiled kernel's 8-bit slot tag holds; over
+    that range the launches take every tile of ``TILES`` and no other, and
+    one slot more takes the streaming form."""
+    assert p2p.TILE_SLOTS == 256
+    chosen = {p2p.launch_config(s)[:2] for s in range(1, p2p.TILE_SLOTS + 1)}
     assert chosen == set(p2p.TILES)
+    assert p2p.launch_config(p2p.TILE_SLOTS + 1)[:2] == (1, 1)
 
 
 @pytest.mark.parametrize("s", [137, 200, 256])
@@ -152,7 +154,7 @@ def test_p2p_launch_fits_the_slot_counts_a_relevel_asks_for(s):
         assert (ty + 2) * (tx + 2) <= threads <= 1024 and threads % 32 == 0
 
 
-@pytest.mark.parametrize("s", [0, p2p.MAX_SLOTS + 1])
+@pytest.mark.parametrize("s", [0, (1 << 24) + 1])
 def test_p2p_launch_config_rejects_slot_counts_out_of_range(s):
     with pytest.raises(ValueError, match="slots"):
         p2p.launch_config(s)
@@ -316,8 +318,8 @@ def test_p2p_launch_fits_a_hopper_block_in_every_mode():
     shared memory and threads; the vortex launch at the paper's slots is
     the one the compile-time instance is built for."""
     for nout in (1, 2):
-        for s in range(1, p2p.MAX_SLOTS + 1):
-            for st in range(1, p2p.MAX_SLOTS + 1):
+        for s in range(1, p2p.TILE_SLOTS + 1):
+            for st in range(1, p2p.TILE_SLOTS + 1):
                 ty, tx, threads, smem = p2p.launch_config(s, st, nout)
                 assert (ty, tx) in p2p.TILES
                 assert smem == p2p.smem_bytes(ty, tx, s, st, nout) <= p2p.MAX_SMEM
@@ -329,7 +331,50 @@ def test_p2p_launch_fits_a_hopper_block_in_every_mode():
     with pytest.raises(ValueError, match="channels"):
         p2p.launch_config(8, 8, 3)
     with pytest.raises(ValueError, match="slots"):
-        p2p.launch_config(8, p2p.MAX_SLOTS + 1)
+        p2p.launch_config(8, 0)
+
+
+# slot counts past the tiled kernel's: the FMM service's clustered job
+# (512 slots) and a denser one
+WIDE_SLOTS = (257, 512, 2048)
+# orders past the register tile: 40 and 64 split into even slices of full
+# K chunks; the rest are ragged: a short last chunk (p % 4), odd slices
+# (33: 17 + 16, 37: 19 + 18, 41: 21 + 20, 63: 32 + 31, 65: 22 + 22 + 21,
+# 97: 25 x 3 + 22), so half-filled warps and a last slice short of snt
+WIDE_ORDERS = (33, 37, 40, 41, 63, 64, 65, 97)
+
+
+@pytest.mark.parametrize("s", WIDE_SLOTS)
+def test_p2p_launch_fits_a_hopper_block_past_the_tile_slots(s):
+    """Past ``TILE_SLOTS`` source or target slots, in every mode, the launch
+    is the streaming form's: one 256-thread block a target box whose shared
+    memory holds a chunk of 1024 source records and the scan's warp sums,
+    whatever the slot counts."""
+    for st, nout in ((s, 1), (s, 2), (4, 1), (4, 2), (s // 2, 2)):
+        for src_slots in (s, 8):
+            if max(src_slots, st) <= p2p.TILE_SLOTS:
+                continue
+            ty, tx, threads, smem = p2p.launch_config(src_slots, st, nout)
+            assert (ty, tx) == (1, 1)
+            assert threads == p2p.STREAM_THREADS and threads % 32 == 0
+            assert threads <= p2p.MAX_THREADS
+            assert smem == p2p.STREAM_SMEM == 1024 * 16 + 32 * 4 <= p2p.MAX_SMEM
+
+
+@pytest.mark.parametrize("p", WIDE_ORDERS)
+def test_m2l_launch_fits_a_hopper_block_past_the_tile_order(p):
+    """Orders past the register tile launch the wide form: 256 threads and
+    the same 94,336 bytes of shared memory at every p (two buffers of a
+    10 x 10 halo chunk of 16 coefficients, 36 floats a parent, and of a
+    16 x 128 piece of the split operator)."""
+    assert p > m2l.TILE_P
+    assert m2l.smem_bytes(p) == m2l.WIDE_SMEM == 2 * (100 * 36 + 16 * 128 * 4) * 4
+    assert m2l.WIDE_SMEM <= m2l.MAX_SMEM and m2l.THREADS <= 1024
+    # the register-tile orders fit too, up to p = 32 (202,456 bytes)
+    assert max(m2l.smem_bytes(q) for q in range(1, m2l.TILE_P + 1)) == \
+        m2l.smem_bytes(m2l.TILE_P) == 202_456 <= m2l.MAX_SMEM
+    with pytest.raises(ValueError, match="p >= 1"):
+        m2l.smem_bytes(0)
 
 
 @pytest.mark.parametrize("mode,passive", NEW_MODES)
@@ -345,9 +390,9 @@ def test_p2p_dispatch_takes_plain_modes_on_cpu(mode, passive):
 
 def _first_shape_of(tile, nout, passive):
     """The least (s, st) whose launch takes ``tile`` in a mode; passive
-    targets take st = 2s (at most MAX_SLOTS)."""
-    for s in range(1, p2p.MAX_SLOTS + 1):
-        st = min(2 * s, p2p.MAX_SLOTS) if passive else s
+    targets take st = 2s (at most TILE_SLOTS)."""
+    for s in range(1, p2p.TILE_SLOTS + 1):
+        st = min(2 * s, p2p.TILE_SLOTS) if passive else s
         if p2p.launch_config(s, st, nout)[:2] == tile:
             return s, st
     return None
@@ -430,6 +475,29 @@ def test_p2p_kernel_matches_plain_above_the_first_slot_limit(cuda, s, mode, pass
 
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [512, 2048])
+@pytest.mark.parametrize("mode,passive", [("base", False), ("laplace", True)])
+def test_p2p_kernel_matches_plain_past_the_tile_slots(cuda, s, mode, passive):
+    """The streaming form at the FMM service's clustered bucket (512 slots)
+    and at 2048, at the sources and as Laplace at passive targets: holes in
+    the masks, live ghost rows and columns, masked targets exactly 0."""
+    ny, nx = (3, 4) if s == 512 else (2, 3)
+    st = s if not passive else 300
+    zh, qh, mh, zt, mt = _mode_inputs(ny, nx, s, st, passive, s + ny, cuda)
+    key = mode + ("_passive" if passive else "")
+    before, streamed = p2p.LAUNCHES_BY_MODE[key], p2p.STREAM_LAUNCHES
+    got = p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt, mode)
+    torch.cuda.synchronize()
+    assert p2p.LAUNCHES_BY_MODE[key] == before + 1
+    assert p2p.STREAM_LAUNCHES == streamed + 1
+    want = p2p.p2p_plain(zh, qh, mh, 0.05, zt, mt, mode)
+    live = _live(mh, mt, got).expand(got.shape)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert bool((got[~live] == 0).all())
+    assert _rel(got.cpu(), want.cpu()) < 1e-5
+
+
 # ---------------------------------------------------------------------------
 # M2L
 # ---------------------------------------------------------------------------
@@ -441,7 +509,7 @@ def _me(n, p, seed):
 
 
 @pytest.mark.parametrize("level", [2, 3, 4])
-@pytest.mark.parametrize("p", [8, 17])
+@pytest.mark.parametrize("p", [8, 17, 40])   # 40: past the register tile
 def test_m2l_plain_matches_reference(jx, level, p):
     jnp = jx.jnp
     me = _me(1 << level, p, level * 10 + p)
@@ -486,6 +554,30 @@ def test_m2l_kernel_matches_plain(cuda, PR, PC, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("p", WIDE_ORDERS)
+@pytest.mark.parametrize("B", [None, 4])
+def test_m2l_kernel_matches_plain_past_the_tile_order(cuda, p, B):
+    """The wide form (column slices, K in chunks) on a ragged stack, alone
+    and as a batch of 4: rel 1e-5 against the plain version, one launch."""
+    rng = np.random.default_rng(p + (B or 0))
+    K = 4 * p
+    shape = ((B,) if B else ()) + (13 + 2, 11 + 2, K)
+    stack = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                            dtype=torch.complex64, device=cuda)
+    W = ops.folded_operator(VORTEX, p, 5, cuda)
+    before, wide = m2l.LAUNCHES, m2l.WIDE_LAUNCHES
+    got = m2l.m2l_cuda(stack, W)
+    torch.cuda.synchronize()
+    assert (m2l.LAUNCHES, m2l.WIDE_LAUNCHES) == (before + 1, wide + 1)
+    assert m2l.smem_bytes(p) == m2l._lib().m2l_smem_bytes(p)
+    assert got.shape == shape[:-3] + (13, 11, K)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rel(got.cpu(), m2l.m2l_plain(stack, W).cpu()) < 1e-5
+    if B:
+        assert torch.equal(got[1], m2l.m2l_cuda(stack[1].clone(), W))
+
+
+@pytest.mark.gpu
 def test_m2l_kernel_on_slab_matches_plain_route(cuda):
     """Odd anchors and column ghosts go through the kernel's route too."""
     p, level = 8, 5
@@ -507,8 +599,9 @@ def test_m2l_kernel_rejects_bad_inputs(cuda):
         m2l.m2l_cuda(stack.to(torch.complex128),
                      torch.zeros((8, 32, 32), dtype=torch.complex64, device=cuda))
     big = torch.zeros((4, 4, 4 * 33), dtype=torch.complex64, device=cuda)
-    with pytest.raises(ValueError, match=f"p <= {m2l.MAX_P}"):
-        m2l.m2l_cuda(big, torch.zeros((8, 132, 132), dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        m2l.m2l_cuda(big.transpose(0, 1),
+                     torch.zeros((8, 132, 132), dtype=torch.complex64, device=cuda))
 
 
 @pytest.mark.gpu

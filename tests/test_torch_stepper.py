@@ -377,16 +377,21 @@ def test_stepper_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_stepper_refuses_more_slots_than_the_p2p_kernel_takes_on_the_card():
-    """On the card a tree whose boxes need more than ``p2p.MAX_SLOTS``
-    raises before any launch; on the CPU it runs, as the reference does."""
+    """The P2P kernel takes any slot count (its streaming form past
+    ``p2p.TILE_SLOTS``), so the stepper refuses none: a tree of 400 slots
+    builds, re-levels and steps on the CPU as the reference's does, and its
+    launch on the card fits one block."""
     from repro_torch.kernels import p2p
     rng = np.random.default_rng(0)
     pos = 0.5 + 0.01 * rng.random((200, 2))    # one leaf box holds them all
     gamma = rng.standard_normal(200) * 0.01
     st = VortexStepper(pos, gamma, 0.02, p=4, device="cpu")
-    assert st.params.slots == 400 > p2p.MAX_SLOTS
-    st.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="at most 256"):
-        st._relevel()
-    st.device = torch.device("cpu")
-    st.step()
+    assert st.params.slots == 400 > p2p.TILE_SLOTS
+    assert not hasattr(st, "_check_slots")
+    assert p2p.launch_config(st.params.slots) == (1, 1, p2p.STREAM_THREADS,
+                                                  p2p.STREAM_SMEM)
+    st._relevel()
+    assert st.params.slots == 400
+    rec = st.step()
+    assert rec.recovered == "" and st.step_count == 1
+    assert int(st.tree.mask.sum()) == 200
