@@ -28,9 +28,13 @@ Phases, each printing one JSON line:
               cell-centred probe grid (4 a leaf box; mollified, singular,
               with holes in the target mask); past the first limits,
               P2P's streaming form at 512 and 2048 slots (base, and
-              Laplace at passive targets) and M2L's wide form at p = 40
-              and 64 (alone and 4 stacks at once), timed, with the
-              bound and, for M2L, the complex matmul yardstick;
+              Laplace at passive targets) and M2L's wide form at p = 37, 40
+              and 64 (alone and 4 stacks at once), each small grid split
+              across a thread-block cluster (M2L also at 32 x 32 parents,
+              split 4), and one grid of each that fills the card at split
+              1 (P2P 32 x 32 boxes, M2L 128 x 128 parents), timed, each with its split, blocks and a second
+              launch bit for bit the first, with the bound and, for M2L,
+              the complex matmul yardstick;
 3. fmm      — ``build_tree`` then ``fmm_velocity_singular`` on the card, held
               to a float64 direct sum at 2048 sampled particles;
 4. steps    — three guarded ``rk2_step``s: ``ok``, a clear health word and a
@@ -138,10 +142,11 @@ Phases, each printing one JSON line:
               ``ops.flash_attention`` (its d = 256 main path: one ``tf32``
               launch and no other), ragged T = S (77, 1000, 2079), T < S,
               T > S, non-causal, Hkv 1, d 64 and 256 and T = 1; the SIMT
-              kernel itself at recurrentgemma-2b's attention in f32 (timed:
-              its time before the 3xTF32 route took d = 256), at f32 d = 32
-              through ``ops.flash_attention`` (its main path, a head dim
-              only it takes: one ``simt`` launch and no other), and the
+              kernel itself at f32 d = 32 (timed beside SDPA: its served
+              shape), there through ``ops.flash_attention`` (its main path,
+              a head dim only it takes: one ``simt`` launch and no other),
+              at recurrentgemma-2b's attention in f32 (timed: its time
+              before the 3xTF32 route took d = 256), and the
               d = 256 attention in bf16, f32 at d 64 and a bf16 d = 40
               case.  Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
               rounding alone is 2e-3, the tensor-core kernel's bf16 P about
@@ -276,13 +281,13 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 # 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
 # 4 x 2048 tokens; the port's full-width head dim 256
 RG_ATTN = (4, 10, 1, 2048, 2048, 256, True)
-# (B, H, Hkv, T, S, d, causal, dtype); the first of each is timed: the
-# serve phases' prefill (Yi-6B, 4 x 2048) for the tensor-core kernels,
-# their main path at d = 128; recurrentgemma-2b's attention in f32 for the
-# SIMT kernel, its time before the 3xTF32 route took d = 256.  The second:
-# recurrentgemma-2b's attention is each tensor-core kernel's d = 256 main
-# path, timed too; f32 at d = 32, a head dim only the SIMT kernel takes, is
-# its main path
+# (B, H, Hkv, T, S, d, causal, dtype); the first of each tensor-core list
+# is timed: the serve phases' prefill (Yi-6B, 4 x 2048), their main path at
+# d = 128; the second, recurrentgemma-2b's attention, is each tensor-core
+# kernel's d = 256 main path, timed too.  The SIMT kernel's second case,
+# f32 at d = 32, a head dim only it takes, is its main path, timed; its
+# first, recurrentgemma-2b's attention in f32, its time before the 3xTF32
+# route took d = 256
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (*RG_ATTN, torch.bfloat16),
             (2, 4, 4, 77, 77, 256, True, torch.bfloat16),
@@ -337,12 +342,19 @@ SVC_MESH_STEPS = 2
 # the kernels past their first limits (P2P's 256 slots, M2L's p = 32): the
 # FMM service's clustered bucket (level 3, 512 slots) and a denser one, in
 # the base and Laplace-at-passive-targets modes; M2L at p = 40 (the p = 40
-# job's leaf stack, level 4: 8 x 8 parents) and 64, alone and 4 at once
+# job's leaf stack, level 4: 8 x 8 parents) and 64, alone and 4 at once.
+# Each small grid splits across a cluster of blocks (M2L at 32 x 32
+# parents, a p = 40 job's level 6: 16 tiles x 2 slices, by 4); the last
+# case of each already fills the card at split 1 (P2P: 32 x 32 boxes x 2
+# passes, 2,048 blocks; M2L: 128 x 128 parents, 256 tiles x 2 slices, 512
+# blocks)
 WIDE_P2P_CASES = [(512, 8, "base", False), (512, 8, "laplace", True),
-                  (2048, 4, "base", False), (2048, 4, "laplace", True)]  # (s, side, mode, passive)
-# (p, batch); 37: a short last K chunk and uneven column slices (19 + 18)
-WIDE_M2L_CASES = [(37, None), (37, 4), (40, None), (40, 4), (64, None), (64, 4)]
-WIDE_M2L_PARENTS = 8
+                  (2048, 4, "base", False), (2048, 4, "laplace", True),
+                  (512, 32, "base", False)]  # (s, side, mode, passive)
+# (p, batch, parents a side); 37: a short last K chunk and a short last
+# column slice
+WIDE_M2L_CASES = [(37, None, 8), (37, 4, 8), (40, None, 8), (40, 4, 8), (64, None, 8),
+                  (64, 4, 8), (40, None, 32), (40, None, 128)]
 WIDE_SIGMA = 1e-2
 # phase drill: the kill-drill supervisor at phase 4c's tree on gloo ranks
 # sharing the card: SIGKILL rank 2 of 4 mid-step 4 (run to step 6), SIGSTOP
@@ -586,6 +598,8 @@ def check_p2p_wide(s, side, mode, passive, dev):
     require(launch == (1, 1, p2p.STREAM_THREADS, p2p.STREAM_SMEM),
             f"p2p s={s} {mode}: launch {launch} is not the streaming form")
     call = lambda fn: fn(zh, qh, mh, WIDE_SIGMA, zt, mt, mode)  # noqa: E731
+    split = p2p.stream_launch_config(side, side, s, s, nout)[0]
+    ctas = p2p.stream_blocks(side, side, s, s, nout)
     before = p2p.STREAM_LAUNCHES
     got = call(p2p.p2p_cuda)
     torch.cuda.synchronize()
@@ -593,12 +607,14 @@ def check_p2p_wide(s, side, mode, passive, dev):
     want = call(p2p.p2p_plain)
     live = mh[1:-1, 1:-1] if mt is None else mt
     live = live if got.ndim == 3 else live[..., None].expand(got.shape)
-    name = f"p2p stream s={s} {mode}{' passive' if passive else ''}"
+    name = f"p2p stream s={s} {side}x{side} {mode}{' passive' if passive else ''}"
     err = rel_l2(got[live], want[live])
     max_abs = float((got[live] - want[live]).abs().max())
     require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{name}: non-finite")
     require(bool((got[~live] == 0).all()), f"{name}: a masked target is not 0")
     require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    repeat = bool(torch.equal(got, call(p2p.p2p_cuda)))
+    require(repeat, f"{name}: two launches differ")
     ms = cuda_ms(lambda: call(p2p.p2p_cuda), iters=10)
     plain_ms = cuda_ms(lambda: call(p2p.p2p_plain), iters=2, warmup=1)
     nbytes = mh.numel() + int(mh.sum()) * 16 + got.numel() * 8
@@ -608,20 +624,23 @@ def check_p2p_wide(s, side, mode, passive, dev):
     ops_ = pairs * P2P_OPS[mode, False]
     b_ms, b_by = bound_ms(nbytes, ops_)
     return dict(name="p2p_stream", slots=s, mode=mode, passive=passive,
-                shape=list(got.shape), launch=list(launch[:3]), rel_l2=err,
+                shape=list(got.shape), launch=list(launch[:3]), split=split, ctas=ctas,
+                bitwise_repeat=repeat, rel_l2=err,
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, live_pairs=pairs, bytes=nbytes, ops=ops_, library_ms=None)
 
 
-def check_m2l_wide(p, batch, dev):
-    """M2L's wide form (past p = 32) against its plain version, with the
-    complex ``torch.matmul`` yardstick."""
-    rng = np.random.default_rng(p + (batch or 0))
-    K, n = 4 * p, WIDE_M2L_PARENTS
+def check_m2l_wide(p, batch, n, dev):
+    """M2L's wide form (past p = 32) on ``n x n`` parents against its plain
+    version, with the complex ``torch.matmul`` yardstick."""
+    rng = np.random.default_rng(p + (batch or 0) + (n != 8) * n)
+    K = 4 * p
     shape = ((batch,) if batch else ()) + (n + 2, n + 2, K)
     stack = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
                             dtype=torch.complex64, device=dev)
     W = ops.folded_operator(VORTEX, p, 4, dev)
+    slices, split, smem = m2l.wide_launch_config(n, n, p)
+    ctas = m2l.wide_blocks(n, n, p) * (batch or 1)
     before = m2l.WIDE_LAUNCHES
     got = m2l.m2l_cuda(stack, W)
     torch.cuda.synchronize()
@@ -629,9 +648,11 @@ def check_m2l_wide(p, batch, dev):
     want = m2l.m2l_plain(stack, W)
     err = rel_l2(got, want)
     max_abs = float((got - want).abs().max())
-    name = f"m2l wide p={p} batch={batch}"
+    name = f"m2l wide p={p} batch={batch} {n}x{n}"
     require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{name}: non-finite")
     require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    repeat = bool(torch.equal(got, m2l.m2l_cuda(stack, W)))
+    require(repeat, f"{name}: two launches differ")
     ms = cuda_ms(lambda: m2l.m2l_cuda(stack, W), iters=50)
     plain_ms = cuda_ms(lambda: m2l.m2l_plain(stack, W), iters=10)
     lead = stack.shape[:-3]
@@ -644,7 +665,8 @@ def check_m2l_wide(p, batch, dev):
     ops_ = (batch or 1) * n * n * nnz_blocks * p * p * 8
     nbytes = (stack.numel() + W.numel() + got.numel()) * 8
     return dict(name="m2l_wide", p=p, batch=batch, shape=list(stack.shape),
-                smem=m2l.smem_bytes(p), rel_l2=err, max_abs_err=max_abs, ms=ms,
+                slices=slices, split=split, ctas=ctas, smem=smem, bitwise_repeat=repeat,
+                rel_l2=err, max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, **f32_product_bound(nbytes, ops_),
                 library_ms=library_ms, library_rel_l2=lib_err,
                 nonzero_blocks=nnz_blocks, bytes=nbytes, ops=ops_)
@@ -2294,6 +2316,10 @@ def main() -> None:
     wide_m2l_rows = [check_m2l_wide(*case, dev) for case in WIDE_M2L_CASES]
     for row in p2p_rows + lap_rows + passive_rows + m2l_rows + wide_p2p_rows + wide_m2l_rows:
         emit({"phase": "kernel_vs_plain", **row})
+    # the plain versions at the range forms' card-filling grids leave
+    # gigabytes of (rows, cols, st, s) temporaries in the allocator's cache:
+    # hand them back before the main path
+    torch.cuda.empty_cache()
 
     # -- 3. main path: build_tree -> fmm on the card, vs float64 ----------
     torch.cuda.synchronize()
@@ -2426,10 +2452,15 @@ def main() -> None:
                              gen=gen, timed=True, main_path=True)]
     tf32_rows += [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
                               gen=gen, timed=False) for case in TF32_CASES[2:]]
+    # the SIMT kernel timed at its served shape (d = 32) beside SDPA, then
+    # counted there through the dispatcher; recurrentgemma-2b's shape, which
+    # the 3xTF32 route serves, is timed last beside the SIMT kernel's past
     simt_rows = [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda,
-                             *SIMT_CASES[0], gen=gen, timed=True),
+                             *SIMT_CASES[1], gen=gen, timed=True),
                  check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[1],
-                             gen=gen, timed=False, main_path=True)]
+                             gen=gen, timed=False, main_path=True),
+                 check_flash("flash_attn_simt", flash_attn.flash_attention_cuda,
+                             *SIMT_CASES[0], gen=gen, timed=True)]
     simt_rows += [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
                               gen=gen, timed=False) for case in SIMT_CASES[2:]]
     for row in tc_rows + tf32_rows + simt_rows:
@@ -2550,16 +2581,18 @@ def main() -> None:
               "src/repro/kernels/p2p.py:46",
               launches_counted_in="phase fmm_serve_wide: the clustered job's bucket "
                                   "(level 3, 512 slots) in a drain of three buckets",
-              cases=[{k: r[k] for k in ("slots", "mode", "passive", "shape", "ms",
-                                        "plain_ms", "bound_ms", "bound_by", "rel_l2",
-                                        "max_abs_err")} for r in wide_p2p_rows]),
+              cases=[{k: r[k] for k in ("slots", "mode", "passive", "shape", "split",
+                                        "ctas", "bitwise_repeat", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "rel_l2", "max_abs_err")}
+                     for r in wide_p2p_rows]),
         entry(wide_m2l_rows, "m2l_wide", "src/repro_torch/kernels/csrc/m2l.cu",
               "src/repro/kernels/m2l.py:43",
               launches_counted_in="phase fmm_serve_wide: the p = 40 job's bucket "
                                   "(level 4: levels 2..4) in a drain of three buckets",
-              cases=[{k: r[k] for k in ("p", "batch", "shape", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "fp32_simt_bound_ms",
-                                        "library_ms", "rel_l2", "max_abs_err")}
+              cases=[{k: r[k] for k in ("p", "batch", "shape", "split", "ctas",
+                                        "bitwise_repeat", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "fp32_simt_bound_ms", "library_ms",
+                                        "rel_l2", "max_abs_err")}
                      for r in wide_m2l_rows]),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
@@ -2573,6 +2606,8 @@ def main() -> None:
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:32",
               shape=simt_rows[0]["shape"],
+              recurrentgemma_2b_shape={k: simt_rows[2][k] for k in (
+                  "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
               launches_counted_in="phase 7: one ops.flash_attention call at "
                                   "(1, 2, 2, 64, 192, 32) f32 non-causal, a head "
                                   "dim only the SIMT kernel takes"),

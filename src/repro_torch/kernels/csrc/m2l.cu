@@ -55,15 +55,46 @@
 // come to about 252 KB at p = 40) both run out.  m2l_wide_kernel keeps the
 // 8 x 8 parents, the warps' layout and the 3xTF32 products, and cuts the
 // other two dimensions:
-// - the output columns into slices of at most 32 n-tiles (16 a warp), one
-//   slice a block (blockIdx.x = tile column * slices + slice), each
+// - the output columns into slices of at most 32 n-tiles (16 a warp), each
 //   streaming only its columns of W_split;
 // - K into chunks of KC = 4 k-steps: a chunk of the halo tile (10 x 10
-//   parents x 16 complex coefficients) and, for each of the 8 offsets, the
-//   chunk's 16 rows of the slice's W columns, double-buffered by 16-byte
-//   cp.async copies (the halo's past the stack's edge zero-filled).
-//   94,336 bytes of shared memory whatever p, so any order whose operator
-//   fits the card launches; the halo is read once a slice.
+//   parents x 16 complex coefficients) and, for each offset, the chunk's
+//   16 rows of the slice's W columns, a piece, by 16-byte cp.async copies
+//   (the halo's past the stack's edge zero-filled).  47,168 bytes a stage
+//   of (halo chunk, W piece) whatever p, so any order whose operator fits
+//   the card launches.
+// The service's wide jobs give it small grids: at the p = 40 job's stacks,
+// one tile x 2 slices, a block a tile and slice walking 10 chunks x 8
+// offsets = 80 pieces, each waiting on its copies and two barriers, took
+// 0.263 ms on an H100 whatever the batch.  So the launch splits each output tile's
+// reduction across a thread-block cluster (wide_config, mirrored by
+// kernels/m2l.py:wide_launch_config, chosen from the grid's shape alone):
+// - a grid of more than 66 tiles x slices runs split 1, one block a tile
+//   and slice walking all 8 offsets on two stages (94,336 bytes), as
+//   before: a split block holds its SM alone, so a split past 132 blocks
+//   takes a second wave and gains nothing (at 64 x 64 parents, 128 tiles x
+//   slices, split 2 ran 0.266 ms against split 1's 0.247 on an H100);
+// - a smaller one gives the 8 PARENT_NEIGH8 offsets to a cluster of the
+//   most of 2, 4, 8 blocks that stays within 132 blocks, one wave (8 at
+//   most: portable):
+//   rank r takes offsets r (8 / split) .. over every K chunk, so a block
+//   walks nch x 8 / split pieces (10 at p = 40, split 8), four stages deep
+//   (188,672 bytes, three pieces in flight while one is multiplied).  At
+//   split 8 the slices narrow too, to about 8 n-tiles (4 a warp) while the
+//   grid stays within 132 blocks: the p = 40 job's stacks run 5
+//   slices x 8 = 40 blocks.  Each block then sums 10 pieces where one
+//   block a slice summed 80; a batch of such stacks, whose blocks outnumber
+//   the SMs, pays for the narrower slices' repeated halo loads.
+//   Each block accumulates its partial 64-row x slice tile in registers
+//   as before, then writes it to its own shared memory (the drained ring);
+//   after a cluster barrier, rank r adds n-tiles r, r + split, ... of every
+//   fragment over the ranks' partials in rank order, read through
+//   distributed shared memory, and stores them; a second cluster barrier
+//   keeps each block's shared memory alive until all have read it.  One
+//   launch, no workspace in device memory, no atomics: the sums' order is
+//   fixed, so two launches and a stack's launch alone or in a batch are
+//   bit for bit equal.
+// blockIdx.x = (tile column * slices + slice) * split + rank.
 //
 // Batch: B stacks of these shapes on a leading axis, one launch with B on
 // gridDim.z; block z stages its halo tile from, and writes to, its own
@@ -72,10 +103,13 @@
 //
 // Layouts: stack (B, PR+2, PC+2, K), out (B, PR, PC, K), complex64; W_split
 // (8, K, K, 4) f32; contiguous, 16-byte aligned.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -263,7 +297,10 @@ constexpr int W_NT = 32;                  // n-tiles a column slice: 16 a warp
 constexpr int WH_PITCH = 8 * KC + 4;      // floats a parent in a halo chunk
 constexpr int WH_FLOATS = HY * HX * WH_PITCH;
 constexpr int WW_FLOATS = 4 * KC * 4 * W_NT * 4;  // 16 rows a x 128 columns b x 4
-constexpr int WIDE_SMEM = 2 * (WH_FLOATS + WW_FLOATS) * 4;
+constexpr int WIDE_STAGE = (WH_FLOATS + WW_FLOATS) * 4;  // a halo chunk and a W piece
+constexpr int WIDE_SMEM = 2 * WIDE_STAGE;       // split 1: two stages
+constexpr int WIDE_DEEP = 4;                    // stages of a split launch
+constexpr int WIDE_SMS = CARD_SMS;              // kernels/_build.py:SMS, by nvcc -D
 
 // 16 bytes global -> shared, zero-filled when !valid (src then unread).
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
@@ -271,48 +308,61 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// blockIdx.x = (tile column * nsl + slice) * split + rank.  CLUSTER: the
+// cluster's `split` blocks own one tile and slice, rank r summing the
+// offsets d = r (8 / split) .. + 8 / split - 1 over every K chunk, on
+// WIDE_DEEP stages of (halo chunk, W piece); else split is 1 and one block
+// walks all 8 offsets on two stages.
+template <bool CLUSTER>
 __global__ void __launch_bounds__(THREADS, 1)
 m2l_wide_kernel(const float* __restrict__ stack, const float* __restrict__ wsplit,
-                float2* __restrict__ out, int PR, int PC, int p, int nsl, int snt) {
+                float2* __restrict__ out, int PR, int PC, int p, int nsl, int snt,
+                int split_arg) {
+  constexpr int NSTG = CLUSTER ? WIDE_DEEP : 2;
+  const int split = CLUSTER ? split_arg : 1;
   extern __shared__ float4 smem4[];
-  float* halo_buf = reinterpret_cast<float*>(smem4);       // 2 x WH_FLOATS
-  float* w_buf = halo_buf + 2 * WH_FLOATS;                 // 2 x WW_FLOATS
+  float* halo_buf = reinterpret_cast<float*>(smem4);       // NSTG x WH_FLOATS
+  float* w_buf = halo_buf + NSTG * WH_FLOATS;              // NSTG x WW_FLOATS
   const int K = 4 * p, K2 = 8 * p;
-  const int slice = blockIdx.x % nsl;
+  const int rank = blockIdx.x % split, tile_slice = blockIdx.x / split;
+  const int slice = tile_slice % nsl;
   const int nts = slice * snt;                             // the slice's first n-tile
   const int ns = min(snt, p - nts);                        // and its n-tiles
   const int wsc = 4 * snt;                                 // complex columns a W row
   const int nch = (p + KC - 1) / KC;                       // K chunks
-  const int npieces = 8 * nch;
-  const int y0 = blockIdx.y * TY, x0 = (blockIdx.x / nsl) * TX;
+  const int npd = 8 / split, d0 = rank * npd;              // this block's offsets
+  const int npieces = nch * npd;
+  const int y0 = blockIdx.y * TY, x0 = (tile_slice / nsl) * TX;
   const int SW = PC + 2;
   stack += blockIdx.z * ((size_t)(PR + 2) * SW * K2);
   out += blockIdx.z * ((size_t)PR * PC * K);
   const int tid = threadIdx.x;
 
-  // piece P = (chunk P / 8, offset P % 8): its W rows, and with offset 0
-  // the chunk's halo
+  // piece P = (chunk P / npd, offset d0 + P % npd): its W rows, and with
+  // the block's first offset the chunk's halo; one commit group a piece
   auto issue = [&](int P) {
-    const int c = P / 8, d = P % 8;
-    const int kc = min(KC, p - KC * c);
-    if (d == 0) {
-      float* h = halo_buf + (c % 2) * WH_FLOATS;
-      const int per = 2 * kc;                              // float4s a parent
-      for (int i = tid; i < HY * HX * per; i += THREADS) {
-        const int par = i / per, v = i - par * per;
-        const int gy = y0 + par / HX, gx = x0 + par % HX;
-        const bool in = gy < PR + 2 && gx < SW;
-        const float* src = in ? stack + ((size_t)gy * SW + gx) * K2 + 32 * c + 4 * v
-                              : stack;
-        cp16(h + par * WH_PITCH + 4 * v, src, in);
+    if (P < npieces) {
+      const int c = P / npd, d = d0 + P % npd;
+      const int kc = min(KC, p - KC * c);
+      if (d == d0) {
+        float* h = halo_buf + (c % NSTG) * WH_FLOATS;
+        const int per = 2 * kc;                            // float4s a parent
+        for (int i = tid; i < HY * HX * per; i += THREADS) {
+          const int par = i / per, v = i - par * per;
+          const int gy = y0 + par / HX, gx = x0 + par % HX;
+          const bool in = gy < PR + 2 && gx < SW;
+          const float* src = in ? stack + ((size_t)gy * SW + gx) * K2 + 32 * c + 4 * v
+                                : stack;
+          cp16(h + par * WH_PITCH + 4 * v, src, in);
+        }
       }
-    }
-    float* w = w_buf + (P % 2) * WW_FLOATS;
-    const int rows = 4 * kc, per = 4 * ns;                 // float4s a row
-    for (int i = tid; i < rows * per; i += THREADS) {
-      const int r = i / per, v = i - r * per;
-      const float* src = wsplit + (((size_t)d * K + 16 * c + r) * K + 4 * nts + v) * 4;
-      cp16(w + (r * wsc + v) * 4, src, true);
+      float* w = w_buf + (P % NSTG) * WW_FLOATS;
+      const int rows = 4 * kc, per = 4 * ns;               // float4s a row
+      for (int i = tid; i < rows * per; i += THREADS) {
+        const int r = i / per, v = i - r * per;
+        const float* src = wsplit + (((size_t)d * K + 16 * c + r) * K + 4 * nts + v) * 4;
+        cp16(w + (r * wsc + v) * 4, src, true);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
@@ -333,20 +383,17 @@ m2l_wide_kernel(const float* __restrict__ stack, const float* __restrict__ wspli
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  issue(0);
+#pragma unroll
+  for (int P = 0; P < NSTG - 1; ++P) issue(P);
   for (int P = 0; P < npieces; ++P) {
-    if (P + 1 < npieces) {
-      issue(P + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    const int c = P / 8, d = P % 8;
+    issue(P + NSTG - 1);           // into piece P - 1's stage, freed below
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(NSTG - 1) : "memory");
+    __syncthreads();               // piece P has landed for every thread
+    const int c = P / npd, d = d0 + P % npd;
     const int kc = min(KC, p - KC * c);
     const int r = d < 4 ? d : d + 1;
     const int Dy = r / 3 - 1, Dx = r % 3 - 1;
-    const float* h0 = halo_buf + (c % 2) * WH_FLOATS +
+    const float* h0 = halo_buf + (c % NSTG) * WH_FLOATS +
                       ((2 * mt + 1 + Dy) * HX + (g + 1 + Dx)) * WH_PITCH + t;
     const float* h1 = h0 + HX * WH_PITCH;
     tf32x3::FragA fa[KC];
@@ -354,7 +401,7 @@ m2l_wide_kernel(const float* __restrict__ stack, const float* __restrict__ wspli
     for (int i = 0; i < KC; ++i)
       if (i < kc)
         fa[i] = tf32x3::split_a(h0[8 * i], h1[8 * i], h0[8 * i + 4], h1[8 * i + 4]);
-    const float* wp = w_buf + (P % 2) * WW_FLOATS + b_off;
+    const float* wp = w_buf + (P % NSTG) * WW_FLOATS + b_off;
 #pragma unroll
     for (int jg = 0; jg < 16; jg += 4) {
       if (jg < ntn) {
@@ -381,24 +428,118 @@ m2l_wide_kernel(const float* __restrict__ stack, const float* __restrict__ wspli
             for (int e = 0; e < 4; ++e) acc[jg + jj][e] += part[jj][e];
       }
     }
-    __syncthreads();                                       // buffers P % 2 free
+    __syncthreads();               // stage P % NSTG is free
   }
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int ty = y0 + 2 * mt + hr, tx = x0 + g;
-    if (ty >= PR || tx >= PC) continue;
-    float2* o = out + ((size_t)ty * PC + tx) * K + t;
+  // c0, c1 of n-tile j are the complex coefficient 4 (nts + nt_off + j) + t
+  // of parent rows 2mt (c0) and 2mt + 1 (c2, c3 as its pair)
+  auto store = [&](int j, float4 v) {
+    const int col = 4 * (nts + nt_off + j) + t;
+    const int ty = y0 + 2 * mt, tx = x0 + g;
+    if (tx >= PC) return;
+    if (ty < PR) out[((size_t)ty * PC + tx) * K + col] = make_float2(v.x, v.y);
+    if (ty + 1 < PR) out[((size_t)(ty + 1) * PC + tx) * K + col] = make_float2(v.z, v.w);
+  };
+  if constexpr (!CLUSTER) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      if (j < ntn) o[4 * (nts + nt_off + j)] = make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
+      if (j < ntn) store(j, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
+    return;
   }
+  // The cluster's partial tiles, one a block in its own shared memory (the
+  // ring is drained and free): rank r sums n-tiles j = r, r + split, ... of
+  // every thread's fragment over the ranks' partials in rank order, read
+  // through distributed shared memory, and stores them.
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  float4* partial = reinterpret_cast<float4*>(smem4);      // 16 x THREADS
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < ntn) partial[j * THREADS + tid] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int j = rank; j < ntn; j += split) {
+    float4 s = *cluster.map_shared_rank(partial + j * THREADS + tid, 0);
+    for (int rk = 1; rk < split; ++rk) {
+      const float4 v = *cluster.map_shared_rank(partial + j * THREADS + tid, rk);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    store(j, s);
+  }
+  cluster.sync();                                          // partials read: blocks may leave
 }
 
-// Column slices of at most W_NT n-tiles, as even as p allows.
-void wide_slices(int p, int& nsl, int& snt) {
-  nsl = (p + W_NT - 1) / W_NT;
-  snt = (p + nsl - 1) / nsl;
+// The wide form's launch on one (PR, PC) grid at order p, the same for
+// every stack of a batch (kernels/m2l.py:wide_launch_config): column slices
+// of at most W_NT n-tiles, as even as p allows; the offsets split over the
+// most of 2, 4 or 8 blocks a cluster that keeps the grid within WIDE_SMS
+// blocks (one wave: a split block holds its SM alone), on WIDE_DEEP
+// stages; a grid of more than WIDE_SMS / 2 tiles x slices runs split 1 on
+// two stages.  At split 8 the slices narrow, to as many as ceil(p / 8)
+// (about 8 n-tiles, 4 a warp), while the blocks stay within WIDE_SMS.
+struct WideConfig {
+  int nsl, snt, split, smem;
+};
+
+// The launch at order p in about nsl column slices (as even as p allows,
+// none left empty) and the given split.
+WideConfig slice_config(int p, int nsl, int split) {
+  WideConfig c;
+  c.snt = (p + nsl - 1) / nsl;
+  c.nsl = (p + c.snt - 1) / c.snt;
+  c.split = split;
+  c.smem = (split == 1 ? 2 : WIDE_DEEP) * WIDE_STAGE;
+  return c;
+}
+
+WideConfig wide_config(int PR, int PC, int p) {
+  int nsl = (p + W_NT - 1) / W_NT;
+  const long long tiles = (long long)((PR + TY - 1) / TY) * ((PC + TX - 1) / TX);
+  int split = 1;
+  for (int s = 2; s <= 8; s *= 2)
+    if (tiles * nsl * s <= WIDE_SMS) split = s;
+  if (split == 8) {
+    const long long fit = WIDE_SMS / (tiles * 8);            // slices within the card
+    const int narrow = (int)(fit < (p + 7) / 8 ? fit : (p + 7) / 8);
+    if (narrow > nsl) nsl = narrow;
+  }
+  return slice_config(p, nsl, split);
+}
+
+template <bool CLUSTER>
+int launch_wide(const void* stack, const void* W, void* out, int batch, int PR, int PC,
+                int p, const WideConfig& c, cudaStream_t stream) {
+  auto kernel = m2l_wide_kernel<CLUSTER>;
+  const long long gx = (long long)((PC + TX - 1) / TX) * c.nsl * c.split;
+  if (gx > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       c.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)gx, (PR + TY - 1) / TY, batch);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = c.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = c.split > 1;                              // split 1: a plain launch
+  e = cudaLaunchKernelEx(&cfg, kernel, (const float*)stack, (const float*)W, (float2*)out,
+                         PR, PC, p, c.nsl, c.snt, c.split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int run_wide(const void* stack, const void* W, void* out, int batch, int PR, int PC, int p,
+             const WideConfig& c, cudaStream_t stream) {
+  return (c.split > 1 ? launch_wide<true> : launch_wide<false>)(stack, W, out, batch, PR,
+                                                                  PC, p, c, stream);
 }
 
 template <int NTW, int JG>
@@ -416,11 +557,23 @@ int launch(const void* stack, const void* wsplit, void* out, int batch, int PR, 
 
 }  // namespace
 
-// Dynamic shared memory the kernel needs at order p (the same for every
-// p past MAX_P), or -1 for p < 1.
+// Dynamic shared memory the kernel needs at order p on a grid that fills
+// the card (past MAX_P: the wide form at split 1, m2l_wide_config for a
+// given grid), or -1 for p < 1.
 extern "C" int m2l_smem_bytes(int p) {
   if (p < 1) return -1;
   return p > MAX_P ? WIDE_SMEM : smem_bytes(p);
+}
+
+// The wide form's launch on a (PR, PC) grid at order p > MAX_P: column
+// slices, cluster split and shared memory; returns 0, or -1 for p <= MAX_P.
+extern "C" int m2l_wide_config(int PR, int PC, int p, int* slices, int* split, int* smem) {
+  if (p <= MAX_P || PR < 1 || PC < 1) return -1;
+  const WideConfig c = wide_config(PR, PC, p);
+  *slices = c.nsl;
+  *split = c.split;
+  *smem = c.smem;
+  return 0;
 }
 
 // W is the split operator W_split (8, 4p, 4p, 4) f32; batch: the stacks on
@@ -432,17 +585,7 @@ extern "C" int m2l_launch(const void* stack, const void* W, void* out, int batch
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (p > MAX_P) {
-    int nsl, snt;
-    wide_slices(p, nsl, snt);
-    const long long gx = (long long)((PC + TX - 1) / TX) * nsl;
-    if (gx > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = cudaFuncSetAttribute(
-        m2l_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)gx, (PR + TY - 1) / TY, batch);
-    m2l_wide_kernel<<<grid, THREADS, WIDE_SMEM, st>>>(
-        (const float*)stack, (const float*)W, (float2*)out, PR, PC, p, nsl, snt);
-    return (int)cudaGetLastError();
+    return run_wide(stack, W, out, batch, PR, PC, p, wide_config(PR, PC, p), st);
   }
   const int half = (p + 1) / 2;
   if (half <= 4) return launch<4, 4>(stack, W, out, batch, PR, PC, p, st);

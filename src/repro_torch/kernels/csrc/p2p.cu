@@ -49,17 +49,37 @@
 // the same code with them at run time.
 // - Past 256 source or target slots a tag's 8 bits no longer hold the slot,
 //   and a halo tile's records stop fitting shared memory (a 2 x 2 tile holds
-//   about 640 slots).  There p2p_stream_kernel takes over: one block a
-//   target box and pass of 256 of its target slots (gridDim.z = batch x
-//   passes), one target a thread, and the live sources of its 3 x 3
-//   neighbourhood streamed through shared memory in chunks of 1024 records,
-//   each chunk packed by the same mask scan; the sums stay in registers and
-//   each thread writes its own output slot, zero where the target is dead.
-//   A block whose threads hold no live target stages nothing.  Each
-//   neighbour box's mask is read by 9 blocks a pass, and so are the live
-//   sources.  Built without fast math, so expf, logf and the
-// division are the IEEE-accurate forms; each sum visits its sources in
-// stencil order (neighbour rows, boxes, slots).
+//   about 640 slots).  There p2p_stream_kernel takes over: one target box and
+//   pass of 256 of its target slots (gridDim.z = batch x passes) a block of
+//   256 threads, or a cluster of `split` such blocks.  A block first packs
+//   the pass's live targets by a scan of their mask, one a thread, so that
+//   they fill the first warps and a warp past the live count sits out.  The
+//   neighbourhood's 9 s source slots, in stencil order, are cut into
+//   `split` equal parts; rank r streams its part's live sources through
+//   shared memory in chunks of 1024 records, each chunk packed by one block
+//   scan of the mask (4 consecutive slots a thread, so the records keep
+//   stencil order).  Two targets a thread (128-thread blocks) measured
+//   slower: the pair term's branch keeps a thread's two sums from
+//   overlapping.
+//   One block a box and pass, each thread summing all 9 s sources in one
+//   dependent chain, left the service's small grids on 128 blocks, an
+//   eighth of the card's threads (0.484 ms at 8 x 8 boxes of 512 slots,
+//   1.812 at 4 x 4 of 2048, on an H100).  So a grid of fewer than 2 x 132
+//   boxes x passes runs split 9, one neighbour box a block: a cluster past
+//   the portable 8 (cudaFuncAttributeNonPortableClusterSizeAllowed), since
+//   a cluster of 3 (a neighbour row a block) leaves each chain 3x longer
+//   and ran up to 1.5x slower (tools/range_forms.py --sweep).  A larger
+//   grid runs split 1.  The split is chosen from the grid's shape alone
+//   (stream_split, mirrored by kernels/p2p.py:stream_launch_config).  In a
+//   cluster each rank writes its partial sums of the pass's 256 slots, zero
+//   at dead targets, to its own shared memory; after a cluster barrier rank
+//   r adds slots r * ceil(256 / split) .. over the ranks' partials in rank
+//   order, read through distributed shared memory, and writes them; a
+//   second barrier keeps the partials alive until all are read.  No
+//   atomics: two launches, and a grid alone or in a batch, are bit for bit
+//   equal.  A cluster whose targets are all dead stages nothing.  Built
+//   without fast math, so expf, logf and the division are the IEEE-accurate
+//   forms.
 //
 // Batch: B independent grids of these shapes, stacked on a leading axis,
 // run in one launch with B on gridDim.z; block z offsets every pointer by
@@ -70,15 +90,21 @@
 // mask uint8 (same), 8-byte aligned, and so is every slice at s = 8, where
 // a box's mask is one 8-byte word; zt complex64 and mt uint8
 // (B, rows, cols, st); out complex64 (B, rows, cols, st[, 2]).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_WARPS = 32;
 constexpr int TILE_SLOTS = 256;   // kernels/p2p.py:TILE_SLOTS; a tag keeps the slot in 8 bits
-constexpr int STREAM_THREADS = 256;   // kernels/p2p.py:STREAM_THREADS
-constexpr int STREAM_RECORDS = 1024;  // source records a chunk: 4 a thread
+constexpr int STREAM_THREADS = 256;   // kernels/p2p.py:STREAM_THREADS; target slots a pass
+constexpr int STREAM_RAW = 4;         // raw source slots a thread packs a chunk
+constexpr int STREAM_RECORDS = STREAM_THREADS * STREAM_RAW;  // source records a chunk
+constexpr int STREAM_SPLIT = 9;       // kernels/p2p.py:STREAM_SPLIT: a box a block
+constexpr int STREAM_SMS = CARD_SMS;  // kernels/_build.py:SMS, by nvcc -D
 
 // Shared memory of a TY x TX tile with s source slots, st target slots and
 // nout channels: live-source records sized for every slot live, the output
@@ -92,9 +118,9 @@ constexpr int smem_bytes(int ty, int tx, int s, int st, int nout) {
 
 constexpr int round32(int n) { return (n + 31) / 32 * 32; }
 
-// Shared memory of p2p_stream_kernel: a chunk of records and the warp sums
-// (kernels/p2p.py:STREAM_SMEM).
-constexpr int STREAM_SMEM = STREAM_RECORDS * 16 + MAX_WARPS * 4;
+// Shared memory of p2p_stream_kernel: a chunk of records, the packed live
+// targets of a pass and the warp sums (kernels/p2p.py:STREAM_SMEM).
+constexpr int STREAM_SMEM = STREAM_RECORDS * 16 + STREAM_THREADS * 4 + MAX_WARPS * 4;
 
 // Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
 // total gets the block's sum.  Leaves the warp sums free for the next call.
@@ -347,17 +373,26 @@ int launch(const void* z, const void* q, const void* m, const void* zt,
   return (int)cudaGetLastError();
 }
 
-// Any slot counts (the launcher sends it those past TILE_SLOTS): block
-// (blockIdx.x, blockIdx.y) owns target box (x, y) of the grid and blockIdx.z
-// = grid * passes + pass its target slots pass * STREAM_THREADS + threadIdx.x,
-// blockDim.x == STREAM_THREADS.  Sources are visited in stencil order
-// (neighbour rows, boxes, slots), as p2p_kernel visits them.
+// Any slot counts (the launcher sends it those past TILE_SLOTS): blockIdx.x
+// = box x * split + rank, blockIdx.y = box y, blockIdx.z = grid * passes +
+// pass; blockDim.x == STREAM_THREADS.  The pass's live targets among its
+// STREAM_THREADS slots are packed first (a block scan of their mask), and
+// thread i takes packed target i, so live targets fill the first warps and
+// the rest sit out.  The cluster's `split` blocks share one box and pass:
+// rank r sums the r-th of `split` equal parts of the neighbourhood's 9 s
+// source slots in stencil order (split 9: neighbour box r), and the ranks'
+// partial sums are added in rank order through distributed shared memory.
+// Within a part sources are visited in stencil order (neighbour rows,
+// boxes, slots).
+// Five blocks an SM (48 registers, no spill): at the 54 registers the
+// compiler takes unbounded only four fit, and the split grids ran slower.
 template <int NOUT, bool PASSIVE>
-__global__ void __launch_bounds__(STREAM_THREADS)
+__global__ void __launch_bounds__(STREAM_THREADS, 5)
 p2p_stream_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
                   const uint8_t* __restrict__ m, const float2* __restrict__ zt,
                   const uint8_t* __restrict__ mt, float2* __restrict__ out,
-                  int rows, int cols, int s, int st, float two_s2, int singular) {
+                  int rows, int cols, int s, int st, int split, float two_s2,
+                  int singular) {
   const int passes = (st + STREAM_THREADS - 1) / STREAM_THREADS;
   const int grid = blockIdx.z / passes, pass = blockIdx.z - grid * passes;
   const size_t src_slice = (size_t)(rows + 2) * (cols + 2) * s;
@@ -372,81 +407,166 @@ p2p_stream_kernel(const float2* __restrict__ z, const float2* __restrict__ q,
   out += grid * tgt_slice * NOUT;
   extern __shared__ float4 smem[];
   float4* rec = smem;                                          // STREAM_RECORDS
-  int* wsum = reinterpret_cast<int*>(rec + STREAM_RECORDS);    // MAX_WARPS
+  int* tslot = reinterpret_cast<int*>(rec + STREAM_RECORDS);   // STREAM_THREADS
+  int* wsum = tslot + STREAM_THREADS;                          // MAX_WARPS
 
-  const int tid = threadIdx.x, bx = blockIdx.x, by = blockIdx.y;
+  const int tid = threadIdx.x, by = blockIdx.y;
+  const int rank = blockIdx.x % split, bx = blockIdx.x / split;
   const int W = cols + 2;
-  const int nraw = 9 * s;                   // the neighbourhood's source slots
+  const int nraw = 9 * s / split, raw0 = rank * nraw;  // this block's source slots
   // this box's target slots: the passive block's, or the box's own sources
   const float2* zk_ = PASSIVE ? zt : z;
   const uint8_t* mk_ = PASSIVE ? mt : m;
   const size_t tg = PASSIVE ? ((size_t)by * cols + bx) * st
                             : ((size_t)(by + 1) * W + bx + 1) * s;
-  float2* o = out + ((size_t)by * cols + bx) * st * NOUT;
+  const int j0 = pass * STREAM_THREADS;                        // the pass's first slot
+  float2* o = out + (((size_t)by * cols + bx) * st + j0) * NOUT;
 
-  const int j = pass * STREAM_THREADS + tid;
-  const bool live = j < st && mk_[tg + j] != 0;
-  float x = 0.f, y = 0.f;
-  if (live) {
-    const float2 zk = zk_[tg + j];
-    x = zk.x;
-    y = zk.y;
-  }
+  // pack the pass's live targets
+  const bool live = j0 + tid < st && mk_[tg + j0 + tid] != 0;
+  int nlive;
+  const int k = block_excl_scan(live, wsum, nlive);
+  if (live) tslot[k] = tid;
+  __syncthreads();
+  const bool has = tid < nlive;                                // packed target tid
+  const int t = has ? tslot[tid] : 0;
+  float2 zk = make_float2(0.f, 0.f);
+  if (has) zk = zk_[tg + j0 + t];
   float acc[2 * NOUT];
 #pragma unroll
   for (int c = 0; c < 2 * NOUT; ++c) acc[c] = 0.f;
-  if (__syncthreads_or(live)) {
+  if (nlive > 0) {
     for (int r0 = 0; r0 < nraw; r0 += STREAM_RECORDS) {
-      // pack the chunk's live sources, STREAM_THREADS raw slots at a time
-      int n = 0;
-      for (int r = r0 + tid; r < r0 + STREAM_RECORDS; r += STREAM_THREADS) {
-        int on = 0;
-        float4 v;
-        if (r < nraw) {
-          const int nb = r / s, js = r - nb * s;
+      // pack the chunk's live sources: STREAM_RAW consecutive raw slots a
+      // thread, one block scan a chunk
+      const int rb = r0 + tid * STREAM_RAW;
+      int nb = (raw0 + rb) / s, js = raw0 + rb - nb * s;
+      float4 v[STREAM_RAW];
+      uint32_t bits = 0;
+      int cnt = 0;
+#pragma unroll
+      for (int i = 0; i < STREAM_RAW; ++i) {
+        if (rb + i < nraw) {
           const size_t g = ((size_t)(by + nb / 3) * W + bx + nb % 3) * s + js;
           if (m[g]) {
             const float2 zj = z[g], qj = q[g];
-            v = make_float4(zj.x, zj.y, qj.x, qj.y);
-            on = 1;
+            v[i] = make_float4(zj.x, zj.y, qj.x, qj.y);
+            bits |= 1u << i;
+            ++cnt;
           }
         }
-        int total;
-        const int k = n + block_excl_scan(on, wsum, total);
-        if (on) rec[k] = v;
-        n += total;
+        if (++js == s) {
+          js = 0;
+          ++nb;
+        }
       }
+      int total;
+      int r = block_excl_scan(cnt, wsum, total);
+#pragma unroll
+      for (int i = 0; i < STREAM_RAW; ++i)
+        if ((bits >> i) & 1) rec[r++] = v[i];
       __syncthreads();
-      if (live)
-        for (int i = 0; i < n; ++i) add_source<NOUT>(x, y, rec[i], two_s2, singular, acc);
+      if (has)
+        for (int i = 0; i < total; ++i) add_source<NOUT>(zk.x, zk.y, rec[i], two_s2, singular, acc);
       __syncthreads();                   // the chunk is free for the next
     }
   }
-  if (j < st)
+  if (split == 1) {
+    // zeros at the pass's dead slots, the sums at its live ones
+    if (j0 + tid < st && !live)
 #pragma unroll
-    for (int c = 0; c < NOUT; ++c)
-      o[(size_t)j * NOUT + c] = live ? make_float2(acc[2 * c], acc[2 * c + 1])
-                                     : make_float2(0.f, 0.f);
+      for (int c = 0; c < NOUT; ++c) o[(size_t)tid * NOUT + c] = make_float2(0.f, 0.f);
+    if (has)
+#pragma unroll
+      for (int c = 0; c < NOUT; ++c) o[(size_t)t * NOUT + c] = make_float2(acc[2 * c], acc[2 * c + 1]);
+    return;
+  }
+  // the partial sums of the pass's slots, channel-major, where the chunk
+  // was, zero at dead targets; rank r adds up slots r * per .. + per - 1
+  float* partial = reinterpret_cast<float*>(smem);             // 2 NOUT x STREAM_THREADS
+#pragma unroll
+  for (int c = 0; c < 2 * NOUT; ++c) partial[c * STREAM_THREADS + tid] = 0.f;
+  __syncthreads();
+  if (has)
+#pragma unroll
+    for (int c = 0; c < 2 * NOUT; ++c) partial[c * STREAM_THREADS + t] = acc[c];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int per = (STREAM_THREADS + split - 1) / split;
+  const int u = rank * per + tid;                              // a slot of the pass
+  if (tid < per && u < STREAM_THREADS && j0 + u < st) {
+    float sum[2 * NOUT];
+    const float* p0 = cluster.map_shared_rank(partial, 0);
+#pragma unroll
+    for (int c = 0; c < 2 * NOUT; ++c) sum[c] = p0[c * STREAM_THREADS + u];
+    for (int rk = 1; rk < split; ++rk) {
+      const float* pr = cluster.map_shared_rank(partial, rk);
+#pragma unroll
+      for (int c = 0; c < 2 * NOUT; ++c) sum[c] += pr[c * STREAM_THREADS + u];
+    }
+#pragma unroll
+    for (int c = 0; c < NOUT; ++c) o[(size_t)u * NOUT + c] = make_float2(sum[2 * c], sum[2 * c + 1]);
+  }
+  cluster.sync();                                              // partials read: blocks may leave
+}
+
+// The streaming form's cluster split on a rows x cols grid of st target
+// slots a box, the same for every grid of a batch (kernels/p2p.py:
+// stream_launch_config): STREAM_SPLIT where the boxes x passes are fewer
+// than 2 x STREAM_SMS blocks, else 1.
+int stream_split(int rows, int cols, int st) {
+  const long long blocks =
+      (long long)rows * cols * ((st + STREAM_THREADS - 1) / STREAM_THREADS);
+  return blocks < 2 * STREAM_SMS ? STREAM_SPLIT : 1;
 }
 
 template <int NOUT, bool PASSIVE>
 int launch_stream(const void* z, const void* q, const void* m, const void* zt,
                   const void* mt, void* out, int batch, int rows, int cols, int s,
-                  int st, float two_s2, int singular, cudaStream_t stream) {
-  const dim3 grid(cols, rows, batch * ((st + STREAM_THREADS - 1) / STREAM_THREADS));
-  p2p_stream_kernel<NOUT, PASSIVE><<<grid, STREAM_THREADS, STREAM_SMEM, stream>>>(
-      (const float2*)z, (const float2*)q, (const uint8_t*)m, (const float2*)zt,
-      (const uint8_t*)mt, (float2*)out, rows, cols, s, st, two_s2, singular);
+                  int st, int split, float two_s2, int singular, cudaStream_t stream) {
+  auto kernel = p2p_stream_kernel<NOUT, PASSIVE>;
+  if (split > 8) {                        // 9 neighbour boxes: past the portable 8
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cols * split, rows,
+                     batch * ((st + STREAM_THREADS - 1) / STREAM_THREADS));
+  cfg.blockDim = dim3(STREAM_THREADS);
+  cfg.dynamicSmemBytes = STREAM_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1;                                    // split 1: a plain launch
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, (const float2*)z, (const float2*)q, (const uint8_t*)m,
+      (const float2*)zt, (const uint8_t*)mt, (float2*)out, rows, cols, s, st, split,
+      two_s2, singular);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The streaming form's cluster split on a rows x cols grid with s source
+// and st target slots (kernels/p2p.py:stream_launch_config), or -1 where
+// the tiled kernel takes the launch.
+extern "C" int p2p_stream_split(int rows, int cols, int s, int st) {
+  if (rows <= 0 || cols <= 0 || s <= 0 || st <= 0) return -1;
+  return s > TILE_SLOTS || st > TILE_SLOTS ? stream_split(rows, cols, st) : -1;
+}
+
 // batch: the grids stacked on the leading axis (1 to 65535); zt, mt: passive
 // targets (batch, rows, cols, st), or both null for the sources as targets
 // (st == s); nout: 1 (vortex) or 2 (Laplace); ty x tx target boxes a block,
 // threads and smem as kernels/p2p.py's launch_config gives them (past
-// TILE_SLOTS source or target slots: 1 x 1, STREAM_THREADS, STREAM_SMEM);
+// TILE_SLOTS source or target slots: 1 x 1, STREAM_THREADS, STREAM_SMEM,
+// the cluster split from p2p_stream_split);
 // returns 0 or a cudaError_t.
 extern "C" int p2p_launch(const void* z, const void* q, const void* m,
                           const void* zt, const void* mt, void* out, int batch,
@@ -461,15 +581,16 @@ extern "C" int p2p_launch(const void* z, const void* q, const void* m,
     return (int)cudaErrorInvalidValue;
   cudaStream_t sm = (cudaStream_t)stream;
   if (s > TILE_SLOTS || st > TILE_SLOTS) {
+    const int split = stream_split(rows, cols, st);
     if (ty != 1 || tx != 1 || threads != STREAM_THREADS || smem != STREAM_SMEM ||
-        rows > 65535 ||
+        rows > 65535 || (long long)cols * split > 0x7fffffff ||
         (long long)batch * ((st + STREAM_THREADS - 1) / STREAM_THREADS) > 65535)
       return (int)cudaErrorInvalidValue;
     if (nout == 1)
       return (passive ? launch_stream<1, true> : launch_stream<1, false>)(
-          z, q, m, zt, mt, out, batch, rows, cols, s, st, two_s2, singular, sm);
+          z, q, m, zt, mt, out, batch, rows, cols, s, st, split, two_s2, singular, sm);
     return (passive ? launch_stream<2, true> : launch_stream<2, false>)(
-        z, q, m, zt, mt, out, batch, rows, cols, s, st, two_s2, singular, sm);
+        z, q, m, zt, mt, out, batch, rows, cols, s, st, split, two_s2, singular, sm);
   }
   if (ty <= 0 || tx <= 0 || threads % 32 || threads < 32 || threads > 1024 ||
       nb > (1 << 24) || smem != smem_bytes(ty, tx, s, st, nout) ||

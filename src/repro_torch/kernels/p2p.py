@@ -31,9 +31,14 @@ live target, and writes its whole output tile, zeros in the dead slots, in
 one coalesced pass.  :func:`launch_config` sizes the tile for the slot
 counts and channels.  Past ``TILE_SLOTS`` source or target slots (the
 slot tag's 8 bits; a tile's records would soon outgrow shared memory) the
-launch takes the kernel's streaming form instead: one block a target box
-and 256 of its target slots, the neighbourhood's live sources staged
-through shared memory in chunks.
+launch takes the kernel's streaming form instead: a target box and 256 of
+its target slots a block, the live targets packed one a thread, the
+neighbourhood's live sources staged through shared memory in chunks.  On a
+grid of fewer boxes x passes than twice the card's 132 SMs (the service's
+clustered jobs) each box's sources are split across a thread-block cluster
+of ``STREAM_SPLIT`` blocks, whose partial sums are added in rank order
+through distributed shared memory, one launch, bit for bit the same on
+every run (:func:`stream_launch_config`).
 
 ``p2p_plain`` is the same function in plain PyTorch, with the formula of
 the spec's ``p2p_terms``; the CPU path and the kernel's checks use it.
@@ -41,6 +46,7 @@ the spec's ``p2p_terms``; the CPU path and the kernel's checks use it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,9 +63,13 @@ MAX_BATCH = 65535   # grids a launch takes: the batch is gridDim.z
 TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
 SMEM_TARGET = 72 * 1024   # three blocks an SM
 # the streaming form past TILE_SLOTS (csrc/p2p.cu:p2p_stream_kernel): one
-# target box a block, 1024 source records a chunk and 32 warp sums
+# target box and pass of 256 target slots a cluster of STREAM_SPLIT blocks
+# (or one block), one live target a thread; shared memory for 1024 source
+# records a chunk, the pass's 256 packed target slots and 32 warp sums
 STREAM_THREADS = 256
-STREAM_SMEM = 1024 * 16 + 32 * 4
+STREAM_SMEM = 1024 * 16 + 256 * 4 + 32 * 4
+STREAM_SPLIT = 9    # blocks a cluster: the 9 neighbour boxes, one each
+SMS = _build.SMS    # the H100's streaming multiprocessors
 
 # each mode's formula: the spec whose ``p2p_terms`` it is
 MODES = {"base": VORTEX, "laplace": LAPLACE}
@@ -106,6 +116,33 @@ def launch_config(s: int, st: int | None = None,
                   fits[0])
     threads = min(MAX_THREADS, -(-(ty + 2) * (tx + 2) // 32) * 32)
     return ty, tx, threads, smem_bytes(ty, tx, s, st, nout)
+
+
+def stream_launch_config(rows: int, cols: int, s: int, st: int | None = None,
+                         nout: int = 1) -> tuple[int, int, int]:
+    """``(split, threads, smem bytes)`` of the streaming form's launch on one
+    ``rows x cols`` grid with ``s`` source and ``st`` target slots (default
+    ``s``), as ``csrc/p2p.cu:stream_split`` chooses it; the batch never
+    enters.  Boxes x passes of ``STREAM_THREADS`` target slots fewer than
+    ``2 x SMS`` split each box's sources over a cluster of ``STREAM_SPLIT``
+    blocks; more run one block a box and pass."""
+    st = s if st is None else st
+    if rows < 1 or cols < 1:
+        raise ValueError(f"a {rows} x {cols} grid: the P2P kernel takes one box or more")
+    if launch_config(s, st, nout) != (1, 1, STREAM_THREADS, STREAM_SMEM):
+        raise ValueError(f"s={s}, st={st}: the tiled kernel takes the launch")
+    blocks = rows * cols * -(-st // STREAM_THREADS)
+    split = STREAM_SPLIT if blocks < 2 * SMS else 1
+    return split, STREAM_THREADS, STREAM_SMEM
+
+
+def stream_blocks(rows: int, cols: int, s: int, st: int | None = None,
+                  nout: int = 1) -> int:
+    """Blocks of the streaming form's launch on one ``rows x cols`` grid:
+    boxes x passes x split (:func:`stream_launch_config`)."""
+    st = s if st is None else st
+    return rows * cols * -(-st // STREAM_THREADS) * stream_launch_config(
+        rows, cols, s, st, nout)[0]
 
 
 def p2p_plain(z_halo: torch.Tensor, q_halo: torch.Tensor,
@@ -158,6 +195,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, i, i, vp]
         fn.restype = i
+        lib.p2p_stream_split.argtypes = [i, i, i, i]
+        lib.p2p_stream_split.restype = i
     return lib
 
 
@@ -173,6 +212,17 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+@functools.lru_cache(maxsize=None)
+def _check_stream_split(rows: int, cols: int, s: int, st: int, nout: int) -> None:
+    """Raise unless the kernel's streaming launch on this grid splits as
+    :func:`stream_launch_config` does (checked once a grid shape)."""
+    split = _lib().p2p_stream_split(rows, cols, s, st)
+    want = stream_launch_config(rows, cols, s, st, nout)[0]
+    if split != want:
+        raise ValueError(f"{rows} x {cols} boxes of {st} target slots: the kernel "
+                         f"splits {split}, kernels/p2p.py:stream_launch_config {want}")
 
 
 def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
@@ -213,10 +263,12 @@ def p2p_cuda(z_halo: torch.Tensor, q_halo: torch.Tensor,
                          f"apart: the s = 8 kernel needs a multiple of 8")
     nout = MODES[mode].nout
     ty, tx, threads, smem = launch_config(s, st, nout)
-    if max(s, st) > TILE_SLOTS and batch * -(-st // STREAM_THREADS) > MAX_BATCH:
-        raise ValueError(f"{batch} grids of {st} target slots: the streaming "
-                         f"form takes at most {MAX_BATCH} grids x passes of "
-                         f"{STREAM_THREADS}")
+    if max(s, st) > TILE_SLOTS:
+        if batch * -(-st // STREAM_THREADS) > MAX_BATCH:
+            raise ValueError(f"{batch} grids of {st} target slots: the streaming "
+                             f"form takes at most {MAX_BATCH} grids x passes of "
+                             f"{STREAM_THREADS}")
+        _check_stream_split(rows, cols, s, st, nout)
     out = torch.empty(lead + (rows, cols, st) + ((nout,) if nout > 1 else ()),
                       dtype=torch.complex64, device=z_halo.device)
     singular = sigma is None

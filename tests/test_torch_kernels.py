@@ -7,6 +7,7 @@ plain versions are held to ``fmm.p2p_slab_reference``/``ref.p2p_ref`` and
 rel 1e-5.  The ``gpu`` cases decide inside the test whether a card exists;
 they import no jax, so ``pytest -m gpu`` runs them where jax is absent.
 """
+import inspect
 from types import SimpleNamespace
 
 import numpy as np
@@ -348,8 +349,8 @@ WIDE_ORDERS = (33, 37, 40, 41, 63, 64, 65, 97)
 def test_p2p_launch_fits_a_hopper_block_past_the_tile_slots(s):
     """Past ``TILE_SLOTS`` source or target slots, in every mode, the launch
     is the streaming form's: one 256-thread block a target box whose shared
-    memory holds a chunk of 1024 source records and the scan's warp sums,
-    whatever the slot counts."""
+    memory holds a chunk of 1024 source records, a pass's 256 packed target
+    slots and the scan's warp sums, whatever the slot counts."""
     for st, nout in ((s, 1), (s, 2), (4, 1), (4, 2), (s // 2, 2)):
         for src_slots in (s, 8):
             if max(src_slots, st) <= p2p.TILE_SLOTS:
@@ -358,7 +359,7 @@ def test_p2p_launch_fits_a_hopper_block_past_the_tile_slots(s):
             assert (ty, tx) == (1, 1)
             assert threads == p2p.STREAM_THREADS and threads % 32 == 0
             assert threads <= p2p.MAX_THREADS
-            assert smem == p2p.STREAM_SMEM == 1024 * 16 + 32 * 4 <= p2p.MAX_SMEM
+            assert smem == p2p.STREAM_SMEM == 1024 * 16 + 256 * 4 + 32 * 4 <= p2p.MAX_SMEM
 
 
 @pytest.mark.parametrize("p", WIDE_ORDERS)
@@ -375,6 +376,71 @@ def test_m2l_launch_fits_a_hopper_block_past_the_tile_order(p):
         m2l.smem_bytes(m2l.TILE_P) == 202_456 <= m2l.MAX_SMEM
     with pytest.raises(ValueError, match="p >= 1"):
         m2l.smem_bytes(0)
+
+
+# (PR, PC) parents: one tile (the p = 40 job's leaf stack), a ragged 2 x 2
+# tiles, ragged 4 x 4, 5 x 5 and 8 x 8 tiles (split 4, 2 and 1 at p <= 64),
+# and grids of 132 tiles and more (ragged, and the p = 40 job at 128 x 128
+# parents)
+WIDE_GRIDS = ((8, 8), (13, 11), (32, 30), (40, 38), (64, 62), (93, 85), (128, 128))
+
+
+@pytest.mark.parametrize("PR,PC", WIDE_GRIDS)
+@pytest.mark.parametrize("p", WIDE_ORDERS)
+def test_m2l_wide_launch_config_splits_only_grids_short_of_the_card(p, PR, PC):
+    """The wide form's cluster split: the most of 2, 4, 8 blocks that keeps
+    tiles x slices of 32 n-tiles within one wave of the card's 132 SMs (a
+    divisor of the 8 offsets), else 1, with slices narrowed to as few as 8
+    n-tiles at split 8; shared memory within one Hopper block at every
+    split, holding the partial tile the cluster adds up; chosen from one
+    grid's shape, never from the batch."""
+    slices, split, smem = m2l.wide_launch_config(PR, PC, p)
+    snt = -(-p // slices)                       # n-tiles a slice
+    assert snt <= 32 and (slices - 1) * snt < p  # no slice left empty
+    tiles, wide = -(-PR // 8) * -(-PC // 8), -(-p // 32)
+    blocks = tiles * wide
+    assert split in m2l.WIDE_SPLITS and 8 % split == 0
+    if 2 * blocks > m2l.SMS:
+        assert (slices, split, smem) == (wide, 1, m2l.WIDE_SMEM)
+    else:
+        assert split > 1 and blocks * split <= m2l.SMS
+        assert split == 8 or 2 * blocks * split > m2l.SMS
+        assert smem == m2l.WIDE_DEEP * m2l.WIDE_STAGE
+        if slices > wide:                       # narrower slices fill the card
+            assert split == 8 and tiles * slices * split <= m2l.SMS
+            assert slices <= -(-p // 8)
+    assert 16 * m2l.THREADS * 16 <= smem <= m2l.MAX_SMEM   # the partial tile fits
+    assert m2l.wide_blocks(PR, PC, p) == tiles * slices * split
+    assert list(inspect.signature(m2l.wide_launch_config).parameters) == ["PR", "PC", "p"]
+    with pytest.raises(ValueError, match="wide form"):
+        m2l.wide_launch_config(PR, PC, m2l.TILE_P)
+
+
+# (rows, cols): the service's clustered bucket (8 x 8), a ragged few boxes,
+# and grids whose boxes x passes fill the card twice over
+STREAM_GRIDS = ((8, 8), (3, 4), (4, 4), (12, 12), (32, 32))
+
+
+@pytest.mark.parametrize("rows,cols", STREAM_GRIDS)
+@pytest.mark.parametrize("s", WIDE_SLOTS)
+def test_p2p_stream_launch_config_splits_only_grids_short_of_the_card(s, rows, cols):
+    """The streaming form's cluster split, in every mode: 1 once boxes x
+    passes of 256 target slots reach 2 x 132 blocks, else ``STREAM_SPLIT``
+    blocks (a divisor of the 9 neighbour boxes); the partial sums fit where
+    the chunk of source records was, within one Hopper block; chosen from
+    one grid's shape, never from the batch."""
+    for st, nout in ((s, 1), (s, 2), (300, 2), (4, 1)):
+        split, threads, smem = p2p.stream_launch_config(rows, cols, s, st, nout)
+        blocks = rows * cols * -(-st // p2p.STREAM_THREADS)
+        assert split == (1 if blocks >= 2 * p2p.SMS else p2p.STREAM_SPLIT)
+        assert 9 % split == 0
+        assert (threads, smem) == (p2p.STREAM_THREADS, p2p.STREAM_SMEM)
+        assert 2 * nout * threads * 4 <= 1024 * 16 <= smem <= p2p.MAX_SMEM
+        assert p2p.stream_blocks(rows, cols, s, st, nout) == blocks * split
+    assert list(inspect.signature(p2p.stream_launch_config).parameters) == [
+        "rows", "cols", "s", "st", "nout"]
+    with pytest.raises(ValueError, match="tiled kernel"):
+        p2p.stream_launch_config(rows, cols, 8, 8, 1)
 
 
 @pytest.mark.parametrize("mode,passive", NEW_MODES)
@@ -476,14 +542,21 @@ def test_p2p_kernel_matches_plain_above_the_first_slot_limit(cuda, s, mode, pass
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [512, 2048])
+@pytest.mark.parametrize("s", WIDE_SLOTS)
 @pytest.mark.parametrize("mode,passive", [("base", False), ("laplace", True)])
-def test_p2p_kernel_matches_plain_past_the_tile_slots(cuda, s, mode, passive):
-    """The streaming form at the FMM service's clustered bucket (512 slots)
+@pytest.mark.parametrize("grid", ["small", "large"])
+def test_p2p_kernel_matches_plain_past_the_tile_slots(cuda, s, mode, passive, grid):
+    """The streaming form one slot past the tiled kernel's (a second pass of
+    one target slot), at the FMM service's clustered bucket (512 slots)
     and at 2048, at the sources and as Laplace at passive targets: holes in
-    the masks, live ghost rows and columns, masked targets exactly 0."""
-    ny, nx = (3, 4) if s == 512 else (2, 3)
+    the masks, live ghost rows and columns, masked targets exactly 0; a
+    few boxes split over a cluster, 12 x 12 boxes (288 blocks) at split 1.
+    Two launches are bit for bit equal, and so is each grid of a batch of
+    two to its own launch."""
+    ny, nx = {"small": (3, 4) if s == 512 else (2, 3), "large": (12, 12)}[grid]
     st = s if not passive else 300
+    split = p2p.stream_launch_config(ny, nx, s, st, NOUT[mode])[0]
+    assert split == (p2p.STREAM_SPLIT if grid == "small" else 1)
     zh, qh, mh, zt, mt = _mode_inputs(ny, nx, s, st, passive, s + ny, cuda)
     key = mode + ("_passive" if passive else "")
     before, streamed = p2p.LAUNCHES_BY_MODE[key], p2p.STREAM_LAUNCHES
@@ -496,6 +569,13 @@ def test_p2p_kernel_matches_plain_past_the_tile_slots(cuda, s, mode, passive):
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
     assert bool((got[~live] == 0).all())
     assert _rel(got.cpu(), want.cpu()) < 1e-5
+    assert torch.equal(got, p2p.p2p_cuda(zh, qh, mh, 0.05, zt, mt, mode))
+    batch = _stacked_mode_inputs(2, ny, nx, s, st, passive, s + ny, cuda)
+    items = [p2p.p2p_cuda(*(None if a is None else a[b].clone() for a in batch[:3]),
+                          0.05, *(None if a is None else a[b].clone() for a in batch[3:]),
+                          mode) for b in range(2)]
+    assert torch.equal(p2p.p2p_cuda(*batch[:3], 0.05, *batch[3:], mode),
+                       torch.stack(items))
 
 
 # ---------------------------------------------------------------------------
@@ -556,25 +636,36 @@ def test_m2l_kernel_matches_plain(cuda, PR, PC, p):
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", WIDE_ORDERS)
 @pytest.mark.parametrize("B", [None, 4])
-def test_m2l_kernel_matches_plain_past_the_tile_order(cuda, p, B):
+# (PR, PC, the split at 2, 3 and 4 slices of 32 n-tiles: p 33-64, 65-96,
+# 97-128): 2 x 2 tiles at the largest split, 4 x 4 and 5 x 5 at 4 and 2
+# where p <= 64, 132 tiles at split 1
+@pytest.mark.parametrize("PR,PC,splits", [(13, 11, (8, 8, 8)), (32, 30, (4, 2, 2)),
+                                          (40, 38, (2, 1, 1)), (93, 85, (1, 1, 1))])
+def test_m2l_kernel_matches_plain_past_the_tile_order(cuda, p, B, PR, PC, splits):
     """The wide form (column slices, K in chunks) on a ragged stack, alone
-    and as a batch of 4: rel 1e-5 against the plain version, one launch."""
-    rng = np.random.default_rng(p + (B or 0))
+    and as a batch of 4: rel 1e-5 against the plain version, one launch, at
+    every cluster split.  Two launches are bit for bit equal, and so is a
+    stack of the batch to its own launch."""
+    rng = np.random.default_rng(p + (B or 0) + (PR != 13) * PR)
     K = 4 * p
-    shape = ((B,) if B else ()) + (13 + 2, 11 + 2, K)
+    shape = ((B,) if B else ()) + (PR + 2, PC + 2, K)
     stack = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
                             dtype=torch.complex64, device=cuda)
     W = ops.folded_operator(VORTEX, p, 5, cuda)
+    assert m2l.wide_launch_config(PR, PC, p)[1] == splits[-(-p // 32) - 2]
     before, wide = m2l.LAUNCHES, m2l.WIDE_LAUNCHES
     got = m2l.m2l_cuda(stack, W)
     torch.cuda.synchronize()
     assert (m2l.LAUNCHES, m2l.WIDE_LAUNCHES) == (before + 1, wide + 1)
     assert m2l.smem_bytes(p) == m2l._lib().m2l_smem_bytes(p)
-    assert got.shape == shape[:-3] + (13, 11, K)
+    assert got.shape == shape[:-3] + (PR, PC, K)
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
     assert _rel(got.cpu(), m2l.m2l_plain(stack, W).cpu()) < 1e-5
+    assert torch.equal(got, m2l.m2l_cuda(stack, W))
     if B:
         assert torch.equal(got[1], m2l.m2l_cuda(stack[1].clone(), W))
+        assert torch.equal(got, torch.stack([m2l.m2l_cuda(stack[b].clone(), W)
+                                             for b in range(B)]))
 
 
 @pytest.mark.gpu
