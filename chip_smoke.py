@@ -141,25 +141,30 @@ Phases, each printing one JSON line:
               shape, at recurrentgemma-2b's attention in f32 through
               ``ops.flash_attention`` (its d = 256 main path: one ``tf32``
               launch and no other), ragged T = S (77, 1000, 2079), T < S,
-              T > S, non-causal, Hkv 1, d 64 and 256 and T = 1; the SIMT
-              kernel itself at f32 d = 32 (timed beside SDPA: its served
-              shape), there through ``ops.flash_attention`` (its main path,
-              a head dim only it takes: one ``simt`` launch and no other),
-              at recurrentgemma-2b's attention in f32 (timed: its time
-              before the 3xTF32 route took d = 256), and the
-              d = 256 attention in bf16, f32 at d 64 and a bf16 d = 40
-              case.  Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
-              rounding alone is 2e-3, the tensor-core kernel's bf16 P about
+              T > S, non-causal, Hkv 1, d 64 and 256 and T = 1; the simt
+              route's kernel (``mma.sync`` tensor cores, 3xTF32 in f32) at
+              every ``SIMT_CASES`` entry: f32 d = 32 (timed beside SDPA:
+              its served shape, a cluster split of 6), there through
+              ``ops.flash_attention`` (its main path, a head dim only it
+              takes: one ``simt`` launch and no other), recurrentgemma-2b's
+              attention on the kernel itself in f32 and bf16 (timed),
+              Phi-3-mini's attention (4, 32, 32, 2048, 96) causal through
+              ``ops.flash_attention`` on the model's (B, T, H, d) views in
+              bf16 and f32 (timed), every head-dim class (8, 16, 24, 40,
+              96, 200) in both dtypes, and one q tile over 1 to 8 key
+              tiles (cluster splits 1 to 8); each call exactly one
+              ``simt`` launch and a second launch bit for bit the first.
+              Rel L2 gates 1e-5 (f32) and 5e-3 (bf16: output
+              rounding alone is 2e-3, the tensor-core kernels' bf16 P about
               2e-3).  At the timed shapes: kernel, plain, bound and SDPA
               (yardstick) milliseconds; the tensor-core routes also on the
               model's strided views (gated as the contiguous inputs are),
-              and the SIMT kernel on the same inputs (its time before the
-              tensor-core routes);
+              and the simt kernel on the same inputs;
 8. serve    — Yi-6B at full width (random weights from a seeded generator)
               behind ``ServeEngine.step_all``: 4 prompts of 2048 tokens, 32
               greedy tokens each.  Gates: every logit finite; exactly 32
               tensor-core flash launches inside ``step_all`` (one per layer
-              in prefill, none in decode) and no SIMT launch; the logits
+              in prefill, none in decode) and no simt launch; the logits
               that chose the last token within 2e-2 rel L2 of a
               teacher-forced ``forward`` over prompt + generated[:-1] on the
               card.  Prints prefill ms, decode ms per step, tokens per
@@ -171,7 +176,7 @@ Phases, each printing one JSON line:
               7 checks and times.  Gates: every logit finite, exactly 2
               3xTF32 launches inside ``step_all`` and no other flash launch,
               decode within 2e-2 of teacher-forced.  After the counted run,
-              one prefill is timed on the 3xTF32 route and on the SIMT
+              one prefill is timed on the 3xTF32 route and on the simt
               kernel, alternately (``prefill_ms_by_route``).
 
 The launch counters are zeroed right before each main path (phase 3 for
@@ -183,7 +188,7 @@ sharded stepper's steps, on each rank of phase 4d around each step, the
 drain of phase fmm_serve_wide, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
 kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
-kernels at d = 256 and its f32 d = 32 call for the SIMT one) and read
+kernels at d = 256 and its f32 d = 32 call for the simt one) and read
 right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
@@ -281,13 +286,18 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 # 10 heads, 1 KV head, head dim 256, local window 2048, so plain causal at
 # 4 x 2048 tokens; the port's full-width head dim 256
 RG_ATTN = (4, 10, 1, 2048, 2048, 256, True)
+# Phi-3-mini (arXiv:2404.14219, config.json: hidden 3072, 32 heads, 32 KV
+# heads, so head dim 96) at 4 x 2048 tokens, causal: a head dim only the simt
+# route takes; a kernel case, no configuration of the repo
+PHI3_ATTN = (4, 32, 32, 2048, 2048, 96, True)
 # (B, H, Hkv, T, S, d, causal, dtype); the first of each tensor-core list
 # is timed: the serve phases' prefill (Yi-6B, 4 x 2048), their main path at
 # d = 128; the second, recurrentgemma-2b's attention, is each tensor-core
-# kernel's d = 256 main path, timed too.  The SIMT kernel's second case,
-# f32 at d = 32, a head dim only it takes, is its main path, timed; its
-# first, recurrentgemma-2b's attention in f32, its time before the 3xTF32
-# route took d = 256
+# kernel's d = 256 main path, timed too.  SIMT_CASES: the simt route's
+# kernel; its first five are timed (SIMT_TIMED): f32 at d = 32, a head dim
+# only it takes, its main path; recurrentgemma-2b's attention on the kernel
+# itself in f32 and bf16; Phi-3-mini's attention through
+# ops.flash_attention in bf16 and f32
 TC_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.bfloat16),
             (*RG_ATTN, torch.bfloat16),
             (2, 4, 4, 77, 77, 256, True, torch.bfloat16),
@@ -318,11 +328,26 @@ TF32_CASES = [(4, 32, 4, 2048, 2048, 128, True, torch.float32),
               (1, 4, 2, 300, 100, 64, True, torch.float32),
               (2, 4, 4, 200, 333, 128, False, torch.float32),
               (1, 2, 2, 1, 1, 64, True, torch.float32)]
-SIMT_CASES = [(*RG_ATTN, torch.float32),
-              (1, 2, 2, 64, 192, 32, False, torch.float32),
+SIMT_CASES = [(1, 2, 2, 64, 192, 32, False, torch.float32),
+              (*RG_ATTN, torch.float32),
               (*RG_ATTN, torch.bfloat16),
+              (*PHI3_ATTN, torch.bfloat16),
+              (*PHI3_ATTN, torch.float32),
               (1, 8, 2, 1000, 1000, 64, True, torch.float32),
-              (1, 4, 2, 100, 33, 40, True, torch.bfloat16)]
+              # every head-dim class in both dtypes (Q and K padded to 32)
+              *[(*shape, dt) for dt in (torch.float32, torch.bfloat16) for shape in (
+                  (1, 2, 1, 33, 100, 8, True),        # T < S, top-left
+                  (1, 1, 1, 1, 1, 16, True),          # one token
+                  (1, 4, 2, 100, 33, 24, True),       # T > S
+                  (1, 4, 2, 100, 33, 40, True),
+                  (1, 8, 2, 1000, 1000, 96, True),    # ragged, GQA 4:1
+                  (2, 2, 1, 65, 65, 200, False))],    # not causal
+              # one q tile over s 64-key tiles: bf16 cluster splits 1 to 8
+              # (f32's 32-key tiles give 2, 4, 6 and 8)
+              *[(1, 1, 1, 64, 64 * s - 7, 32, False, dt) for s in range(1, 9)
+                for dt in (torch.float32, torch.bfloat16)]]
+SIMT_TIMED = [(*c, via) for c, via in zip(SIMT_CASES[:5],
+                                          ("kernel", "kernel", "kernel", "ops", "ops"))]
 # phase fmm_serve: the serving engine (serve/fmm_service.py) on the card
 SVC_N = 100_000                   # sources a one-shot job of waves A, C and D
 SVC_WAVE_A = 8                    # vortex one-shots: one bucket at capacity 8
@@ -1899,20 +1924,46 @@ def flash_counts() -> dict:
             "simt": flash_attn.LAUNCHES}
 
 
+def flash_bound(B, H, Hkv, T, S, d, causal, dtype) -> dict:
+    """The least time of one attention on the card: its visible pairs' QK^T
+    and PV (2 FLOP an FMA) at the dtype's tensor-core peak (f32 as three
+    TF32 passes) against q, k, v and out read or written once."""
+    ops_ = 4 * d * B * H * causal_pairs(T, S, causal)
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 * B * H * T * d + 2 * B * Hkv * S * d) * size
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound_ms(nbytes, ops_, BF16_FLOP_PER_S)
+        bound = dict(bound_ms=b_ms, bound_by=b_by,
+                     fp32_simt_bound_ms=ops_ / FP32_FLOP_PER_S * 1e3)
+    else:
+        bound = f32_product_bound(nbytes, ops_)
+    return {**bound, "ops": ops_, "bytes": nbytes}
+
+
 def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: bool,
-                main_path: bool = False):
-    """``kernel`` against the plain version; with ``main_path`` the launch
-    counters are zeroed before its first call and read after it."""
+                main_path: bool = False, views: bool = False):
+    """``kernel`` against the plain version; the call must make exactly one
+    flash launch.  With ``main_path`` the launch counters are zeroed before
+    its first call and read after it; with ``views`` q, k and v are the
+    model's ``(B, T, H, d) -> (B, H, T, d)`` views.  A simt launch is made
+    twice and must give the same bits."""
     dev = torch.device("cuda")
-    q = torch.randn((B, H, T, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dtype)
+
+    def make(h, n):
+        if views:
+            return torch.randn((B, n, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
+    q, k, v = make(H, T), make(Hkv, S), make(Hkv, S)
+    torch.cuda.synchronize()
     if main_path:
-        torch.cuda.synchronize()
         zero_flash_counts()
+    before = flash_counts()
     got = kernel(q, k, v, causal=causal)
     torch.cuda.synchronize()
     counts = flash_counts()
+    made = {r: counts[r] - before[r] for r in counts}
+    require(sum(made.values()) == 1, f"{name}: one call made flash launches {made}")
+    simt = made["simt"] == 1
     want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = rel_l2(got.float(), want.float())
@@ -1923,25 +1974,23 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     require(err <= tol, f"{name} {shape} {dtype}: rel L2 {err} > {tol}")
     row = dict(name=name, shape=shape, causal=causal, dtype=str(dtype),
                rel_l2=err, gate=tol, max_abs_err=max_abs)
+    if simt:
+        again = kernel(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        require(torch.equal(again, got), f"{name} {shape} {dtype}: a second launch differs")
+        row.update(bitwise_repeat=True, views=views,
+                   launch=flash_attn.simt_launch_config(d, dtype, (B, H, T, S, causal)))
     if main_path:
         row["launches"] = counts
     if not timed:
         return row
-    ops_ = 4 * d * B * H * causal_pairs(T, S, causal)       # QK^T and PV, 2 FLOP per FMA
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    if dtype == torch.bfloat16:
-        b_ms, b_by = bound_ms(nbytes, ops_, BF16_FLOP_PER_S)
-        bound = dict(bound_ms=b_ms, bound_by=b_by,
-                     fp32_simt_bound_ms=ops_ / FP32_FLOP_PER_S * 1e3)
-    else:
-        bound = f32_product_bound(nbytes, ops_)
+    bound = flash_bound(B, H, Hkv, T, S, d, causal, dtype)
     ke = k.repeat_interleave(H // Hkv, dim=1)                 # yardstick only
     ve = v.repeat_interleave(H // Hkv, dim=1)
     lib = F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
-    if kernel is not flash_attn.flash_attention_cuda:
+    if not simt:
         # a tensor-core route: the model's (B, T, H, d) -> (B, H, T, d)
-        # views, and the SIMT kernel on the same inputs (its time before
-        # the tensor-core routes)
+        # views, and the simt kernel on the same inputs
         qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
         got_v = kernel(qv, kv, vv, causal=causal)
         torch.cuda.synchronize()
@@ -1958,7 +2007,7 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
         ms=cuda_ms(lambda: kernel(q, k, v, causal=causal), iters=20),
         plain_ms=cuda_ms(lambda: flash_attn.flash_attention_plain(q, k, v, causal=causal),
                          iters=3, warmup=1),
-        **bound, ops=ops_, bytes=nbytes,
+        **bound,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=causal), iters=20),
         library_rel_l2=rel_l2(lib.float(), want.float()))
@@ -2431,14 +2480,14 @@ def main() -> None:
     require(TC_CASES[0][:7] == TF32_CASES[0][:7] == prefill_shape
             and (F32_BATCH, F32_PROMPT) == (SERVE_BATCH, SERVE_PROMPT),
             f"timed flash cases differ from the prefill shape {prefill_shape}")
-    require(TC_CASES[1][:7] == TF32_CASES[1][:7] == SIMT_CASES[0][:7]
-            == SIMT_CASES[2][:7] == RG_ATTN,
-            "recurrentgemma-2b's attention is not the d = 256 cases' shape")
+    require(TC_CASES[1][:7] == TF32_CASES[1][:7] == SIMT_CASES[1][:7]
+            == SIMT_CASES[2][:7] == RG_ATTN and SIMT_CASES[3][:7] == PHI3_ATTN,
+            "recurrentgemma-2b's and Phi-3-mini's attention are not the timed cases' shapes")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # through the dispatcher, counted: recurrentgemma-2b's attention, the
     # d = 256 main path of the bf16 tensor-core kernel and of the 3xTF32
-    # one, and f32 at d = 32, the SIMT kernel's; the other cases run on
+    # one, and f32 at d = 32, the simt kernel's; the other cases run on
     # each kernel itself
     tc_rows = [check_flash("flash_attn", flash_attn.flash_attention_tc, *TC_CASES[0],
                            gen=gen, timed=True),
@@ -2452,17 +2501,33 @@ def main() -> None:
                              gen=gen, timed=True, main_path=True)]
     tf32_rows += [check_flash("flash_attn_tf32", flash_attn.flash_attention_tf32, *case,
                               gen=gen, timed=False) for case in TF32_CASES[2:]]
-    # the SIMT kernel timed at its served shape (d = 32) beside SDPA, then
-    # counted there through the dispatcher; recurrentgemma-2b's shape, which
-    # the 3xTF32 route serves, is timed last beside the SIMT kernel's past
+    # the simt kernel timed at its served shape (d = 32, split 6) beside
+    # SDPA, then counted there through the dispatcher; recurrentgemma-2b's
+    # attention on the kernel itself and Phi-3-mini's through the
+    # dispatcher on the model's views, timed; the other cases untimed
     simt_rows = [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda,
-                             *SIMT_CASES[1], gen=gen, timed=True),
-                 check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[1],
-                             gen=gen, timed=False, main_path=True),
-                 check_flash("flash_attn_simt", flash_attn.flash_attention_cuda,
-                             *SIMT_CASES[0], gen=gen, timed=True)]
+                             *SIMT_CASES[0], gen=gen, timed=True),
+                 check_flash("flash_attn_simt", ops.flash_attention, *SIMT_CASES[0],
+                             gen=gen, timed=False, main_path=True)]
+    simt_rows += [check_flash("flash_attn_simt",
+                              ops.flash_attention if via == "ops" else
+                              flash_attn.flash_attention_cuda, *case[:8], gen=gen,
+                              timed=True, views=via == "ops")
+                  for case in SIMT_TIMED[1:] for via in [case[8]]]
     simt_rows += [check_flash("flash_attn_simt", flash_attn.flash_attention_cuda, *case,
-                              gen=gen, timed=False) for case in SIMT_CASES[2:]]
+                              gen=gen, timed=False) for case in SIMT_CASES[5:]]
+    # the simt launch rule's Python mirror against the library's own, at
+    # every head dim and dtype on the timed grids and at the edges of a wave
+    grids = {(B, H, T, S, causal) for B, H, _, T, S, _, causal in {c[:7] for c in SIMT_CASES}}
+    grids |= {(1, 132, 64, 4096, False), (1, 66, 64, 4096, False), (2, 33, 128, 4096, False)}
+    mirror = [(d, str(dt), g) for d in range(8, 257, 8)
+              for dt in (torch.float32, torch.bfloat16) for g in sorted(grids)
+              if flash_attn.simt_kernel_config(d, dt, g)
+              != flash_attn.simt_launch_config(d, dt, g)]
+    require(not mirror, f"simt_launch_config differs from the kernel's config at {mirror[:5]}")
+    require({r["launch"][5] for r in simt_rows} >= set(range(1, 9)),
+            f"the simt rows ran cluster splits {sorted({r['launch'][5] for r in simt_rows})}, "
+            f"not every one of 1 to 8")
     for row in tc_rows + tf32_rows + simt_rows:
         emit({"phase": "attn_vs_plain", **row})
     for rows, route, what in ((tc_rows, "tc", "recurrentgemma-2b attention in bf16"),
@@ -2605,12 +2670,14 @@ def main() -> None:
               head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:32",
-              shape=simt_rows[0]["shape"],
-              recurrentgemma_2b_shape={k: simt_rows[2][k] for k in (
-                  "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+              shape=simt_rows[0]["shape"], launch=simt_rows[0]["launch"],
+              timed_cases=[{k: r[k] for k in (
+                  "shape", "dtype", "views", "launch", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "fp32_simt_bound_ms", "library_ms", "rel_l2", "max_abs_err")}
+                  for r in simt_rows[2:6]],
               launches_counted_in="phase 7: one ops.flash_attention call at "
                                   "(1, 2, 2, 64, 192, 32) f32 non-causal, a head "
-                                  "dim only the SIMT kernel takes"),
+                                  "dim only the simt route takes"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -113,9 +113,9 @@ def m2l_apply(me, level: int, p: int, eq=None, plain: bool = False):
 
 def flash_attention(q, k, v, causal: bool = True):
     """Blockwise attention; q (B, H, T, d), k/v (B, Hkv, S, d), top-left
-    causal mask, on the route ``flash_attn.route`` names.  The tensor-core
-    kernels (bf16 and 3xTF32) read strided views as they are; the SIMT
-    kernel gets contiguous copies."""
+    causal mask, on the route ``flash_attn.route`` names.  Every route's
+    kernel reads the model's strided views as they are (no copy); the
+    ``simt`` route's, like the others, runs on the tensor cores."""
     which = _fa.route(q, k)
     if which == "plain":
         return _fa.flash_attention_plain(q, k, v, causal=causal)
@@ -123,5 +123,4 @@ def flash_attention(q, k, v, causal: bool = True):
         return _fa.flash_attention_tc(q, k, v, causal=causal)
     if which == "tf32":
         return _fa.flash_attention_tf32(q, k, v, causal=causal)
-    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal=causal)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal)

@@ -66,6 +66,12 @@ def cuda():
     (2, 4, 4, 128, 32),     # MHA
     (1, 8, 2, 256, 64),     # GQA 4:1
     (2, 4, 1, 128, 64),     # MQA
+    # the simt route's head dims: one 8-column chunk, a class padded from
+    # 40 to 64, Phi-3-mini's 96, 200 padded to 224
+    (1, 2, 1, 128, 8),
+    (1, 4, 2, 128, 40),
+    (1, 4, 4, 128, 96),
+    (1, 2, 1, 64, 200),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_reference_kernel_f32(jx, B, H, Hkv, T, d, causal):
@@ -78,9 +84,18 @@ def test_plain_matches_reference_kernel_f32(jx, B, H, Hkv, T, d, causal):
     assert _rel(got, np.asarray(want)) < 2e-5
 
 
-@pytest.mark.parametrize("bq,bk", [(128, 64), (64, 128), (256, 256)])
-def test_plain_matches_reference_kernel_bf16(jx, bq, bk):
-    q, k, v = _qkv(1, 4, 4, 256, 256, 64, 9)
+@pytest.mark.parametrize("bq,bk,d", [
+    pytest.param(128, 64, 64, id="128-64"),
+    pytest.param(64, 128, 64, id="64-128"),
+    pytest.param(256, 256, 64, id="256-256"),
+    # the simt route's head dims
+    pytest.param(64, 64, 8, id="64-64-d8"),
+    pytest.param(128, 64, 40, id="128-64-d40"),
+    pytest.param(64, 128, 96, id="64-128-d96"),
+    pytest.param(64, 64, 200, id="64-64-d200"),
+])
+def test_plain_matches_reference_kernel_bf16(jx, bq, bk, d):
+    q, k, v = _qkv(1, 4, 4, 256, 256, d, 9)
     jb = [jx.jnp.asarray(a, jx.jnp.bfloat16) for a in (q, k, v)]
     want = np.asarray(jx.flash(*jb, causal=True, block_q=bq, block_k=bk,
                                interpret=True).astype(jx.jnp.float32))
@@ -156,8 +171,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain version, on the card; each case counts one
 # launch of the kernel that ``route`` names (d 64, 128 or 256 in bf16 takes
-# the bf16 tensor-core kernel, in f32 the 3xTF32 kernel, the others the SIMT
-# kernel)
+# the bf16 tensor-core kernel, in f32 the 3xTF32 kernel, the others the simt
+# route's kernel, which runs on the tensor cores too)
 # ---------------------------------------------------------------------------
 
 
@@ -206,12 +221,22 @@ GPU_CASES = [
     (1, 4, 2, 300, 100, 256, True, torch.bfloat16),    # T > S
     (2, 4, 4, 200, 333, 256, False, torch.bfloat16),   # not causal
     (1, 2, 2, 1, 1, 256, True, torch.bfloat16),        # one token
-    # SIMT route
-    (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention
+    # simt route (tensor cores; a cluster split on grids short of the card),
+    # every head-dim class in both dtypes
+    (1, 2, 2, 64, 192, 32, False, torch.float32),      # cross attention, split 6
+    (1, 2, 2, 64, 192, 32, False, torch.bfloat16),     # split 3
     (1, 2, 1, 33, 100, 8, True, torch.float32),        # T < S, top-left
-    (1, 4, 2, 100, 33, 40, True, torch.bfloat16),      # T > S, 10 column chunks
-    (2, 2, 1, 65, 65, 200, False, torch.bfloat16),     # 50 column chunks
+    (1, 2, 1, 33, 100, 8, True, torch.bfloat16),
     (1, 1, 1, 1, 1, 16, True, torch.float32),          # one token
+    (1, 1, 1, 1, 1, 16, True, torch.bfloat16),
+    (1, 4, 2, 100, 33, 24, True, torch.float32),       # T > S (bf16: 128-row blocks)
+    (1, 4, 2, 100, 33, 24, True, torch.bfloat16),
+    (1, 4, 2, 100, 33, 40, True, torch.float32),       # d padded to 64
+    (1, 4, 2, 100, 33, 40, True, torch.bfloat16),
+    (1, 8, 2, 1000, 1000, 96, True, torch.float32),    # ragged, GQA 4:1
+    (1, 8, 2, 1000, 1000, 96, True, torch.bfloat16),
+    (2, 2, 1, 65, 65, 200, False, torch.float32),      # d padded to 224, 16-key f32 tiles
+    (2, 2, 1, 65, 65, 200, False, torch.bfloat16),
 ]
 
 
@@ -240,8 +265,8 @@ def test_kernel_matches_plain(cuda, B, H, Hkv, T, S, d, causal, dtype):
     (1, 4, 2, 100, 300, False),     # T < S, not causal
 ])
 def test_simt_kernel_at_f32_head_dim_256(cuda, B, H, Hkv, T, S, causal):
-    """The SIMT kernel itself at f32 d = 256, which the dispatcher now sends
-    to the 3xTF32 route: still within 1e-5 of the plain version."""
+    """The simt kernel itself at f32 d = 256, which the dispatcher sends to
+    the 3xTF32 route: still within 1e-5 of the plain version."""
     q, k, v = (torch.tensor(a, device=cuda)
                for a in _qkv(B, H, Hkv, T, S, 256, T * 7 + 256))
     before = fa.LAUNCHES
@@ -254,10 +279,84 @@ def test_simt_kernel_at_f32_head_dim_256(cuda, B, H, Hkv, T, S, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [(8, torch.float32), (40, torch.bfloat16),
+                                     (96, torch.float32), (96, torch.bfloat16),
+                                     (200, torch.float32)])
+def test_simt_kernel_reads_strided_views(cuda, d, dtype):
+    """The model's (B, T, H, d) -> (B, H, T, d) views go in as they are; the
+    output is the (B, H, T, d) view of (B, T, H, d) memory."""
+    B, H, Hkv, T, S = 2, 4, 2, 130, 130
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype).transpose(1, 2).contiguous()
+               .transpose(1, 2) for a in _qkv(B, H, Hkv, T, S, d, d))
+    assert not q.is_contiguous()
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert _rel(got.cpu(), want.cpu()) < (1e-5 if dtype == torch.float32 else 5e-3)
+
+
+@pytest.fixture(scope="module")
+def forced_split(tmp_path_factory):
+    """The simt kernel with an entry point that takes the cluster split,
+    compiled beside the source by ``tools/simt_flash.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "simt_flash.py"
+    spec = importlib.util.spec_from_file_location("simt_flash", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    lib = tool.forced_lib(tmp_path_factory.mktemp("flash_forced"))
+    return lambda q, k, v, causal, split: tool.forced(lib, q, k, v, causal, split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,H,Hkv,T,S,d,causal,dtype", [
+    (1, 2, 2, 64, 192, 32, False, torch.float32),     # the served shape
+    (1, 4, 2, 100, 333, 40, True, torch.bfloat16),    # a key range no split divides
+    (1, 2, 1, 130, 300, 200, True, torch.float32),    # ranks with no visible key
+])
+def test_simt_kernel_at_forced_splits(cuda, forced_split, B, H, Hkv, T, S, d, causal,
+                                      dtype, split):
+    """Splits 1, 2, 4 and 8 of each q tile's key range across a cluster:
+    within the route's tolerance of the plain version, and a second launch
+    bit for bit the first."""
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype)
+               for a in _qkv(B, H, Hkv, T, S, d, 5 * split + d))
+    a, b = forced_split(q, k, v, causal, split), forced_split(q, k, v, causal, split)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert torch.equal(a, b)
+    assert _rel(a.cpu(), want.cpu()) < (1e-5 if dtype == torch.float32 else 5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,S,d,causal,dtype", [
+    (1, 2, 2, 64, 192, 32, False, torch.float32),     # split 6 by the rule
+    (1, 2, 2, 64, 192, 32, False, torch.bfloat16),    # split 3
+    (1, 8, 2, 1000, 1000, 96, True, torch.float32),   # split 1, 128-row blocks
+    (2, 2, 1, 65, 65, 200, False, torch.bfloat16),
+])
+def test_simt_kernel_repeats_bit_for_bit(cuda, B, H, Hkv, T, S, d, causal, dtype):
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype) for a in _qkv(B, H, Hkv, T, S, d, 1))
+    first = fa.flash_attention_cuda(q, k, v, causal=causal)
+    again = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_strided_and_misaligned(cuda):
+    """What the simt kernel refuses on the card: a non-unit stride in d, a
+    start off a 16-byte boundary, mixed dtypes."""
     q, k, v = (torch.tensor(a, device=cuda) for a in _qkv(1, 4, 2, 32, 32, 16, 6))
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention_cuda(torch.zeros(1, 4, 32, 32, device=cuda)[..., ::2], k, v)
     flat = torch.zeros(q.numel() + 1, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_cuda(flat[1:].view(q.shape), k, v)
