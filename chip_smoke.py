@@ -77,9 +77,16 @@ Phases, each printing one JSON line:
               (re-run with particle ids, bit for bit phase 4b's state),
               ``from_checkpoint`` onto 2 ranks bit for bit, and the
               reference's grid-bound ``halo_nan`` drill (300 particles)
-              recovered on ``plan_slab``.  Prints per rank and plan the
+              recovered on ``plan_slab``.  Every rank's mesh log of the
+              whole phase passes the collective-schedule verifier
+              (``analysis/schedule.py``): the same collectives on every
+              rank, every send met by its receive (the 2-rank restore's
+              group too), and each counted evaluation's schedule equals,
+              event for event, what ``schedule.simulate`` gives for the same
+              plan and order on dry meshes.  Prints per rank and plan the
               host ms of each evaluation and step, the staged bytes and
-              staging ms, and peak memory;
+              staging ms, the collectives, exchange rounds and messages of
+              its log, and peak memory;
 4d. drill   — the kill-drill supervisor (``launch/supervisor.py``) at
               4c's tree on gloo ranks sharing the card: rank 2 of 4
               SIGKILLed mid-step 4, the run completed at step 6 on (0, 1,
@@ -88,9 +95,11 @@ Phases, each printing one JSON line:
               every step exactly 2 x ``parallel_fmm.kernel_launches(plan)``
               P2P and M2L launches a rank and no plain call; rank 1 of 3
               SIGSTOPped at step 3, detected in under 120 s, completed at
-              step 5 on (0, 2).  Prints each drill's detect and restore
-              seconds, each generation's spawn-to-first-step seconds and
-              the steps' host ms;
+              step 5 on (0, 2); each drill's survivors' mesh logs pass the
+              collective-schedule verifier.  Prints each drill's detect and
+              restore seconds, each generation's spawn-to-first-step
+              seconds, the steps' host ms and the survivors' collectives
+              and messages;
 5. equations — ``fmm_evaluate(eq=LAPLACE)`` at p = 16 on the lattice with
               real charges, and ``fmm_evaluate(eq=TRACER, targets=probe
               grid)`` at p = 17, singular, each held to a float64 direct sum
@@ -130,6 +139,14 @@ Phases, each printing one JSON line:
               p = 40 job and an ordinary job in one drain: exactly one
               streaming P2P and three wide M2L launches, no plain call,
               each job within 1e-5 of the same engine on the CPU;
+6c. analysis — the four sections of ``python -m
+              repro_torch.analysis.check --device cuda --quick`` in this
+              process (lint; the trace contracts on the card's route, the
+              kernel wrappers, ``fmm_velocity``, ``rk2_step`` and the
+              batched entries under ``set_sync_debug_mode("error")``, their
+              launches pinned in the trace; the nine schedule cases on dry
+              meshes; the cache sessions): 0 violations.  Prints one line a
+              section, its checks, violations and seconds;
 7. attn_vs_plain — the three flash-attention kernels against their
               plain version.  The bf16 tensor-core kernel at Yi-6B's
               prefill shape (4, 32, 4, 2048, 128) causal, at
@@ -226,7 +243,9 @@ from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noq
 from repro_torch.core.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.core.stepper import RecoveryPolicy, VortexStepper, rk2_step  # noqa: E402
 from repro_torch.core import parallel_fmm as pf  # noqa: E402
-from repro_torch.launch.mesh import make_group_mesh, spawn_world  # noqa: E402
+from repro_torch.launch.mesh import MeshEvent, make_group_mesh, spawn_world  # noqa: E402
+from repro_torch.analysis import check as analysis_check  # noqa: E402
+from repro_torch.analysis import schedule as sched  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
@@ -1108,12 +1127,10 @@ def sharded_rank(mesh, spec: dict) -> dict:
     serial = torch.as_tensor(inp["w_reg"], device=dev)
     picked = torch.as_tensor(inp["sample"], device=dev)
     exact = torch.as_tensor(inp["exact_sing"], device=dev)
-    params = ModelParams(level=level, cut=PLAN_CUT, p=p, slots=SLOTS)
-    plans = {"uniform_slab": fmm_plan.uniform_plan(level, mesh.size),
-             "model_block_2x2": fmm_plan.plan_from_counts(index.counts, params,
-                                                          mesh.size, grid=SHARDED_GRID)}
+    require(mesh.size == RANKS, f"phase 4c runs on {RANKS} ranks, not {mesh.size}")
+    plans = sharded_plans(index, p)
     torch.cuda.reset_peak_memory_stats()
-    out = {"rank": mesh.rank, "plans": {}}
+    out = {"rank": mesh.rank, "plans": {}, "schedules": {}}
     for name, plan in plans.items():
         rec = {"plan": plan.describe(), "eval_host_ms": {}, "staged_bytes": {},
                "staging_ms": {}, "rel_l2_vs_serial": {}}
@@ -1126,8 +1143,10 @@ def sharded_rank(mesh, spec: dict) -> dict:
             zero_fmm_counts()
             ops.PLAIN_CALLS = 0
             mesh.wire.reset()
+            mark = len(mesh.log)
             (w, h), ms = host_ms(lambda: pf.parallel_fmm_velocity(
                 tree, p, mesh, plan, overlap=ov, pipeline=pipe, with_health=True))
+            out["schedules"][f"{name} {key}"] = mesh.log.since(mark)
             counts, plain_calls = fmm_counts(), ops.PLAIN_CALLS
             want = pf.kernel_launches(plan, ov)
             want = {"p2p": {"base": want["p2p"]}, "m2l": want["m2l"]}
@@ -1222,6 +1241,7 @@ def sharded_rank(mesh, spec: dict) -> dict:
                 f"rank {mesh.rank}: from_checkpoint onto 2 ranks is not bit for bit")
         out["restore_onto_2"] = {"bit_for_bit": same, "host_ms": ms,
                                  "plan": back.plan.describe()}
+        out["restore_log"] = list(two.log.events)
         del back
     del now
     mesh.barrier()
@@ -1240,7 +1260,51 @@ def sharded_rank(mesh, spec: dict) -> dict:
     out["drill"] = {"recovered": rungs, "plan_after": drill.plan.describe(),
                     "step_ms": [r.seconds * 1e3 for r in drecs]}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["mesh_log"] = list(mesh.log.events)
     return out
+
+
+def sharded_plans(index, p) -> dict:
+    """Phase 4c's two plans, as every rank builds them."""
+    params = ModelParams(level=CONFIG.level, cut=PLAN_CUT, p=p, slots=SLOTS)
+    return {"uniform_slab": fmm_plan.uniform_plan(CONFIG.level, RANKS),
+            "model_block_2x2": fmm_plan.plan_from_counts(index.counts, params, RANKS,
+                                                         grid=SHARDED_GRID)}
+
+
+def schedule_checks(ranks, pos, gamma, sigma, p) -> dict:
+    """Phase 4c's schedules: the ranks' whole mesh logs (and the 2-rank
+    restore's) through the collective-schedule verifier, and each counted
+    evaluation's schedule against ``schedule.simulate``'s for the same plan
+    and order on dry meshes on the card, event for event."""
+    t0 = time.perf_counter()
+    rep = sched.verify_schedules([r["mesh_log"] for r in ranks], label="sharded ranks")
+    require(rep.ok, "phase 4c's rank schedules disagree:\n" + "\n".join(rep.problems[:20]))
+    two = [r["restore_log"] for r in ranks if "restore_log" in r]
+    rep2 = sched.verify_schedules(two, label="restore onto 2")
+    require(len(two) == 2 and rep2.ok, "the 2-rank restore's schedules disagree:\n"
+            + "\n".join(rep2.problems[:20]))
+    tree, index = build_tree(pos, gamma, level=CONFIG.level, sigma=sigma, slots=SLOTS)
+    compared = 0
+    for name, plan in sharded_plans(index, p).items():
+        for ov, pipe in ORDERS:
+            key = f"{name} overlap={ov} pipeline={pipe}"
+            dry = sched.simulate(pf.parallel_fmm_velocity, RANKS, tree, p, plan=plan,
+                                 overlap=ov, pipeline=pipe, with_health=True)
+            for r in ranks:
+                diff = sched.same_schedule(r["schedules"][key], dry[r["rank"]])
+                require(diff is None, f"rank {r['rank']} {key}: the real schedule and "
+                                      f"the dry one differ at {diff}")
+                compared += len(dry[r["rank"]])
+            require(sched.verify_schedules(dry, label=key).ok, f"dry {key} disagrees")
+    del tree
+    torch.cuda.empty_cache()
+    per_rank = {r["rank"]: sched.counts_text(r["mesh_log"]) for r in ranks}
+    for rank, text in per_rank.items():
+        print(f"sharded rank {rank} schedule: {text}", flush=True)
+    return {"ranks_agree": True, "restore_onto_2_agrees": True,
+            "real_equals_dry_events": compared, "per_rank": per_rank,
+            "seconds": time.perf_counter() - t0}
 
 
 def sharded_phase(pos, gamma, sigma, p, w_reg, sample, exact_sing, state4) -> dict:
@@ -1290,6 +1354,7 @@ def sharded_phase(pos, gamma, sigma, p, w_reg, sample, exact_sing, state4) -> di
     require(z_err <= KERNEL_TOL, f"sharded stepper positions vs phase 4b's: rel L2 "
                                  f"{z_err} > {KERNEL_TOL}")
     require(sum("restore_onto_2" in r for r in ranks) == 2, "restore onto 2 ranks missing")
+    schedules = schedule_checks(ranks, pos, gamma, sigma, p)
     timing_keys = ("eval_host_ms", "staged_bytes", "staging_ms", "rel_l2_vs_serial",
                    "rel_l2_singular_vs_f64")
     for r in ranks:
@@ -1315,7 +1380,8 @@ def sharded_phase(pos, gamma, sigma, p, w_reg, sample, exact_sing, state4) -> di
           "gate": KERNEL_TOL, "stepper_positions_rel_l2_vs_serial": z_err,
           "stepper_records": first["records"], "stepper_plan": first["plan"],
           "stepper_drift": first["drift"], "stepper_launches_per_rank": first["launches"],
-          "restore_onto_2": ranks[0]["restore_onto_2"], "drill": ranks[0]["drill"]})
+          "restore_onto_2": ranks[0]["restore_onto_2"], "drill": ranks[0]["drill"],
+          "schedules": schedules})
     return {"p2p": p2p_n, "m2l": m2l_n, "per_rank": per_rank, "shapes": shapes}
 
 
@@ -2222,7 +2288,14 @@ def drill_run(coord: str, m_side: int, p: int, spec: dict, site: str):
     for r, t in trees.items():
         require(all(np.array_equal(t[k], first[k]) for k in t),
                 f"{site} drill: survivor {r} differs from rank {result.ranks[0]}")
+    logs = [[MeshEvent.from_json(e) for e in rec["mesh_log"]]
+            for rec in sorted(records.values(), key=lambda rec: rec["mesh_rank"])]
+    rep = sched.verify_schedules(logs, label=f"{site} survivors")
+    require(rep.ok, f"{site} drill: the survivors' schedules disagree:\n"
+            + "\n".join(rep.problems[:20]))
     for r, rec in records.items():
+        rec["schedule"] = sched.counts_text(logs[rec["mesh_rank"]])
+        print(f"{site} drill rank {r} schedule: {rec['schedule']}", flush=True)
         for s in rec["steps"]:
             require(s["recovered"] == "" and s["plain"] == 0
                     and (s["p2p"], s["m2l"]) == (s["expected"]["p2p"], s["expected"]["m2l"]),
@@ -2275,6 +2348,8 @@ def drill_phase(m_side: int, p: int) -> dict:
                    "step_host_ms": {r: [s["host_ms"] for s in rec["steps"]]
                                     for r, rec in records.items()},
                    "launches_per_step": records[ranks[0]]["steps"][0]["expected"],
+                   "schedules_agree": True,
+                   "schedule_per_rank": {r: rec["schedule"] for r, rec in records.items()},
                    "plan": records[ranks[0]]["plan"], "seconds": seconds}
             for rec in records.values():
                 launches["p2p"] += sum(s["p2p"] for s in rec["steps"])
@@ -2297,6 +2372,27 @@ def drill_phase(m_side: int, p: int) -> dict:
     emit({"phase": "drill", "note": "gloo ranks share one card: not a scaling result",
           **out, "launches": launches, "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase analysis: the four sections of ``python -m
+    repro_torch.analysis.check --device cuda --quick`` in this process,
+    with 0 violations: lint, the trace contracts on the card's route (their
+    launches counted in the trace, host syncs refused by
+    ``set_sync_debug_mode("error")``), the schedule cases on dry meshes on
+    the card and the cache sessions."""
+    t0 = time.perf_counter()
+    summary = analysis_check.run("cuda", quick=True)
+    seconds = time.perf_counter() - t0
+    for name, res in summary.items():
+        print(f"analysis {name}: {res['checked']} checks, {res['violations']} "
+              f"violations, {res['seconds']:.2f} s", flush=True)
+    bad = {k: v["detail"] for k, v in summary.items() if v["violations"]}
+    emit({"phase": "analysis", "seconds": seconds, "card": card,
+          "sections": {k: {f: v[f] for f in ("checked", "violations", "seconds")}
+                       for k, v in summary.items()}, "violations": bad})
+    require(not bad, f"analysis: violations {bad}")
+    return summary
 
 
 def main() -> None:
@@ -2469,6 +2565,10 @@ def main() -> None:
     launches["m2l"] += wide["m2l"]
     launches["p2p_stream"] = wide["p2p_stream"]
     launches["m2l_wide"] = wide["m2l_wide"]
+    torch.cuda.empty_cache()
+
+    # -- 6c. the static-analysis layer on the card's route ------------------
+    analysis_phase(card)
     torch.cuda.empty_cache()
 
     # -- 7. flash attention against its plain version ------------------------

@@ -51,9 +51,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def require_tensors(*xs) -> None:
+    """Raise ``TypeError`` unless every argument is a tensor: a host array
+    where a tensor belongs is put on its device by the caller
+    (``ensure_device``, ``build_tree``), never quietly here."""
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}: "
+                            f"put host arrays on the device first")
+
+
 def check_on(device: torch.device, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on ``device`` (index-insensitive for
-    the bare ``cuda`` request)."""
+    the bare ``cuda`` request); ``TypeError`` for anything not a tensor."""
+    require_tensors(*tensors)
     for t in tensors:
         if t.device.type != device.type or (
                 device.index is not None and t.device.index != device.index):

@@ -124,9 +124,20 @@ def m2l_folded_operator(p: int) -> np.ndarray:
     return fold_operator(m2l_operator(p), p)
 
 
-@functools.lru_cache(maxsize=None)
 def device_operator(builder, p: int, device: torch.device) -> torch.Tensor:
-    """``builder(p)`` as a complex64 tensor, copied to ``device`` once."""
+    """``builder(p)`` as a complex64 tensor, copied to ``device`` once.
+
+    A spec's bound method (``eq.m2m_operator``) is keyed by the spec's
+    value and the function: bound methods compare their ``__self__`` by
+    identity, so an equal spec built anew would key a second copy."""
+    owner = getattr(builder, "__self__", None)
+    key = builder if owner is None else (owner, builder.__func__)
+    return _device_operator(key, p, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_operator(key, p: int, device: torch.device) -> torch.Tensor:
+    builder = key if callable(key) else key[1].__get__(key[0])
     return torch.as_tensor(builder(p), dtype=torch.complex64, device=device)
 
 

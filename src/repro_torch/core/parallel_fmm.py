@@ -476,6 +476,14 @@ def parallel_fmm_p2p_prefetch(tree: Tree, mesh: Optional[RankMesh] = None,
                       mesh, block.grid)
 
 
+# The sharded driver's entry points by name, for the static-analysis layer
+# (``analysis/``: trace contracts, the collective-schedule verifier).
+TRACE_ENTRY_POINTS = {
+    "parallel_fmm_evaluate": parallel_fmm_evaluate,
+    "parallel_fmm_p2p_prefetch": parallel_fmm_p2p_prefetch,
+}
+
+
 def parallel_fmm_velocity(tree: Tree, p: int, mesh: Optional[RankMesh] = None,
                           plan: Optional[Union[SlabPlan, BlockPlan]] = None,
                           overlap: bool = True, with_health: bool = False,

@@ -137,6 +137,13 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int, mesh=None,
     return t_new, aux, ok1 & ok2, occ, health
 
 
+# The step by name, for the static-analysis layer (``analysis/``): its
+# contracts trace "rk2_step" (no finiteness sentinel with guard=False, no
+# write into an input: the recovery ladder retries from the intact pre-step
+# tree) and its schedule verifier runs it on every rank id.
+TRACE_ENTRY_POINTS = {"rk2_step": rk2_step}
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``, 64-bit dtypes narrowed as the reference's."""
     a = np.asarray(a)

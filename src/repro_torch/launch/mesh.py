@@ -19,11 +19,22 @@ several ranks runs over ``gloo``.
 ``file://`` store in a temporary directory: no network) and returns what
 each rank's function returned; :func:`join_world` joins a process that
 someone else started (``launch/supervisor.py``'s ranks) to its group.
+
+The schedule log.  Every message call of a :class:`RankMesh` appends one
+:class:`MeshEvent` to ``mesh.log``: an ``exchange`` with its round and the
+peer, shape and dtype of each send and receive, an ``all_gather``, an
+``all_reduce_max``, a ``barrier``, and a ``wait`` naming the issue it
+completes.  The log costs a list append and never reads a tensor's data;
+``analysis/schedule.py`` verifies the logs of all ranks against each other.
+Each event takes a number from one process-wide sequence, which
+``launch/trace_analysis.py:OpTrace`` shares to order the events among the
+operations it records.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import os
 import pickle
 import shutil
@@ -36,6 +47,106 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..configs.backend import resolve_device
+
+
+# one sequence for every mesh event and every operation a trace records
+SEQ = itertools.count()
+# objects with ``before_mesh_event()`` and ``on_mesh_event(log, index)`` (an
+# active ``OpTrace``), told of every event as it is logged
+OBSERVERS: list = []
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshEvent:
+    """One message call of one rank, in program order.
+
+    ``kind`` is ``exchange``, ``all_gather``, ``all_reduce_max``,
+    ``barrier`` or ``wait``.  An exchange has its ``round`` (the tag its
+    messages carry) and ``sends``/``recvs`` as ``(peer, shape, dtype)``
+    triples; an all-gather has the local ``shape`` and ``dtype``; a wait
+    names, as ``issue``, the index in the log of the exchange or all-gather
+    it completes.  ``seq`` orders the event among traced operations and is
+    left out of comparisons."""
+
+    kind: str
+    round: Optional[int] = None
+    sends: tuple = ()
+    recvs: tuple = ()
+    shape: Optional[tuple] = None
+    dtype: Optional[str] = None
+    issue: Optional[int] = None
+    seq: int = dataclasses.field(default=-1, compare=False)
+
+    def brief(self) -> str:
+        bits = [self.kind]
+        if self.round is not None:
+            bits.append(f"round {self.round}")
+        for name, msgs in (("send", self.sends), ("recv", self.recvs)):
+            bits += [f"{name} {'to' if name == 'send' else 'from'} {peer} "
+                     f"{tuple(shape)} {dtype}" for peer, shape, dtype in msgs]
+        if self.shape is not None:
+            bits.append(f"{tuple(self.shape)} {self.dtype}")
+        if self.issue is not None:
+            bits.append(f"of event {self.issue}")
+        return " ".join(bits)
+
+    def to_json(self) -> dict:
+        """The event as JSON-ready data (tuples become lists)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "MeshEvent":
+        def msgs(m):
+            return tuple((int(peer), tuple(shape), dtype) for peer, shape, dtype in m)
+        return cls(d["kind"], round=d["round"], sends=msgs(d["sends"]),
+                   recvs=msgs(d["recvs"]),
+                   shape=None if d["shape"] is None else tuple(d["shape"]),
+                   dtype=d["dtype"], issue=d["issue"], seq=d.get("seq", -1))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+class ScheduleLog:
+    """The :class:`MeshEvent`s of one mesh, in program order; ``rank`` is
+    the mesh's."""
+
+    def __init__(self, rank: int = -1):
+        self.events: list[MeshEvent] = []
+        self.rank = rank
+
+    def record(self, kind: str, **fields) -> int:
+        """Append one event; returns its index in the log."""
+        for obs in OBSERVERS:
+            obs.before_mesh_event()
+        ev = MeshEvent(kind, seq=next(SEQ), **fields)
+        self.events.append(ev)
+        index = len(self.events) - 1
+        for obs in OBSERVERS:
+            obs.on_mesh_event(self, index)
+        return index
+
+    def exchange(self, round_: int, sends, recvs) -> int:
+        return self.record(
+            "exchange", round=round_,
+            sends=tuple((int(peer), tuple(t.shape), _dtype_name(t.dtype))
+                        for peer, t in sends),
+            recvs=tuple((int(peer), tuple(shape), _dtype_name(dtype))
+                        for peer, shape, dtype in recvs))
+
+    def since(self, mark: int) -> list[MeshEvent]:
+        """The events from index ``mark`` on, with rounds and wait issues
+        counted from the first of them: one call's schedule, comparable
+        with another run's."""
+        evs = self.events[mark:]
+        r0 = next((e.round for e in evs if e.round is not None), 0)
+        return [dataclasses.replace(
+            e, round=None if e.round is None else e.round - r0,
+            issue=None if e.issue is None else e.issue - mark) for e in evs]
+
+    def __len__(self) -> int:
+        return len(self.events)
 
 
 @dataclasses.dataclass
@@ -69,6 +180,11 @@ class RankMesh:
     backend: str = "none"
     wire: Wire = dataclasses.field(default_factory=Wire, compare=False,
                                    repr=False)
+    log: ScheduleLog = dataclasses.field(default_factory=ScheduleLog,
+                                         compare=False, repr=False)
+
+    def __post_init__(self):
+        self.log.rank = self.rank
 
     @property
     def shape(self) -> dict[str, int]:
@@ -119,6 +235,7 @@ class RankMesh:
         whose ``wait()`` gives the received tensors, in ``recvs`` order."""
         tag = self.wire.rounds
         self.wire.rounds += 1
+        issue = self.log.exchange(tag, sends, recvs)
         ops, keep, out = [], [], []
         for peer, t in sends:
             w = self._to_wire(t)
@@ -132,21 +249,25 @@ class RankMesh:
                                   group_peer=peer, tag=tag))
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(works, lambda: [self._from_wire(b, c) for b, c in out],
-                       keep)
+                       keep, self.log, issue)
 
     def all_gather(self, t: torch.Tensor) -> "Pending":
         """Post an all-gather of ``t`` (the same shape on every rank);
         ``wait()`` gives the ``size`` tensors stacked on a new axis 0."""
+        issue = self.log.record("all_gather", shape=tuple(t.shape),
+                                dtype=_dtype_name(t.dtype))
         if self.group is None:
-            return Pending([], lambda: t[None], [])
+            return Pending([], lambda: t[None], [], self.log, issue)
         w = self._to_wire(t)
         bufs = [torch.empty_like(w) for _ in range(self.size)]
         work = dist.all_gather(bufs, w, group=self.group, async_op=True)
         return Pending([work], lambda: torch.stack(
-            [self._from_wire(b, t.is_complex()) for b in bufs]), [w])
+            [self._from_wire(b, t.is_complex()) for b in bufs]), [w],
+            self.log, issue)
 
     def all_reduce_max(self, value: float) -> float:
         """The largest ``value`` over the ranks (a host float)."""
+        self.log.record("all_reduce_max")
         if self.group is None:
             return float(value)
         t = torch.tensor([value], dtype=torch.float64,
@@ -155,6 +276,7 @@ class RankMesh:
         return float(t.item())
 
     def barrier(self) -> None:
+        self.log.record("barrier")
         if self.group is not None:
             dist.barrier(group=self.group)
 
@@ -162,14 +284,19 @@ class RankMesh:
 class Pending:
     """Messages in flight: ``wait()`` completes them once and returns what
     they delivered on the mesh's device (a list with one tensor per
-    receive, or an all-gather's stacked tensors)."""
+    receive, or an all-gather's stacked tensors).  The first ``wait()``
+    logs a ``wait`` event naming the ``issue`` in ``log``, when given."""
 
-    def __init__(self, works, finish, keep):
+    def __init__(self, works, finish, keep, log: Optional[ScheduleLog] = None,
+                 issue: Optional[int] = None):
         self._works, self._finish, self._keep = works, finish, keep
+        self._log, self._issue = log, issue
         self._value = None
 
     def wait(self):
         if self._finish is not None:
+            if self._log is not None:
+                self._log.record("wait", issue=self._issue)
             for w in self._works:
                 w.wait()
             self._value = self._finish()

@@ -656,7 +656,8 @@ def worker_main(cfg_path: str) -> int:
     rz._write_atomic(os.path.join(gdir, f"result_{rank}.json"), json.dumps({
         "rank": rank, "generation": gen, "ranks": list(ranks),
         "device": str(mesh.device), "plan": st.plan.describe(),
-        "steps": steps}, default=str))
+        "steps": steps, "mesh_rank": mesh.rank,
+        "mesh_log": [e.to_json() for e in mesh.log.events]}, default=str))
     guard.finish(step=st.step_count, phase="done",
                  deadline=policy.compile_grace)
     return 0

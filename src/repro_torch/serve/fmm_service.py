@@ -54,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..configs.backend import resolve_device
+from ..configs.backend import require_tensors, resolve_device
 from ..core import equations as eqs
 from ..core import parallel_fmm as pf
 from ..core.cost_model import ModelParams, array_digest, batch_padding_stats
@@ -68,7 +68,7 @@ __all__ = ["FmmJob", "JobPrice", "JobRejected", "JobResult", "ServiceBudget",
            "ArtifactCache", "BucketKey", "FmmServiceEngine",
            "TrajectorySession", "batched_fmm_eval", "batched_fmm_eval_targets",
            "batched_cache_entries", "ensure_device", "stack_trees",
-           "TRACE_ENTRY_POINTS"]
+           "BATCHED_ENTRIES", "TRACE_ENTRY_POINTS"]
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +252,14 @@ def stack_trees(trees: list, capacity: int):
 # of the reference's jit cache, keyed by what keys a compiled program there
 # (the static arguments and the batch's shapes, so (BucketKey, capacity)),
 # and the device.  Steady-state serving adds none.
-TRACE_ENTRY_POINTS: dict[str, set] = {"batched_fmm_eval": set(),
-                                      "batched_fmm_eval_targets": set()}
+BATCHED_ENTRIES: dict[str, set] = {"batched_fmm_eval": set(),
+                                   "batched_fmm_eval_targets": set()}
 
 
 def batched_cache_entries() -> int:
     """Distinct launch configurations across the batched entry points —
     the steady-state count the reference's trace-contract row pins."""
-    return sum(len(v) for v in TRACE_ENTRY_POINTS.values())
+    return sum(len(v) for v in BATCHED_ENTRIES.values())
 
 
 def batched_fmm_eval(z, q, mask, *, level: int, sigma: float, p: int, eq):
@@ -267,10 +267,11 @@ def batched_fmm_eval(z, q, mask, *, level: int, sigma: float, p: int, eq):
     inputs, one P2P launch and one M2L launch per level 2..L on the card.
     Returns (B, n, n, s[, nout]).  Padded batch rows carry all-False masks,
     so every stage's occupancy and r2 guards zero them."""
+    require_tensors(z, q, mask)
     eq = eqs.get_equation(eq)
     tree = Tree(z=z, q=q, mask=mask, level=level, sigma=sigma)
     out = fmm_evaluate(tree, p, eq=eq, device=z.device)
-    TRACE_ENTRY_POINTS["batched_fmm_eval"].add(
+    BATCHED_ENTRIES["batched_fmm_eval"].add(
         (level, sigma, p, eq.name, tuple(z.shape), z.device.type))
     return out
 
@@ -279,15 +280,25 @@ def batched_fmm_eval_targets(z, q, mask, tz, tmask, *, level: int,
                              sigma: float, p: int, eq):
     """Probe-grid variant: passive targets (B, n, n, st) evaluated against
     the sources; output is per TARGET slot, (B, n, n, st[, nout])."""
+    require_tensors(z, q, mask, tz, tmask)
     eq = eqs.get_equation(eq)
     src = Tree(z=z, q=q, mask=mask, level=level, sigma=sigma)
     tgt = Tree(z=tz, q=torch.zeros_like(tz), mask=tmask, level=level,
                sigma=sigma)
     out = fmm_evaluate(src, p, eq=eq, targets=tgt, device=z.device)
-    TRACE_ENTRY_POINTS["batched_fmm_eval_targets"].add(
+    BATCHED_ENTRIES["batched_fmm_eval_targets"].add(
         (level, sigma, p, eq.name, tuple(z.shape), tuple(tz.shape),
          z.device.type))
     return out
+
+
+# The batched entry points by name, for the static-analysis layer
+# (``analysis/``): its contracts trace them and its cache accounting
+# watches ``BATCHED_ENTRIES`` across their calls.
+TRACE_ENTRY_POINTS = {
+    "batched_fmm_eval": batched_fmm_eval,
+    "batched_fmm_eval_targets": batched_fmm_eval_targets,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,11 @@ def test_port_imports_no_jax_and_no_reference():
     for module in ("core/parallel_fmm.py", "launch/mesh.py",
                    "serve/fmm_service.py", "launch/fmm_serve.py",
                    "parallel/__init__.py", "parallel/resilience.py",
-                   "launch/supervisor.py", "configs/backend.py"):
+                   "launch/supervisor.py", "configs/backend.py",
+                   "launch/trace_analysis.py", "analysis/__init__.py",
+                   "analysis/check.py", "analysis/contracts.py",
+                   "analysis/lint.py", "analysis/retrace.py",
+                   "analysis/schedule.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -104,6 +108,21 @@ def test_sharded_entry_points_raise_without_a_card():
                  lambda: spawn_world(print, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_analysis_check_raises_without_a_card():
+    """``python -m repro_torch.analysis.check`` checks the card's route by
+    default: without a card it raises, and ``--device cuda`` never runs the
+    CPU route instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.analysis import check
+    from repro_torch.analysis.schedule import simulate
+    for argv in ([], ["--device", "cuda"], ["--device", "cuda", "--skip", "lint"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            check.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate(print, 2)
 
 
 def test_lm_entry_points_raise_without_a_card():

@@ -114,6 +114,20 @@ def kill_drill(tmp_path_factory):
             "clean": clean, "reference": _load(ref_path)}
 
 
+def test_kill_drill_survivors_schedules_agree(kill_drill):
+    """The survivors' mesh logs (restore and steps to 6 on the 3-rank
+    group) pass the collective-schedule verifier: the same collectives on
+    every rank, every send met by its receive."""
+    from repro_torch.analysis.schedule import verify_schedules
+    from repro_torch.launch.mesh import MeshEvent
+    recs = sorted(kill_drill["records"].values(), key=lambda r: r["mesh_rank"])
+    assert [r["mesh_rank"] for r in recs] == [0, 1, 2]
+    logs = [[MeshEvent.from_json(e) for e in r["mesh_log"]] for r in recs]
+    assert all(any(e.kind == "all_gather" for e in log) for log in logs)
+    rep = verify_schedules(logs, label="kill drill survivors")
+    assert rep.ok, rep.diff_text()
+
+
 def test_kill_drill_completes_on_3_survivors(kill_drill):
     result = kill_drill["result"]
     assert result.success and result.final_step == 6
