@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
 (vortex steps, the sharded driver and stepper on 4 ranks sharing the card,
 Laplace and tracer evaluations, the host-side planner, the FMM service with
-its batched buckets) and Yi-6B serving at full width.
+its batched buckets), Yi-6B serving at full width, and every other LM
+family of the registry served at full width.
 
 Run from the repository root with no arguments (``--seed`` seeds phase
 fmm_serve's jobs, 0 by default):
@@ -194,7 +195,36 @@ Phases, each printing one JSON line:
               3xTF32 launches inside ``step_all`` and no other flash launch,
               decode within 2e-2 of teacher-forced.  After the counted run,
               one prefill is timed on the 3xTF32 route and on the simt
-              kernel, alternately (``prefill_ms_by_route``).
+              kernel, alternately (``prefill_ms_by_route``);
+9b. serve_families — every other LM of the registry at full width, random
+              bf16 weights (``FAMILY_RUNS``): granite-moe-1b-a400m (24
+              layers), qwen3-moe-235b-a22b (4 of 94: 128 experts, top-8),
+              recurrentgemma-2b (26: RG-LRU and local attention),
+              mamba2-1.3b (48), musicgen-large (48), internvl2-26b (8 of
+              48; ``prefill_step`` with 1024 patch embeddings of width 3200
+              before 1024 text tokens, then ``decode_step``),
+              command-r-35b (2 of 40; tied f32 embedding) and qwen1.5-32b
+              (2 of 64; QKV bias), each behind ``ServeEngine``: batch 4,
+              2048 positions, 8 greedy tokens, timed.  Gates: exactly the
+              table's ``tc`` flash launches in the prefill (one per
+              attention layer, recurrentgemma-2b's 8 at d = 256 since its
+              window covers the prompt) and no other; every logit finite.
+              Then the same weights, cast to f32 in place, serve again with
+              exactly as many 3xTF32 launches a prefill, and the logits
+              that chose the last token must lie within 2e-2 rel L2 of a
+              teacher-forced ``forward`` (in bf16 the random deep stacks
+              amplify rounding past any fixed limit; in f32 they do not).
+              MoE models take this gate at batch 1 and capacity factor
+              E / k, where capacity covers every token and nothing drops
+              (capacity is per call, so batch-4 decode drops, as the
+              reference's does).  Phases 8, 9 and 9b's gate must also
+              refuse a planted fault: the same decode step on a cache that
+              never saw the prompt lands further than 2e-2 from the forced
+              logits.  Prints prefill ms,
+              decode ms a step, tokens per second, peak bytes, the
+              parameter count (equal to the port's ``init_params`` on the
+              meta device) and torch.profiler's device time by kernel over
+              one more prefill and one decode step.
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, and again for the stepper's four steps in phase 4b, for
@@ -203,8 +233,8 @@ fmm_serve and on each of its ranks before the sharded lane, on
 each rank of phase 4c before each counted evaluation and before the
 sharded stepper's steps, on each rank of phase 4d around each step, the
 drain of phase fmm_serve_wide, each gated evaluation of phase 5 for P2P's Laplace and
-passive modes, ``step_all`` in phases 8 and 9 for the tensor-core flash
-kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
+passive modes, ``step_all`` in phases 8 and 9 and each serve of phase 9b
+for the tensor-core flash kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the simt one) and read
 right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
@@ -249,6 +279,7 @@ from repro_torch.analysis import schedule as sched  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -412,6 +443,18 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = 2088
 SERVE_TOL = 2e-2
 F32_LAYERS, F32_BATCH, F32_PROMPT, F32_NEW = 2, SERVE_BATCH, SERVE_PROMPT, 4
+# phase serve_families: (arch, layers run (None: all), tc flash launches a
+# prefill, vlm patches); depth cut for memory (command-r, qwen1.5) or the
+# script's time (qwen3-moe, internvl2)
+FAMILY_RUNS = [("granite-moe-1b-a400m", None, 24, False),
+               ("qwen3-moe-235b-a22b", 4, 4, False),
+               ("recurrentgemma-2b", None, 8, False),
+               ("mamba2-1.3b", None, 0, False),
+               ("musicgen-large", None, 48, False),
+               ("internvl2-26b", 8, 8, True),
+               ("command-r-35b", 2, 2, False),
+               ("qwen1.5-32b", 2, 2, False)]
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 2048, 8
 
 
 def emit(obj) -> None:
@@ -2080,12 +2123,11 @@ def check_flash(name, kernel, B, H, Hkv, T, S, d, causal, dtype, gen, timed: boo
     return row
 
 
-def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
-                other_route: str | None = None) -> tuple[dict, dict]:
-    """``cfg`` behind ServeEngine.step_all; returns the phase's record and
-    the launches of each flash kernel counted inside step_all.  With
-    ``other_route``, after the counted run, one prefill is timed on the
-    route ``flash_attn.route`` names and on ``other_route``, alternately."""
+def random_model(cfg, dev):
+    """``init_params`` on the card from a generator seeded with 0.  Returns
+    (params, the generator, seconds, parameter count); the count must be
+    what the same call gives on the meta device (``cfg.param_count`` is
+    analytic, and crude for the hybrid and the SSM family)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -2093,11 +2135,97 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in param_tensors(params))
-    require(n_params == cfg.param_count, f"{n_params} parameters, config says "
-            f"{cfg.param_count}")
+    meta = sum(t.numel() for t in param_tensors(init_params(cfg, torch.Generator(), "meta")))
+    require(n_params == meta, f"{cfg.name}: {n_params} parameters, the meta device "
+            f"gives {meta}")
+    return params, gen, init_s, n_params
+
+
+def generate_with_patches(engine, prompts, patches, new: int) -> np.ndarray:
+    """A vlm user's greedy loop: ``prefill_step`` with the patch embeddings
+    before the text, then ``decode_step`` at the positions after both, as
+    ``step_all`` does for text."""
+    B, T = prompts.shape
+    P = patches.shape[1]
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, dtype=torch.long, device=engine.device)
+        caches = init_cache(engine.cfg, B, engine.max_len, device=engine.device)
+        logits, caches = engine.prefill_fn(engine.params, tokens, caches,
+                                           patch_embeds=patches)
+        tok = torch.argmax(logits, dim=-1)
+        outs = []
+        for t in range(new):
+            outs.append(tok)
+            logits, caches = engine.decode_fn(engine.params, tok[:, None], P + T + t,
+                                              caches)
+            tok = torch.argmax(logits, dim=-1)
+        return torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
+
+
+def teacher_forced(params, cfg, full, patches=None):
+    """The last position's logits of one ``forward`` over ``full`` (the
+    patches first)."""
+    with torch.inference_mode():
+        h, _ = forward(params, full, cfg, patch_embeds=patches)
+        return unembed(params, h[:, -1:], cfg)[:, 0]
+
+
+def cast_(tree, dtype) -> None:
+    """Every tensor of a parameter tree to ``dtype``, in place in the tree,
+    one at a time (the old tensor is freed as its copy replaces it)."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if torch.is_tensor(v):
+            tree[k] = v.to(dtype)
+        else:
+            cast_(v, dtype)
+
+
+def decode_gate(engine, prompts, out, chose_last, patches=None) -> dict:
+    """Hold ``chose_last``, the decode logits that chose ``out[:, -1]``, to
+    a teacher-forced ``forward`` over prompt + ``out[:, :-1]`` (the same
+    patches first): rel L2 within ``SERVE_TOL``, every logit finite.
+
+    The gate must also refuse a planted fault: the same decode step on a
+    cache that never saw the prompt (a KV cache or recurrent state not
+    carried from prefill into decode) must land further than ``SERVE_TOL``
+    from the forced logits."""
+    params, cfg, dev = engine.params, engine.cfg, engine.device
+    n_patches = 0 if patches is None else patches.shape[1]
+    full = torch.cat([torch.as_tensor(prompts, device=dev),
+                      torch.as_tensor(out[:, :-1], device=dev)], dim=1).long()
+    forced = teacher_forced(params, cfg, full, patches)
+    with torch.inference_mode():
+        fresh = init_cache(cfg, full.shape[0], engine.max_len, device=dev)
+        fault, _ = engine.decode_fn(params, full[:, -1:], n_patches + full.shape[1] - 1,
+                                    fresh)
+        del fresh
+    torch.cuda.synchronize()
+    err, fault_err = rel_l2(chose_last, forced), rel_l2(fault, forced)
+    require(bool(torch.isfinite(forced).all()), f"{cfg.name}: non-finite teacher-forced logits")
+    require(err <= SERVE_TOL, f"{cfg.name}: decode vs teacher-forced logits rel L2 "
+            f"{err} > {SERVE_TOL}")
+    require(fault_err > SERVE_TOL, f"{cfg.name}: decode on a cache that never saw the "
+            f"prompt is {fault_err} from the teacher-forced logits, within the gate "
+            f"{SERVE_TOL}")
+    return {"rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
+            "forced_tokens": full.shape[1] + n_patches,
+            "last_token_agreement_info": float(
+                (forced.argmax(-1).cpu().numpy() == out[:, -1]).mean()),
+            "fault_rel_l2_fresh_cache": fault_err}
+
+
+def serve_once(dev, params, cfg, prompts, new, max_len, *, patches=None,
+               gate: bool = True, profile: bool = False):
+    """Serve ``prompts`` behind ``ServeEngine`` (``step_all``, or with
+    ``patches`` the vlm loop over ``prefill_step``/``decode_step``) after a
+    2-token warm-up, the flash counters zeroed just before and read just
+    after.  Every logit must be finite and every token in range; with
+    ``gate``, ``decode_gate`` holds the decode to a teacher-forced forward.
+    With ``profile``, one more prefill and one decode step run under
+    torch.profiler (``device_profile``).  Returns (record, flash launches,
+    engine)."""
+    batch, prompt = prompts.shape
     engine = ServeEngine(params, cfg, batch_slots=batch, max_len=max_len, device=dev)
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab, (batch, prompt)).astype(np.int32)
 
     # time each prefill/decode call with CUDA events and keep its logits
     marks: dict[str, list] = {"prefill": [], "decode": []}
@@ -2114,10 +2242,15 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
             return out
         return call
 
+    def generate(n):
+        if patches is None:
+            return engine.step_all(prompts, n)
+        return generate_with_patches(engine, prompts, patches, n)
+
     prefill_fn, decode_fn = engine.prefill_fn, engine.decode_fn
     engine.prefill_fn = timed("prefill", prefill_fn)
     engine.decode_fn = timed("decode", decode_fn)
-    engine.step_all(prompts, 2)                      # warm-up: cuBLAS, allocator
+    generate(2)                                      # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     for v in marks.values():
         v.clear()
@@ -2127,55 +2260,137 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
     torch.cuda.synchronize()
     zero_flash_counts()
     t0 = time.perf_counter()
-    out = engine.step_all(prompts, new)
+    out = generate(new)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     engine.prefill_fn, engine.decode_fn = prefill_fn, decode_fn
 
-    require(out.shape == (batch, new), f"step_all returned {out.shape}")
-    require(bool((out >= 0).all() and (out < cfg.vocab).all()), "token id out of range")
-    require(all(bool(torch.isfinite(x).all()) for x in logits_seen), "non-finite logits")
+    require(out.shape == (batch, new), f"{cfg.name}: served {out.shape}")
+    require(bool((out >= 0).all() and (out < cfg.vocab).all()),
+            f"{cfg.name}: token id out of range")
+    require(all(bool(torch.isfinite(x).all()) for x in logits_seen),
+            f"{cfg.name}: non-finite logits")
     prefill_ms = sum(a.elapsed_time(b) for a, b in marks["prefill"])
     decode_ms = [a.elapsed_time(b) for a, b in marks["decode"]]
     decode_step_ms = sum(decode_ms) / len(decode_ms)
-
-    # the logits that chose the last token against a teacher-forced forward
-    chose_last = logits_seen[-2]            # decode step that produced out[:, -1]
-    full = torch.cat([torch.as_tensor(prompts, device=dev),
-                      torch.as_tensor(out[:, :-1], device=dev)], dim=1).long()
-    with torch.inference_mode():
-        h, _ = forward(params, full, cfg)
-        forced = unembed(params, h[:, -1:], cfg)[:, 0]
-    torch.cuda.synchronize()
-    err = rel_l2(chose_last, forced)
-    agree = float((forced.argmax(-1).cpu().numpy() == out[:, -1]).mean())
-    require(err <= SERVE_TOL, f"decode vs teacher-forced logits rel L2 {err} > {SERVE_TOL}")
-
-    record = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
-              "params": n_params, "init_params_s": init_s, "batch": batch,
-              "prompt": prompt, "new": new, "max_len": max_len,
-              "step_all_s": total_s, "prefill_ms": prefill_ms,
+    n_patches = 0 if patches is None else patches.shape[1]
+    record = {"batch": batch, "prompt": prompt, "patches": n_patches, "new": new,
+              "max_len": max_len, "step_all_s": total_s, "prefill_ms": prefill_ms,
               "decode_ms_per_step": decode_step_ms, "decode_steps": len(decode_ms),
               "generated_tok_per_s": batch * new / total_s,
-              "prompt_tok_per_s": batch * prompt / (prefill_ms / 1e3),
+              "prompt_tok_per_s": batch * (prompt + n_patches) / (prefill_ms / 1e3),
               "decode_tok_per_s": batch / (decode_step_ms / 1e3),
               "peak_bytes": peak, "flash_launches": launches,
-              "rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
-              "last_token_agreement_info": agree, "first_tokens": out[0, :8].tolist()}
-    tokens = torch.as_tensor(prompts, device=dev).long()
-    caches = init_cache(cfg, batch, max_len, device=dev)
-    prefill = lambda: engine.prefill_fn(params, tokens, caches)  # noqa: E731
-    if other_route is not None:
-        record["prefill_ms_by_route"] = prefill_by_route(prefill, other_route)
+              "first_tokens": out[0, :8].tolist()}
     if profile:
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        caches = init_cache(cfg, batch, max_len, device=dev)
         record["prefill_profile"] = device_profile(
-            prefill, share_of=("flash_attn_tc", "copy"))
+            lambda: engine.prefill_fn(params, tokens, caches, patch_embeds=patches),
+            share_of=("flash_attn_tc", "copy"))
         first = torch.as_tensor(out[:, :1], device=dev).long()
         record["decode_profile"] = device_profile(
-            lambda: engine.decode_fn(params, first, prompt, caches))
+            lambda: engine.decode_fn(params, first, prompt + n_patches, caches))
+        del caches
+    if gate:
+        # logits_seen[-2]: the decode step that produced out[:, -1]
+        record.update(decode_gate(engine, prompts, out, logits_seen[-2], patches))
+    return record, launches, engine
+
+
+def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
+                other_route: str | None = None) -> tuple[dict, dict]:
+    """``cfg`` behind ServeEngine.step_all; returns the phase's record and
+    the launches of each flash kernel counted inside step_all.  With
+    ``other_route``, after the counted run, one prefill is timed on the
+    route ``flash_attn.route`` names and on ``other_route``, alternately."""
+    params, _, init_s, n_params = random_model(cfg, dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, prompt)).astype(np.int32)
+    served, launches, engine = serve_once(dev, params, cfg, prompts, new, max_len,
+                                          profile=profile)
+    record = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+              "params": n_params, "init_params_s": init_s, **served}
+    if other_route is not None:
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        caches = init_cache(cfg, batch, max_len, device=dev)
+        record["prefill_ms_by_route"] = prefill_by_route(
+            lambda: engine.prefill_fn(params, tokens, caches), other_route)
     return record, launches
+
+
+def serve_families_phase(dev) -> dict:
+    """Every LM family beyond dense Yi-6B at full width (``FAMILY_RUNS``),
+    random bf16 weights from a seeded generator: batch 4, prompts of 2048
+    positions, 8 greedy tokens, timed, every logit finite.  Each prefill
+    must make exactly the table's ``tc`` flash launches and no other.
+
+    The gate runs in f32, where the deep stacks do not amplify rounding:
+    the same weights cast in place and served again, each prefill on the
+    3xTF32 kernel instead, and ``decode_gate`` holds the decode to a
+    teacher-forced forward at the fixed ``SERVE_TOL``.  An MoE model is
+    gated at batch 1 and capacity factor E / k: a token's k experts are
+    distinct, so capacity N over N tokens drops nothing in decode or in
+    the forced forward.  Returns the tc and tf32 launches made."""
+    rows, tc, tf32, tf32_d256 = [], 0, 0, 0
+    for arch, layers, want, patches in FAMILY_RUNS:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        attn_layers = sum(k in ("attn", "moe") for k in transformer.layer_kinds(cfg))
+        require(attn_layers == want, f"{arch}: {attn_layers} attention layers, "
+                f"the table says {want}")
+        params, gen, init_s, n_params = random_model(cfg, dev)
+        rng = np.random.default_rng(0)
+        text = FAMILY_PROMPT - (cfg.num_patches if patches else 0)
+        prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, text)).astype(np.int32)
+        pe = None
+        if patches:
+            pe = torch.randn((FAMILY_BATCH, cfg.num_patches, cfg.patch_dim),
+                             generator=gen, device=dev).to(getattr(torch, cfg.dtype))
+        max_len = FAMILY_PROMPT + FAMILY_NEW
+        record, launches, engine = serve_once(dev, params, cfg, prompts, FAMILY_NEW,
+                                              max_len, patches=pe, gate=False,
+                                              profile=True)
+        del engine
+        require(launches == {"tc": want, "tf32": 0, "simt": 0},
+                f"{arch}: flash launches in one prefill {launches}, expected {want} "
+                f"tc launches and no other")
+        tc += launches["tc"]
+
+        cast_(params, torch.float32)
+        cfg32, n = dataclasses.replace(cfg, dtype="float32"), FAMILY_BATCH
+        if cfg.family == "moe":
+            m, n = cfg.moe, 1
+            cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+                m, capacity_factor=m.num_experts / m.top_k))
+            forced_n = FAMILY_PROMPT + FAMILY_NEW - 1
+            require(moe.capacity(forced_n, cfg32) >= forced_n,
+                    f"{arch}: capacity {moe.capacity(forced_n, cfg32)} < {forced_n}")
+        gated, l32, engine = serve_once(dev, params, cfg32, prompts[:n], FAMILY_NEW,
+                                        max_len, patches=None if pe is None
+                                        else pe[:n].float())
+        del engine
+        require(l32 == {"tc": 0, "tf32": want, "simt": 0},
+                f"{arch}: f32 flash launches in one prefill {l32}, expected {want} "
+                f"3xTF32 launches and no other")
+        tf32 += l32["tf32"]
+        row = {"arch": arch, "family": cfg.family, "dtype": cfg.dtype,
+               "layers": cfg.num_layers, "of_layers": full.num_layers,
+               "d_model": cfg.d_model, "head_dim": cfg.head_dim_, "params": n_params,
+               "param_count_analytic_info": cfg.param_count, "init_params_s": init_s,
+               **record, "f32_gate": {"capacity_factor": None if cfg.moe is None
+                                      else cfg32.moe.capacity_factor, **gated}}
+        if cfg.head_dim_ == 256:
+            tf32_d256 += l32["tf32"]
+        if cfg.rglru is not None:
+            row["window"] = cfg.rglru.window
+        emit({"phase": "serve_families", **row})
+        rows.append(row)
+        del params, pe
+        torch.cuda.empty_cache()
+    return {"rows": rows, "tc": tc, "tf32": tf32, "tf32_d256": tf32_d256}
 
 
 def prefill_by_route(prefill, other: str) -> dict:
@@ -2662,6 +2877,16 @@ def main() -> None:
             f"flash launches in f32 step_all {f32_launches}, expected "
             f"{F32_LAYERS} 3xTF32 launches and no other")
     launches["flash_attn_tf32"] = f32_launches["tf32"]
+    del serve32
+    torch.cuda.empty_cache()
+
+    # -- 9b. main path: every other LM family at full width, bf16 tc flash --
+    families = serve_families_phase(dev)
+    launches["flash_attn"] += families["tc"]
+    launches["flash_attn_d256"] += sum(
+        r["flash_launches"]["tc"] for r in families["rows"] if r["head_dim"] == 256)
+    launches["flash_attn_tf32"] += families["tf32"]
+    launches["flash_attn_tf32_d256"] += families["tf32_d256"]
 
     # -- 10. card, kernels line, result --------------------------------------
     def entry(rows, name, source, replaces, **extra):
@@ -2685,7 +2910,9 @@ def main() -> None:
             "strided_rel_l2", "max_abs_err")} | {
             "launches": launches[counted],
             "launches_counted_in": "phase 7: one ops.flash_attention call at "
-                                   f"recurrentgemma-2b's attention, {dtype}"}
+                                   f"recurrentgemma-2b's attention, {dtype}" + (
+                                       "; phase serve_families: recurrentgemma-2b's "
+                                       f"prefill in {dtype} (8 local-attention layers)")}
 
     def mode_entry(rows, counts, mode, counted_in):
         r = rows[0]
@@ -2761,11 +2988,17 @@ def main() -> None:
                      for r in wide_m2l_rows]),
         entry(tc_rows, "flash_attn", "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
               "src/repro/kernels/flash_attn.py:32",
-              launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128)",
+              launches_counted_in="phase 8: step_all of bf16 Yi-6B (d = 128); phase "
+                                  "serve_families: the bf16 prefills of granite-moe, "
+                                  "qwen3-moe, recurrentgemma-2b (d = 256), "
+                                  "musicgen-large, internvl2-26b, command-r-35b and "
+                                  "qwen1.5-32b",
               head_dim_256=d256_block(tc_rows[1], "flash_attn_d256", "bf16")),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
               "src/repro/kernels/flash_attn.py:32",
-              launches_counted_in="phase 9: step_all of 2-layer f32 Yi-6B (d = 128)",
+              launches_counted_in="phase 9: step_all of 2-layer f32 Yi-6B (d = 128); "
+                                  "phase serve_families: the f32 prefills of the gated "
+                                  "runs (the same seven models, the MoE ones at batch 1)",
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"],
               head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",

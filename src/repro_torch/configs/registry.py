@@ -1,30 +1,26 @@
 """Architecture registry: --arch <id> -> config (full and smoke-reduced).
 
-Lists only what the port runs: the dense LMs whose configs it carries and
-the paper's vortex application.  Any other architecture of the reference's
-registry raises, naming the family it belongs to.
+The reference's registry whole: every LM architecture it lists and the
+paper's vortex application.  Each config module is a data-only copy of the
+reference's.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = [
+    "qwen3_moe_235b_a22b",
+    "granite_moe_1b_a400m",
+    "command_r_35b",
     "codeqwen15_7b",
     "yi_6b",
+    "qwen15_32b",
+    "recurrentgemma_2b",
+    "musicgen_large",
+    "internvl2_26b",
+    "mamba2_13b",
     "petfmm_vortex",            # the paper's own client application
 ]
-
-# The reference's other architectures and their families.
-NOT_PORTED = {
-    "qwen3_moe_235b_a22b": "moe",
-    "granite_moe_1b_a400m": "moe",
-    "command_r_35b": "dense",
-    "qwen15_32b": "dense",
-    "recurrentgemma_2b": "hybrid",
-    "musicgen_large": "audio",
-    "internvl2_26b": "vlm",
-    "mamba2_13b": "ssm",
-}
 
 _ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
@@ -47,12 +43,8 @@ def canonical(arch: str) -> str:
 
 def _module(arch: str):
     name = canonical(arch)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} (family {NOT_PORTED[name]}) is not ported yet; "
-            f"the port has {', '.join(ARCHS)}")
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}")
+        raise KeyError(f"unknown arch {arch!r}; the registry has {', '.join(ARCHS)}")
     return importlib.import_module(f"{__package__}.{name}")
 
 

@@ -72,6 +72,13 @@ TC_LAUNCHES = 0     # bf16 tensor-core kernel launches since the last reset
 TF32_LAUNCHES = 0   # 3xTF32 tensor-core kernel launches since the last reset
 
 
+def takes_head_dim(d: int) -> bool:
+    """Whether a flash kernel computes head dim ``d``: the simt route takes
+    any multiple of 8 up to ``MAX_HEAD_DIM`` (16-byte rows of bf16), the
+    tensor-core routes a subset."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+
+
 def route(q: torch.Tensor, k: torch.Tensor) -> str:
     """``"plain"`` for a CPU tensor; for CUDA q and k, ``"tc"`` if both are
     bf16 with d in ``TC_HEAD_DIMS``, ``"tf32"`` if both are f32 with d in
@@ -151,7 +158,7 @@ def simt_launch_config(d: int, dtype: torch.dtype,
     over a cluster of the most of 2..8 blocks that keeps the grid within one
     wave of ``SMS`` blocks, and never more than the key tiles of the
     heaviest q tile; a grid of at least ``SMS / 2`` blocks runs split 1."""
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+    if not takes_head_dim(d):
         raise ValueError(f"head dim {d} must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}]")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -315,7 +322,7 @@ def _simt_plan(layouts: tuple, causal: bool) -> tuple:
     _check_shapes(q, k, v)
     B, H, T, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+    if not takes_head_dim(d):
         raise ValueError(f"head dim {d} must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}]")
     if T == 0 or S == 0:

@@ -1,10 +1,12 @@
 """Serving launcher: batched prefill and greedy decode on one card.
 
     python -m repro_torch.launch.serve --arch yi-6b            # full width, CUDA
-    python -m repro_torch.launch.serve --arch yi-6b --local    # smoke config
-    python -m repro_torch.launch.serve --arch yi-6b --local --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --local    # smoke config
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --local --device cpu
 
-Weights are random, drawn from a generator seeded with 0.
+Any LM architecture of the registry (``registry.lm_archs()``): dense, moe,
+hybrid, ssm, audio, vlm (a vlm serves text only here, as ``step_all``
+does).  Weights are random, drawn from a generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from ..configs.backend import resolve_device
-from ..configs.registry import get_config, get_smoke_config
+from ..configs.registry import canonical, get_config, get_smoke_config, lm_archs
 from ..models.transformer import init_params
 from ..serve.engine import ServeEngine
 
@@ -30,6 +32,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if canonical(args.arch) not in lm_archs():
+        ap.error(f"--arch {args.arch!r} is not a language model of the registry "
+                 f"({', '.join(lm_archs())})")
 
     cfg = get_smoke_config(args.arch) if args.local else get_config(args.arch)
     dev = resolve_device(args.device)

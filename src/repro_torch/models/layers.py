@@ -2,9 +2,10 @@
 
 The reference's layers in PyTorch, with its ``(B, H, T, d)`` attention
 layout.  ``attention_core`` runs a hand-written flash-attention kernel on
-a CUDA tensor in exactly the case the kernels compute (causal, no window,
-no query offset, ``T == S``, f32 scores), where the kernels' top-left
-causal mask is the model's mask.  The dtype and head dim pick the kernel
+a CUDA tensor in exactly the case the kernels compute (causal, no query
+offset, ``T == S``, f32 scores, no window or one that covers every key,
+``T <= window``, and a head dim the kernels take, a multiple of 8 up to
+256), where the kernels' top-left causal mask is the model's mask.  The dtype and head dim pick the kernel
 (``kernels.flash_attn.route``; the README's route table); the tensor-core
 kernels read the transposed views as they are.  Every other case, and
 every CPU tensor, takes ``attention_core_plain``: the reference's
@@ -18,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import flash_attn, ops
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -56,10 +57,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    impl: str = "chunked") -> torch.Tensor:
     """Exact attention.  q: (B, H, T, d);  k, v: (B, Hkv, S, d).
 
-    On a CUDA tensor with ``causal``, no ``window``, ``q_offset == 0``,
-    ``T == S`` and f32 scores this is a flash kernel (``ops.flash_attention``,
-    top-left mask, equal to the model's here); otherwise
-    :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
+    On a CUDA tensor with ``causal``, ``q_offset == 0``, ``T == S``, f32
+    scores, no ``window`` or ``T <= window`` (where the window hides no
+    key: ``kpos > qpos - window`` holds for every ``kpos <= qpos``) and a
+    head dim that ``flash_attn.takes_head_dim`` this is a flash kernel
+    (``ops.flash_attention``, top-left mask, equal to the model's here);
+    otherwise :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
     dry-run accounting probe, not a model, and raises.
     """
     if impl == "skip_core":
@@ -68,8 +71,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl != "chunked":
         raise ValueError(f"unknown attention impl {impl!r}")
     T, S = q.shape[2], k.shape[2]
-    if (q.device.type == "cuda" and causal and window is None and q_offset == 0
-            and T == S and score_dtype == torch.float32):
+    if (q.device.type == "cuda" and causal and q_offset == 0 and T == S
+            and score_dtype == torch.float32 and (window is None or T <= window)
+            and flash_attn.takes_head_dim(q.shape[-1])):
         return ops.flash_attention(q, k, v, causal=True)
     return attention_core_plain(q, k, v, causal=causal, window=window,
                                 q_chunk=q_chunk, q_offset=q_offset,

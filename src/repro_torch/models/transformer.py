@@ -1,21 +1,38 @@
-"""Model assembly for the dense family: [attn + SwiGLU MLP] x L, caches.
+"""Model assembly: block dispatch per family, caches, unembedding.
 
-The reference's ``models/transformer.py`` for ``family="dense"``.  Layers
-run as a Python loop over ``params["layers"]``; the reference's
-``lax.scan`` and rematerialization have no counterpart in inference.  Other
-families (moe, ssm, hybrid, audio, vlm) and ``lm_loss`` are not ported yet.
+The reference's ``models/transformer.py``.  Families:
+
+  dense/audio/vlm : [attn + SwiGLU MLP] x L   (audio = small-vocab LM; vlm
+                    prepends projected patch embeddings)
+  moe             : [attn + MoE FFN] x L
+  hybrid          : Griffin pattern (rglru, rglru, local attn) cycled
+  ssm             : [mamba2 SSD] x L
+
+Layers run as a Python loop over ``params["layers"]``, one dict per layer
+in order; the reference's ``lax.scan`` groups and rematerialization have no
+counterpart in inference (``convert.params_from_jax`` reads its grouped
+layout).  ``lm_loss`` is not ported yet.
 
 Parameters are a plain dict of tensors: ``embed`` (V, D), ``final_norm``
-(D,), ``lm_head`` (V, D) unless embeddings are tied, and ``layers``, one
-dict per layer with ``ln1``, ``attn`` (``w_q``, ``w_k``, ``w_v``, ``w_o``
-and, with ``qkv_bias``, ``b_q``, ``b_k``, ``b_v``), ``ln2`` and ``mlp``
-(``w_gate``, ``w_in``, ``w_out``).  Each is stored in the dtype in which
-``forward`` reads it: ``cfg.dtype`` for layer weights and ``embed``, f32
-for ``lm_head`` (and for ``embed`` when tied), which ``unembed`` reads in f32.
+(D,), ``lm_head`` (V, D) unless embeddings are tied, ``patch_proj``
+(patch_dim, D) for a vlm, and ``layers``.  A layer of kind ``attn`` holds
+``ln1``, ``attn`` (``w_q``, ``w_k``, ``w_v``, ``w_o`` and, with
+``qkv_bias``, ``b_q``, ``b_k``, ``b_v``), ``ln2`` and ``mlp`` (``w_gate``,
+``w_in``, ``w_out``); ``moe`` holds ``moe`` (``models/moe.py``) in place
+of ``mlp``; ``rglru`` holds ``ln1``, ``rec`` (``models/rglru.py``), ``ln2``
+and ``mlp``; ``mamba`` holds ``ln`` and ``mamba`` (``models/mamba2.py``).
+Each is stored in the dtype in which ``forward`` reads it: ``cfg.dtype``,
+except the names in ``F32_WEIGHTS`` and ``lm_head`` (and ``embed`` when
+tied), which are read in f32.
 
-Decode caches are a list with one ``{"k", "v", "pos"}`` dict per layer,
-k/v ``(B, Hkv, max_len, d)`` in bf16 by default (the reference's default,
-which its engine relies on).  The port writes them in place.
+Decode caches are a list with one entry per layer: ``{"k", "v", "pos"}``
+for attention, k/v ``(B, Hkv, wlen, d)`` in bf16 by default (the
+reference's default, which its engine relies on), ``wlen = max_len``, or
+``min(max_len, window)`` for a hybrid's local attention, a ring buffer;
+``{"h", "conv"}`` for RG-LRU and ``{"ssm", "conv"}`` for Mamba-2.  The port
+writes k/v in place; a recurrent layer's new state replaces its entry, in
+the dtype the reference returns (an f32 model's first call turns the bf16
+conv tails into f32).
 """
 from __future__ import annotations
 
@@ -25,14 +42,23 @@ from ..configs.backend import resolve_device
 from . import layers as ll
 from .config import ModelConfig
 from .layers import init_attention, init_mlp, mlp_layer, normal_init, rms_norm
+from .mamba2 import init_mamba, init_mamba_state, mamba_layer
+from .moe import init_moe, moe_layer
+from .rglru import init_rglru, init_rglru_state, rglru_layer
 
-NOT_PORTED_FAMILIES = ("moe", "ssm", "hybrid", "audio", "vlm")
+# weights read in f32 whatever the compute dtype (besides lm_head and a tied embed)
+F32_WEIGHTS = frozenset({"router", "lru_wa", "lru_wi", "lru_lambda", "lru_ba",
+                         "lru_bi", "a_log", "dt_bias", "d_skip"})
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    if cfg.family in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not "
-                                  f"ported yet; the port runs dense models")
+    if cfg.family == "ssm":
+        return ["mamba"] * cfg.num_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.num_layers
+    if cfg.family == "hybrid":
+        pat = cfg.rglru.pattern
+        return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     return ["attn"] * cfg.num_layers
 
 
@@ -43,6 +69,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
+
+
+def _init_one(generator, cfg: ModelConfig, kind: str, wdt, dev) -> dict:
+    D = cfg.d_model
+
+    def ones():
+        return torch.ones((D,), dtype=wdt, device=dev)
+    if kind == "mamba":
+        return {"ln": ones(), "mamba": init_mamba(generator, cfg, wdt, dev)}
+    if kind == "rglru":
+        return {"ln1": ones(), "rec": init_rglru(generator, cfg, wdt, dev),
+                "ln2": ones(), "mlp": init_mlp(generator, D, cfg.d_ff, wdt, dev)}
+    ffn = ({"moe": init_moe(generator, cfg, wdt, dev)} if kind == "moe" else
+           {"mlp": init_mlp(generator, D, cfg.d_ff, wdt, dev)})
+    return {"ln1": ones(), "attn": init_attention(generator, cfg, wdt, dev),
+            "ln2": ones(), **ffn}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -67,12 +109,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(generator, (cfg.vocab, D), 0.02, head_dt, dev)
-    params["layers"] = [
-        {"ln1": torch.ones((D,), dtype=wdt, device=dev),
-         "attn": init_attention(generator, cfg, wdt, dev),
-         "ln2": torch.ones((D,), dtype=wdt, device=dev),
-         "mlp": init_mlp(generator, D, cfg.d_ff, wdt, dev)}
-        for _ in kinds]
+    if cfg.num_patches:
+        params["patch_proj"] = normal_init(generator, (cfg.patch_dim, D),
+                                           cfg.patch_dim ** -0.5, wdt, dev)
+    params["layers"] = [_init_one(generator, cfg, kind, wdt, dev) for kind in kinds]
     return params
 
 
@@ -91,14 +131,23 @@ def param_tensors(params: dict) -> list[torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> list[dict]:
-    """One ``{"k", "v", "pos"}`` decode cache per layer; ``pos`` holds the
+    """One decode cache per layer.  An attention cache's ``pos`` holds the
     position written to each slot, -1 for an empty one."""
     dev = resolve_device(device)
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim_
-    return [{"k": torch.zeros((batch, Hkv, max_len, hd), dtype=dtype, device=dev),
-             "v": torch.zeros((batch, Hkv, max_len, hd), dtype=dtype, device=dev),
-             "pos": torch.full((max_len,), -1, dtype=torch.int32, device=dev)}
-            for _ in layer_kinds(cfg)]
+
+    def one(kind):
+        if kind == "mamba":
+            return init_mamba_state(cfg, batch, dtype, dev)
+        if kind == "rglru":
+            return init_rglru_state(cfg, batch, dtype, dev)
+        wlen = max_len
+        if kind == "attn" and cfg.rglru is not None:
+            wlen = min(max_len, cfg.rglru.window)   # ring-buffer window cache
+        return {"k": torch.zeros((batch, Hkv, wlen, hd), dtype=dtype, device=dev),
+                "v": torch.zeros((batch, Hkv, wlen, hd), dtype=dtype, device=dev),
+                "pos": torch.full((wlen,), -1, dtype=torch.int32, device=dev)}
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -169,18 +218,28 @@ def _masked_decode_attn(q1, ck, cv, kpos, t, window):
     return out.reshape(B, H, 1, d).to(q1.dtype)
 
 
-def _ffn_block(p, h, cfg):
+def _ffn_block(p, h, cfg, kind):
     x = rms_norm(h, p["ln2"].to(h.dtype), cfg.rms_eps)
+    if kind == "moe":
+        return h + moe_layer(p["moe"], x, cfg)
     return h + mlp_layer(p["mlp"], x)
 
 
 def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
-    """One block.  Returns (h, cache)."""
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    h, st = _attn_block(p, h, cfg, positions=positions, window=None,
+    """One block.  Returns (h, cache): the attention cache written in place,
+    or a recurrent layer's new state."""
+    if kind == "mamba":
+        x = rms_norm(h, p["ln"].to(h.dtype), cfg.rms_eps)
+        out, st = mamba_layer(p["mamba"], x, cfg, cache)
+        return h + out, st
+    if kind == "rglru":
+        x = rms_norm(h, p["ln1"].to(h.dtype), cfg.rms_eps)
+        out, st = rglru_layer(p["rec"], x, cfg, cache)
+        return _ffn_block(p, h + out, cfg, "mlp"), st
+    window = cfg.rglru.window if cfg.rglru is not None else None
+    h, st = _attn_block(p, h, cfg, positions=positions, window=window,
                         cache=cache, pos_scalar=pos_scalar, q_chunk=q_chunk)
-    return _ffn_block(p, h, cfg), st
+    return _ffn_block(p, h, cfg, kind), st
 
 
 # ---------------------------------------------------------------------------
@@ -188,25 +247,33 @@ def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, tokens, cfg: ModelConfig, *, caches=None, pos_scalar=None,
-            q_chunk: int = 512):
+def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
+            pos_scalar=None, q_chunk: int = 512):
     """Returns (hidden (B, T, D), caches).
 
-    tokens: (B, T) integer.  ``caches`` with ``pos_scalar`` and T == 1
-    decodes one token at position ``pos_scalar`` (an int, uniform across
-    the batch); ``caches`` alone prefills them.
+    tokens: (B, T_text) integer.  For a vlm, ``patch_embeds`` (B, P,
+    patch_dim) are projected and prepended (T = P + T_text).  ``caches``
+    with ``pos_scalar`` and T == 1 decodes one token at position
+    ``pos_scalar`` (an int, uniform across the batch); ``caches`` alone
+    prefills them.  Each layer's entry of ``caches`` is replaced by its new
+    state.
     """
     dt = compute_dtype(cfg)
     h = params["embed"][tokens].to(dt)
+    if cfg.num_patches and patch_embeds is not None:
+        pe = patch_embeds.to(dt) @ params["patch_proj"].to(dt)
+        h = torch.cat([pe, h], dim=1)
     B, T, _ = h.shape
     if pos_scalar is not None and T == 1:
         positions = torch.full((B, 1), pos_scalar, dtype=torch.int32, device=h.device)
     else:
         positions = torch.arange(T, dtype=torch.int32, device=h.device)
     for i, kind in enumerate(layer_kinds(cfg)):
-        h, _ = apply_layer(params["layers"][i], h, cfg, kind, positions=positions,
-                           cache=None if caches is None else caches[i],
-                           pos_scalar=pos_scalar, q_chunk=q_chunk)
+        h, st = apply_layer(params["layers"][i], h, cfg, kind, positions=positions,
+                            cache=None if caches is None else caches[i],
+                            pos_scalar=pos_scalar, q_chunk=q_chunk)
+        if caches is not None:
+            caches[i] = st
     h = rms_norm(h, params["final_norm"].to(dt), cfg.rms_eps)
     return h, caches
 

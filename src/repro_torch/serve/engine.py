@@ -1,10 +1,12 @@
 """Serving: prefill and decode steps and a batched greedy-decode engine.
 
-The reference's ``serve/engine.py`` for one card.  ``make_serve_fns``
-returns plain callables (PyTorch runs eagerly; there is no ``jit``), and
-both steps run under ``torch.inference_mode()``.  Prefill attention runs
-a flash-attention kernel on the card (``models.layers.attention_core``);
-decode attends over the bf16 KV cache in plain PyTorch.
+The reference's ``serve/engine.py`` for one card, every family of its
+registry.  ``make_serve_fns`` returns plain callables (PyTorch runs
+eagerly; there is no ``jit``), and both steps run under
+``torch.inference_mode()``.  Prefill attention runs a flash-attention
+kernel on the card (``models.layers.attention_core``); decode attends over
+the bf16 KV cache, and recurrent layers step their states, in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -19,9 +21,13 @@ from ..models.transformer import forward, init_cache, param_tensors, unembed
 
 
 @torch.inference_mode()
-def prefill_step(params, tokens, caches, cfg: ModelConfig, q_chunk: int = 512):
-    """Process the prompt, fill the caches.  Returns (last_logits, caches)."""
-    h, caches = forward(params, tokens, cfg, caches=caches, q_chunk=q_chunk)
+def prefill_step(params, tokens, caches, cfg: ModelConfig, patch_embeds=None,
+                 q_chunk: int = 512):
+    """Process the prompt, fill the caches.  Returns (last_logits, caches).
+
+    A vlm's ``patch_embeds`` (B, P, patch_dim) go before the text tokens."""
+    h, caches = forward(params, tokens, cfg, patch_embeds=patch_embeds,
+                        caches=caches, q_chunk=q_chunk)
     logits = unembed(params, h[:, -1:], cfg)[:, 0]
     return logits, caches
 
@@ -62,7 +68,8 @@ class ServeEngine:
         """Greedy-decode ``max_new`` tokens for a batch of equal-length
         prompts.  Returns (B, max_new) int32, the reference's loop: the
         position is uniform across the batch and ``argmax`` takes the first
-        index on ties."""
+        index on ties.  Text only, as the reference's: a vlm's patches
+        enter through :func:`prefill_step`."""
         B, T = prompts.shape
         if T + max_new > self.max_len:
             raise ValueError(f"{T} prompt + {max_new} new tokens exceed "

@@ -7,8 +7,9 @@ refusal of rank options that do not fit) and
 against the direct sum), ``examples/torch_fmm_serve_demo.py`` (the
 four-tenant serving drill on four ranks, at the reference drill's
 arguments), ``examples/torch_partition_demo.py`` (the paper's Fig 5
-partition map, the reference demo's output line for line) and the serving
-CLI on two ranks."""
+partition map, the reference demo's output line for line), the serving
+CLI on two ranks, and ``examples/torch_serve_lm.py`` (greedy decoding of a
+smoke model of each LM family)."""
 import os
 import subprocess
 import sys
@@ -115,3 +116,15 @@ def test_fmm_serve_cli_on_two_ranks_on_cpu():
     assert "== fmm_serve: 2 rank(s) on cpu" in r.stdout
     assert "jit_entries=" in r.stdout
     assert r.stdout.rstrip().endswith("== fmm_serve: OK")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "recurrentgemma-2b",
+                                  "mamba2-1.3b", "musicgen-large", "internvl2-26b"])
+def test_torch_serve_lm_on_cpu(arch):
+    """The port of ``examples/serve_lm.py``, one arch of each family beyond
+    dense, at its smoke config."""
+    r = _run("torch_serve_lm.py", "--arch", arch, "--batch", "2", "--new", "4",
+             "--device", "cpu", timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "generated (first seq):" in r.stdout and "device=cpu" in r.stdout
+    assert r.stdout.rstrip().endswith("OK")

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "launch/trace_analysis.py", "analysis/__init__.py",
                    "analysis/check.py", "analysis/contracts.py",
                    "analysis/lint.py", "analysis/retrace.py",
-                   "analysis/schedule.py"):
+                   "analysis/schedule.py", "models/moe.py", "models/rglru.py",
+                   "models/mamba2.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -48,8 +49,9 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_port_examples_import_no_jax_and_no_reference():
     files = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(files) == 5
-    for example in ("torch_fmm_serve_demo.py", "torch_partition_demo.py"):
+    assert len(files) == 6
+    for example in ("torch_fmm_serve_demo.py", "torch_partition_demo.py",
+                    "torch_serve_lm.py"):
         assert ROOT / "examples" / example in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)

@@ -30,7 +30,6 @@ from repro_torch.configs.codeqwen15_7b import SMOKE_CONFIG as CODEQWEN_SMOKE
 from repro_torch.configs.yi_6b import SMOKE_CONFIG as YI_SMOKE
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as tt
-from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import ServeEngine, make_serve_fns
 
@@ -222,13 +221,30 @@ def test_engine_refuses_a_prompt_past_max_len():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "codeqwen1.5-7b"])
+# the reference's own init_params, counted by jax.eval_shape; cfg.param_count
+# is analytic and crude for two families (every hybrid layer counted as
+# attention + MLP; Mamba-2's d_skip and conv_b left out)
+PARAM_COUNTS = {"recurrentgemma-2b": (3_549_888_000, 3_219_264_000),
+                "mamba2-1.3b": (1_446_714_368, 1_446_502_400)}
+
+
+LM_ARCHS = ["qwen3-moe-235b-a22b", "granite-moe-1b-a400m", "command-r-35b",
+            "codeqwen1.5-7b", "yi-6b", "qwen1.5-32b", "recurrentgemma-2b",
+            "musicgen-large", "internvl2-26b", "mamba2-1.3b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_full_width_param_count(arch):
-    """Full-width parameters on the meta device: no memory is touched."""
+    """Full-width parameters on the meta device (no memory is touched)
+    against the reference's ``init_params`` under ``jax.eval_shape``."""
     cfg = registry.get_config(arch)
     params = tt.init_params(cfg, torch.Generator(), "meta")
     n = sum(t.numel() for t in tt.param_tensors(params))
-    assert n == cfg.param_count
+    from repro.configs.registry import get_config as jget
+    shapes = jax.eval_shape(lambda k: jt.init_params(k, jget(arch)), jax.random.PRNGKey(0))
+    assert n == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+    real, analytic = PARAM_COUNTS.get(arch, (n, n))
+    assert (n, cfg.param_count) == (real, analytic)
     if arch == "yi-6b":
         assert n == 6_061_035_520
 
@@ -244,26 +260,21 @@ def test_converted_params_are_stored_as_forward_reads_them():
 
 
 def test_configs_are_the_reference_configs():
+    from repro.configs.registry import get_config as jget
+    from repro.configs.registry import get_smoke_config as jsmoke
     for tcfg, jcfg in SMOKES.values():
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    for arch in ("yi-6b", "codeqwen1.5-7b"):
-        from repro.configs.registry import get_config as jget
+    from repro.configs.registry import ARCHS as J_ARCHS
+    assert registry.ARCHS == J_ARCHS
+    assert [registry.canonical(a) for a in LM_ARCHS] == registry.lm_archs()
+    for arch in LM_ARCHS:
         assert dataclasses.asdict(registry.get_config(arch)) == dataclasses.asdict(jget(arch))
+        assert (dataclasses.asdict(registry.get_smoke_config(arch))
+                == dataclasses.asdict(jsmoke(arch)))
     assert registry.get_config("petfmm-vortex").p == 17
 
 
-@pytest.mark.parametrize("arch,family", [("qwen3-moe-235b-a22b", "moe"),
-                                         ("mamba2-1.3b", "ssm"),
-                                         ("recurrentgemma-2b", "hybrid"),
-                                         ("command-r-35b", "dense")])
-def test_unported_archs_raise_naming_their_family(arch, family):
-    with pytest.raises(NotImplementedError, match=f"family {family}"):
+@pytest.mark.parametrize("arch", ["gpt-2", "yi_7b", "mamba"])
+def test_unknown_arch_raises_key_error(arch):
+    with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config(arch)
-
-
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "audio", "vlm"])
-def test_unported_families_raise(family):
-    cfg = ModelConfig(name="x", family=family, num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=2, d_ff=16, vocab=32)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tt.layer_kinds(cfg)
