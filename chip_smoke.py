@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the paper's FMM configuration
 (vortex steps, the sharded driver and stepper on 4 ranks sharing the card,
 Laplace and tracer evaluations, the host-side planner, the FMM service with
-its batched buckets), Yi-6B serving at full width, and every other LM
-family of the registry served at full width.
+its batched buckets), Yi-6B serving at full width, every other LM family of
+the registry served at full width, and training: Yi-6B at full width (8 of
+32 layers) and a step of each recurrent family.
 
 Run from the repository root with no arguments (``--seed`` seeds phase
 fmm_serve's jobs, 0 by default):
@@ -224,7 +225,40 @@ Phases, each printing one JSON line:
               decode ms a step, tokens per second, peak bytes, the
               parameter count (equal to the port's ``init_params`` on the
               meta device) and torch.profiler's device time by kernel over
-              one more prefill and one decode step.
+              one more prefill and one decode step.  mamba2-1.3b's gate also
+              runs its forced forward in f64 and prints how far the f32
+              decode and the f32 forced forward (one 2055-position chunk)
+              each sit from it;
+9c. attn_grad — the flash kernel inside autograd
+              (``ops.flash_attention_with_grad``) at Yi-6B's training
+              attention (4, 32, 4, 2048, 128) on the model's views, bf16
+              (``tc``) and f32 (``tf32``): the kernel's forward against
+              ``attention_core_plain``'s within ``ATTN_TOL``; q, k, v
+              gradients against the plain version's within
+              ``ATTN_GRAD_TOL`` (plain against plain, since the backward
+              recomputes it: this checks the wiring, and the gate must
+              refuse the gradients of the unmasked plain version); one
+              launch of the route, forward plus backward timed beside the
+              plain version's and SDPA's;
+    train   — Yi-6B at full width, 8 of 32 layers, bf16 weights and f32
+              AdamW moments, one fixed batch of 4 x 2048 tokens from the
+              port's pipeline: 8 steps of ``make_train_step`` (remat, lr
+              1e-3, warmup 1), then one with two microbatches.  Gates: step
+              0's loss within 1.0 of ln(64000); every loss finite and the
+              last of the 8 at least ``TRAIN_MARGIN`` below the first;
+              exactly 16 ``tc`` launches a microbatch (forward and remat's
+              recompute) and no other flash launch; every layer's ``w_q``,
+              ``w_k``, ``w_v`` with a finite nonzero gradient, and a planted
+              fault (attention calling ``ops.flash_attention`` outside
+              autograd) caught by that gate with every ``w_q`` gradient
+              zero.  Prints each step's loss, ms and tokens per second, peak
+              bytes, one step's device profile, and the plain attention
+              backward's and ``lm_loss``'s shares of a step;
+    train_families — one remat step (gradient, then AdamW) each of
+              recurrentgemma-2b and mamba2-1.3b at published widths and
+              depths, batch 2 x 2048: loss and gradients finite, every
+              ``lru_lambda`` and ``a_log`` gradient nonzero, recurrentgemma's
+              8 local-attention layers exactly 16 ``tc`` launches.
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, and again for the stepper's four steps in phase 4b, for
@@ -235,8 +269,9 @@ sharded stepper's steps, on each rank of phase 4d around each step, the
 drain of phase fmm_serve_wide, each gated evaluation of phase 5 for P2P's Laplace and
 passive modes, ``step_all`` in phases 8 and 9 and each serve of phase 9b
 for the tensor-core flash kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
-kernels at d = 256 and its f32 d = 32 call for the simt one) and read
-right after it: every kernel must have run there.  Then come the card's
+kernels at d = 256 and its f32 d = 32 call for the simt one, each gradient
+check of phase attn_grad, each step of phase train and each of phase
+train_families) and read right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -247,6 +282,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -281,8 +317,14 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
-                                             param_tensors, unembed)
+                                             lm_loss, param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.data.pipeline import PipelineState, make_inputs  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.models.layers import attention_core_plain  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state  # noqa: E402
+from repro_torch.train.loop import (make_loss_fn, make_train_step, unflatten,  # noqa: E402
+                                    value_and_grad)
 from repro_torch.serve import fmm_service as svc  # noqa: E402
 from repro_torch.launch import supervisor as sv  # noqa: E402
 from repro_torch.parallel import resilience as rz  # noqa: E402
@@ -455,6 +497,27 @@ FAMILY_RUNS = [("granite-moe-1b-a400m", None, 24, False),
                ("command-r-35b", 2, 2, False),
                ("qwen1.5-32b", 2, 2, False)]
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 2048, 8
+# phase train: Yi-6B (arXiv:2403.04652) at its published widths in bf16, cut
+# to 8 of 32 layers for memory (weights, gradients and f32 AdamW moments:
+# 24.0 GB at 8 layers, 73.7 GB of the card's 80 at 32, before activations);
+# one fixed batch of 4 x 2048 tokens from the port's pipeline
+TRAIN_ARCH, TRAIN_LAYERS = "yi-6b", 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+TRAIN_LOSS0_TOL = 1.0     # step 0's loss within this of ln(vocab): random tokens
+TRAIN_MARGIN = 3.0        # the last step's loss at least this far below the first
+# the flash kernel inside autograd at the training attention (4, 32, 4, 2048,
+# 128): its forward is held to attention_core_plain's within ATTN_TOL (the
+# kernel's own gate); its q, k, v gradients, rel L2, check only the wiring
+# (the views, the KV heads' sum, the dtypes): the backward recomputes the
+# plain version, so both sides are plain f32 sums rounded once to the dtype
+# (measured 1.0e-4 in bf16, 2.3e-6 in f32 on an H100); the gate must refuse
+# the gradients of the unmasked plain version
+ATTN_GRAD_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# the recurrent families whose layers are now differentiable: one remat step
+# each at published widths and depths, batch 2 x 2048
+TRAIN_FAMILIES = ["recurrentgemma-2b", "mamba2-1.3b"]
+TRAIN_FAMILY_BATCH = 2
 
 
 def emit(obj) -> None:
@@ -2180,7 +2243,7 @@ def cast_(tree, dtype) -> None:
             cast_(v, dtype)
 
 
-def decode_gate(engine, prompts, out, chose_last, patches=None) -> dict:
+def decode_gate(engine, prompts, out, chose_last, patches=None, f64: bool = False) -> dict:
     """Hold ``chose_last``, the decode logits that chose ``out[:, -1]``, to
     a teacher-forced ``forward`` over prompt + ``out[:, :-1]`` (the same
     patches first): rel L2 within ``SERVE_TOL``, every logit finite.
@@ -2188,7 +2251,12 @@ def decode_gate(engine, prompts, out, chose_last, patches=None) -> dict:
     The gate must also refuse a planted fault: the same decode step on a
     cache that never saw the prompt (a KV cache or recurrent state not
     carried from prefill into decode) must land further than ``SERVE_TOL``
-    from the forced logits."""
+    from the forced logits.
+
+    With ``f64`` the forced forward runs once more in f64 (the weights cast
+    in place, the engine not used again), and the record says how far the
+    f32 decode and the f32 forced forward each sit from it: which side
+    carries the decode-vs-forced distance."""
     params, cfg, dev = engine.params, engine.cfg, engine.device
     n_patches = 0 if patches is None else patches.shape[1]
     full = torch.cat([torch.as_tensor(prompts, device=dev),
@@ -2207,20 +2275,33 @@ def decode_gate(engine, prompts, out, chose_last, patches=None) -> dict:
     require(fault_err > SERVE_TOL, f"{cfg.name}: decode on a cache that never saw the "
             f"prompt is {fault_err} from the teacher-forced logits, within the gate "
             f"{SERVE_TOL}")
-    return {"rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
-            "forced_tokens": full.shape[1] + n_patches,
-            "last_token_agreement_info": float(
-                (forced.argmax(-1).cpu().numpy() == out[:, -1]).mean()),
-            "fault_rel_l2_fresh_cache": fault_err}
+    record = {"rel_l2_decode_vs_forced": err, "gate": SERVE_TOL,
+              "forced_tokens": full.shape[1] + n_patches,
+              "last_token_agreement_info": float(
+                  (forced.argmax(-1).cpu().numpy() == out[:, -1]).mean()),
+              "fault_rel_l2_fresh_cache": fault_err}
+    if f64:
+        t0 = time.perf_counter()
+        cast_(params, torch.float64)
+        forced64 = teacher_forced(params, dataclasses.replace(
+            cfg, dtype="float64", score_dtype="float64"), full,
+            None if patches is None else patches.double())
+        record["f64_forced"] = {
+            "rel_l2_decode_f32_vs_f64": rel_l2(chose_last.double(), forced64),
+            "rel_l2_forced_f32_vs_f64": rel_l2(forced.double(), forced64),
+            "seconds": time.perf_counter() - t0}
+        del forced64
+    return record
 
 
 def serve_once(dev, params, cfg, prompts, new, max_len, *, patches=None,
-               gate: bool = True, profile: bool = False):
+               gate: bool = True, profile: bool = False, f64: bool = False):
     """Serve ``prompts`` behind ``ServeEngine`` (``step_all``, or with
     ``patches`` the vlm loop over ``prefill_step``/``decode_step``) after a
     2-token warm-up, the flash counters zeroed just before and read just
     after.  Every logit must be finite and every token in range; with
-    ``gate``, ``decode_gate`` holds the decode to a teacher-forced forward.
+    ``gate``, ``decode_gate`` holds the decode to a teacher-forced forward
+    (and with ``f64`` also to the same forward in f64).
     With ``profile``, one more prefill and one decode step run under
     torch.profiler (``device_profile``).  Returns (record, flash launches,
     engine)."""
@@ -2296,7 +2377,7 @@ def serve_once(dev, params, cfg, prompts, new, max_len, *, patches=None,
         del caches
     if gate:
         # logits_seen[-2]: the decode step that produced out[:, -1]
-        record.update(decode_gate(engine, prompts, out, logits_seen[-2], patches))
+        record.update(decode_gate(engine, prompts, out, logits_seen[-2], patches, f64))
     return record, launches, engine
 
 
@@ -2333,7 +2414,8 @@ def serve_families_phase(dev) -> dict:
     teacher-forced forward at the fixed ``SERVE_TOL``.  An MoE model is
     gated at batch 1 and capacity factor E / k: a token's k experts are
     distinct, so capacity N over N tokens drops nothing in decode or in
-    the forced forward.  Returns the tc and tf32 launches made."""
+    the forced forward.  The SSM's gate also runs the forced forward in f64
+    (``decode_gate``'s ``f64``).  Returns the tc and tf32 launches made."""
     rows, tc, tf32, tf32_d256 = [], 0, 0, 0
     for arch, layers, want, patches in FAMILY_RUNS:
         full = get_config(arch)
@@ -2370,7 +2452,7 @@ def serve_families_phase(dev) -> dict:
                     f"{arch}: capacity {moe.capacity(forced_n, cfg32)} < {forced_n}")
         gated, l32, engine = serve_once(dev, params, cfg32, prompts[:n], FAMILY_NEW,
                                         max_len, patches=None if pe is None
-                                        else pe[:n].float())
+                                        else pe[:n].float(), f64=cfg.family == "ssm")
         del engine
         require(l32 == {"tc": 0, "tf32": want, "simt": 0},
                 f"{arch}: f32 flash launches in one prefill {l32}, expected {want} "
@@ -2608,6 +2690,255 @@ def analysis_phase(card: str) -> dict:
                        for k, v in summary.items()}, "violations": bad})
     require(not bad, f"analysis: violations {bad}")
     return summary
+
+
+def attention_grad_state(grads: dict) -> dict:
+    """Which layers' ``w_q``, ``w_k``, ``w_v`` lack a finite nonzero
+    gradient, and how many layers' ``w_q`` gradient is exactly zero."""
+    bad, zero_w_q = [], 0
+    for i, layer in enumerate(grads["layers"]):
+        for name in ("w_q", "w_k", "w_v"):
+            g = layer["attn"][name]
+            if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+                bad.append(f"layers/{i}/attn/{name}")
+        zero_w_q += int(not bool(layer["attn"]["w_q"].any()))
+    return {"lacking": bad, "layers_with_zero_w_q": zero_w_q}
+
+
+def train_step_row(step, params, state, batch, tokens: int) -> tuple:
+    """One train step, the flash counters zeroed just before and read just
+    after; host ms around it, ending in a sync."""
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    metrics = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return params, state, {**metrics, "step_ms": ms, "tok_per_s": tokens / (ms / 1e3),
+                           "flash_launches": flash_counts()}
+
+
+def train_phase(dev, card) -> dict:
+    """Phase train: Yi-6B at full width, 8 of 32 layers, bf16 weights with
+    f32 AdamW moments, on one fixed batch of 4 x 2048 tokens: 8 steps of
+    ``make_train_step`` (remat), then one with two microbatches.  Gates:
+    step 0's loss within 1.0 of ln(vocab); every loss finite and the last
+    of the 8 at least ``TRAIN_MARGIN`` below the first; exactly 16 ``tc``
+    launches a microbatch (8 layers, forward and remat's recompute) and no
+    other flash launch; every layer's ``w_q``, ``w_k``, ``w_v`` with a
+    finite nonzero gradient, and a planted fault (attention calling
+    ``ops.flash_attention`` outside autograd, as before the port trained)
+    caught by that gate with every ``w_q`` gradient exactly zero.  Returns
+    the ``tc`` launches of the steps."""
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    params, _, init_s, n_params = random_model(cfg, dev)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    state = init_state(params, opt_cfg)
+    batch = make_inputs(PipelineState(seed=0, step=0), cfg,
+                        ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH), dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    step = make_train_step(cfg, opt_cfg)
+    for _ in range(TRAIN_STEPS):
+        params, state, row = train_step_row(step, params, state, batch, tokens)
+        rows.append(row)
+    params, state, row2 = train_step_row(make_train_step(cfg, opt_cfg, num_microbatches=2),
+                                         params, state, batch, tokens)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in rows]
+    for i, r in enumerate(rows):
+        print(f"train {cfg.name} x{TRAIN_LAYERS} step {i}: loss {r['loss']:.4f} "
+              f"{r['step_ms']:.1f} ms {r['tok_per_s']:.0f} tok/s", flush=True)
+    per_mb = {"tc": 2 * TRAIN_LAYERS, "tf32": 0, "simt": 0}
+
+    # (d) and (e): the gradient of every attention weight, then the planted fault
+    loss_fn = make_loss_fn(cfg)
+    zero_flash_counts()
+    _, g = value_and_grad(loss_fn, params, batch)
+    real = attention_grad_state(unflatten(params, g))
+    del g
+    own = ops.flash_attention_with_grad
+    ops.flash_attention_with_grad = lambda q, k, v, causal=True: ops.flash_attention(
+        q, k, v, causal=causal)
+    try:
+        _, g = value_and_grad(loss_fn, params, batch)
+    finally:
+        ops.flash_attention_with_grad = own
+    fault = attention_grad_state(unflatten(params, g))
+    del g
+
+    # where a step's device time goes: one more step under the profiler, and
+    # the plain attention backward and lm_loss alone at the step's shapes
+    profile = device_profile(lambda: step(params, state, batch), share_of=("flash_attn_tc",))
+    steady = sorted(r["step_ms"] for r in rows[1:])[len(rows[1:]) // 2]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    B, H, Hkv, d = TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = (torch.randn((B, TRAIN_SEQ, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2).requires_grad_() for h in (H, Hkv, Hkv))
+    cot = torch.randn((B, H, TRAIN_SEQ, d), generator=gen, device=dev).to(torch.bfloat16)
+    attn_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        flash_attn.flash_attention_plain(q, k, v), (q, k, v), cot), iters=3, warmup=1)
+    del q, k, v, cot
+    hidden = torch.randn((B, TRAIN_SEQ, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    W = params["lm_head"].detach().requires_grad_()
+    loss_ms = cuda_ms(lambda: torch.autograd.grad(
+        lm_loss({"lm_head": W}, hidden, batch["labels"], cfg), (hidden, W)), iters=3, warmup=1)
+    del hidden, W
+    shares = {"steady_step_ms": steady,
+              "plain_attention_backward_ms_one_layer": attn_bwd_ms,
+              "plain_attention_backward_share_of_step": TRAIN_LAYERS * attn_bwd_ms / steady,
+              "lm_loss_fwd_bwd_ms": loss_ms, "lm_loss_share_of_step": loss_ms / steady,
+              "how": "each alone at the step's shapes (CUDA events, bf16 q, k, v of the "
+                     "training attention; lm_loss forward and backward), 8 attention "
+                     "backwards a step, over the median step ms of steps 1-7"}
+    record = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+              "of_layers": full.num_layers, "params": n_params, "init_params_s": init_s,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "opt": TRAIN_OPT, "card": card,
+              "losses": losses, "first_step_ms": rows[0]["step_ms"],
+              "steady_step_ms": steady, "steady_tok_per_s": tokens / (steady / 1e3),
+              "steps": rows, "two_microbatches": row2, "peak_bytes": peak,
+              "ln_vocab": math.log(cfg.vocab), "margin_gate": TRAIN_MARGIN,
+              "grads": real, "planted_fault": fault, "shares": shares,
+              "profile": profile}
+    emit({"phase": "train", **record})
+    require(abs(losses[0] - math.log(cfg.vocab)) <= TRAIN_LOSS0_TOL,
+            f"train: step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of "
+            f"ln({cfg.vocab}) = {math.log(cfg.vocab)}")
+    require(all(math.isfinite(x) for x in losses + [row2["loss"]]),
+            f"train: a loss is not finite: {losses}, {row2['loss']}")
+    require(losses[-1] <= losses[0] - TRAIN_MARGIN,
+            f"train: the loss fell from {losses[0]} to {losses[-1]}, less than "
+            f"{TRAIN_MARGIN}")
+    for i, r in enumerate(rows):
+        require(r["flash_launches"] == per_mb, f"train step {i}: flash launches "
+                f"{r['flash_launches']}, expected {per_mb}")
+    require(row2["flash_launches"] == {r: 2 * n for r, n in per_mb.items()},
+            f"train, two microbatches: flash launches {row2['flash_launches']}")
+    require(not real["lacking"], f"train: no finite nonzero gradient at {real['lacking']}")
+    require(fault["lacking"] and fault["layers_with_zero_w_q"] == TRAIN_LAYERS,
+            f"train: the planted fault (attention outside autograd) was not caught: "
+            f"{fault}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "train_summary", "seconds": time.perf_counter() - t_phase})
+    return {"tc": sum(r["flash_launches"]["tc"] for r in rows) + row2["flash_launches"]["tc"]}
+
+
+def check_attn_grad(dtype, gen) -> dict:
+    """The flash kernel inside autograd against the plain version, both on
+    the card, at the training attention shape on the model's ``(B, T, H, d)
+    -> (B, H, T, d)`` views: gradients of q, k and v under one random
+    cotangent, exactly one launch of the dtype's route, and the forward
+    plus backward timed beside the plain version's and SDPA's."""
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    B, H, Hkv, T, d = TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, cfg.head_dim_
+    q, k, v = (torch.randn((B, T, h, d), generator=gen, device=dev).to(dtype)
+               .transpose(1, 2).requires_grad_() for h in (H, Hkv, Hkv))
+    cot = torch.randn((B, H, T, d), generator=gen, device=dev)
+
+    def grads(attn):
+        out = attn(q, k, v)
+        return (out.detach(), *torch.autograd.grad((out.float() * cot).sum(), (q, k, v)))
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    out, *got = grads(ops.flash_attention_with_grad)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    want_out, *want = grads(attention_core_plain)
+    route = "tc" if dtype == torch.bfloat16 else "tf32"
+    require(launches == {r: int(r == route) for r in launches},
+            f"the kernel in autograd ({dtype}) launched {launches}")
+    fwd_err = rel_l2(out.float(), want_out.float())
+    require(out.dtype == dtype and fwd_err <= ATTN_TOL[dtype],
+            f"the kernel in autograd ({dtype}): forward vs the plain version's, rel L2 "
+            f"{fwd_err} > {ATTN_TOL[dtype]}")
+    errs = [rel_l2(a.float(), b.float()) for a, b in zip(got, want)]
+    require(all(a.dtype == dtype and bool(torch.isfinite(a).all()) for a in got),
+            f"the kernel in autograd ({dtype}): gradient dtypes or values")
+    require(max(errs) <= ATTN_GRAD_TOL[dtype], f"the kernel in autograd ({dtype}): "
+            f"q, k, v gradients vs the plain version's, rel L2 {errs} > "
+            f"{ATTN_GRAD_TOL[dtype]}")
+    # the gate must refuse a miswired backward: the gradients without the mask
+    _, *fault = grads(lambda q, k, v: attention_core_plain(q, k, v, causal=False))
+    fault_errs = [rel_l2(a.float(), b.float()) for a, b in zip(fault, want)]
+    require(min(fault_errs) > ATTN_GRAD_TOL[dtype], f"the kernel in autograd ({dtype}): "
+            f"gradients without the causal mask within the gate, rel L2 {fault_errs}")
+    del fault
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(H // Hkv, dim=1), v.repeat_interleave(H // Hkv, dim=1),
+            is_causal=True)
+    row = {"name": "flash_attention_with_grad", "route": route, "dtype": str(dtype),
+           "shape": [B, H, Hkv, T, T, d], "launches": launches,
+           "rel_l2_forward": fwd_err, "gate_forward": ATTN_TOL[dtype],
+           "rel_l2_q_k_v": errs, "gate": ATTN_GRAD_TOL[dtype],
+           "fault_rel_l2_q_k_v_unmasked": fault_errs,
+           "fwd_bwd_ms": cuda_ms(lambda: grads(ops.flash_attention_with_grad), iters=3),
+           "plain_fwd_bwd_ms": cuda_ms(lambda: grads(attention_core_plain), iters=3),
+           "library_fwd_bwd_ms": cuda_ms(lambda: grads(sdpa), iters=3)}
+    emit({"phase": "attn_grad", **row})
+    del q, k, v, cot, out, got, want_out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_families_phase(dev) -> dict:
+    """One remat step (the gradient, then AdamW) each of the recurrent
+    families at their published widths and depths in bf16, batch 2 x 2048:
+    loss and every gradient finite, every RG-LRU ``lru_lambda`` and SSD
+    ``a_log`` gradient nonzero, and the hybrid's local attention (its window
+    covers the sequence) on the ``tc`` kernel twice a layer.  Returns the
+    ``tc`` launches."""
+    tc = 0
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        params, _, init_s, n_params = random_model(cfg, dev)
+        opt_cfg = AdamWConfig(**TRAIN_OPT)
+        state = init_state(params, opt_cfg)
+        batch = make_inputs(PipelineState(seed=0, step=0), cfg,
+                            ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_FAMILY_BATCH), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(make_loss_fn(cfg), params, batch)
+        params, state, m = apply_updates(params, unflatten(params, g), state, opt_cfg)
+        loss, gnorm = float(loss), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, peak = flash_counts(), torch.cuda.max_memory_allocated()
+        grads = unflatten(params, g)
+        recurrent = [(f"layers/{i}/{blk}/{name}", layer[blk][name])
+                     for i, layer in enumerate(grads["layers"])
+                     for blk, name in (("rec", "lru_lambda"), ("mamba", "a_log"))
+                     if blk in layer]
+        attn_layers = sum(k == "attn" for k in transformer.layer_kinds(cfg))
+        row = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+               "params": n_params, "init_params_s": init_s, "batch": TRAIN_FAMILY_BATCH,
+               "seq": TRAIN_SEQ, "loss": loss, "grad_norm": gnorm, "step_ms": ms,
+               "tok_per_s": TRAIN_FAMILY_BATCH * TRAIN_SEQ / (ms / 1e3), "peak_bytes": peak,
+               "flash_launches": launches, "recurrent_params": len(recurrent),
+               "recurrent_grad_min_abs_max": min(float(t.abs().max()) for _, t in recurrent)}
+        emit({"phase": "train_families", **row})
+        require(math.isfinite(loss) and all(bool(torch.isfinite(t).all()) for t in g),
+                f"{arch}: a non-finite loss ({loss}) or gradient")
+        zero = [n for n, t in recurrent if not float(t.abs().max()) > 0]
+        require(recurrent and not zero, f"{arch}: zero recurrent gradients at {zero}")
+        want = {"tc": 2 * attn_layers, "tf32": 0, "simt": 0}
+        require(launches == want, f"{arch}: flash launches {launches}, expected {want}")
+        tc += launches["tc"]
+        del params, state, batch, g, grads, recurrent
+        torch.cuda.empty_cache()
+    return {"tc": tc}
 
 
 def main() -> None:
@@ -2888,6 +3219,13 @@ def main() -> None:
     launches["flash_attn_tf32"] += families["tf32"]
     launches["flash_attn_tf32_d256"] += families["tf32_d256"]
 
+    # -- 9c. main path: training; the flash kernel inside autograd -----------
+    attn_grad = [check_attn_grad(dt, gen) for dt in (torch.bfloat16, torch.float32)]
+    launches["flash_attn"] += attn_grad[0]["launches"]["tc"]
+    launches["flash_attn_tf32"] += attn_grad[1]["launches"]["tf32"]
+    launches["flash_attn"] += train_phase(dev, card)["tc"]
+    launches["flash_attn_d256"] += train_families_phase(dev)["tc"]
+
     # -- 10. card, kernels line, result --------------------------------------
     def entry(rows, name, source, replaces, **extra):
         r = rows[0]
@@ -2912,7 +3250,9 @@ def main() -> None:
             "launches_counted_in": "phase 7: one ops.flash_attention call at "
                                    f"recurrentgemma-2b's attention, {dtype}" + (
                                        "; phase serve_families: recurrentgemma-2b's "
-                                       f"prefill in {dtype} (8 local-attention layers)")}
+                                       f"prefill in {dtype} (8 local-attention layers)" + (
+                                           "; phase train_families: recurrentgemma-2b's "
+                                           "remat step (16)" if dtype == "bf16" else ""))}
 
     def mode_entry(rows, counts, mode, counted_in):
         r = rows[0]
@@ -2992,13 +3332,19 @@ def main() -> None:
                                   "serve_families: the bf16 prefills of granite-moe, "
                                   "qwen3-moe, recurrentgemma-2b (d = 256), "
                                   "musicgen-large, internvl2-26b, command-r-35b and "
-                                  "qwen1.5-32b",
+                                  "qwen1.5-32b; phase attn_grad: one bf16 call in "
+                                  "autograd; phase train: 16 a step of 8-layer Yi-6B "
+                                  "(forward and remat's recompute), 32 in its "
+                                  "two-microbatch step",
+              attn_grad=attn_grad[0],
               head_dim_256=d256_block(tc_rows[1], "flash_attn_d256", "bf16")),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
               "src/repro/kernels/flash_attn.py:32",
               launches_counted_in="phase 9: step_all of 2-layer f32 Yi-6B (d = 128); "
                                   "phase serve_families: the f32 prefills of the gated "
-                                  "runs (the same seven models, the MoE ones at batch 1)",
+                                  "runs (the same seven models, the MoE ones at batch 1); "
+                                  "phase attn_grad: one f32 call in autograd",
+              attn_grad=attn_grad[1],
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"],
               head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),
         entry(simt_rows, "flash_attn_simt", "src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -6,7 +6,9 @@ renamed atomically to ``step_<n>`` once complete, plus a ``LATEST`` pointer
 file written last.  A tree is a nested dict, list or tuple of tensors or
 arrays; its npz keys are the leaves' paths joined by ``/``, dict keys in
 sorted order and sequence positions as their index, as ``jax.tree_util``
-spells them.  A crash mid-save never corrupts the previous checkpoint;
+spells them.  numpy has no bf16: a bf16 tensor is written widened to f32
+(exactly) and read back as f32, for the caller to round to bf16 again
+(exactly).  A crash mid-save never corrupts the previous checkpoint;
 restore reads ``LATEST``, falling back to the newest complete step
 directory when ``LATEST`` is missing, corrupt, or dangling.
 
@@ -64,16 +66,22 @@ def _leaves(tree, prefix=()):
 
 
 def to_host(leaf) -> np.ndarray:
-    """One copy of a device tensor to host memory; arrays pass through."""
+    """A copy of a tensor or array in host memory (bf16 widened to f32),
+    never a view of it: an async save writes the copy while training
+    updates the tensor in place, also when the tensor already lies on the
+    CPU."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        dt = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return leaf.detach().to("cpu", dt, copy=True).numpy()
+    return np.array(leaf)
 
 
 def numpy_dtype(leaf) -> np.dtype:
-    """The numpy dtype of a tensor or array, without copying it."""
+    """The numpy dtype of a tensor or array as :func:`to_host` gives it,
+    without copying it."""
     if isinstance(leaf, torch.Tensor):
-        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+        dt = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return torch.empty((), dtype=dt).numpy().dtype
     return np.asarray(leaf).dtype
 
 
@@ -119,7 +127,7 @@ class CheckpointManager:
 
     def save(self, step: int, trees: dict[str, Any], meta: Optional[dict] = None):
         """trees: name -> nested dict/list/tuple of tensors or arrays.
-        Blocks only to copy them to host memory.
+        Blocks only to copy them to host memory (a copy on the CPU too).
 
         An exception from a previous async save surfaces HERE (or in
         :meth:`wait`) rather than dying silently in the writer thread."""

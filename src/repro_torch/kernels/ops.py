@@ -7,6 +7,8 @@ fallback from one to the other.  The M2L wrappers come in the grid form
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
 ``flash_attention`` serves the LM's prefill attention; it picks one of its
 three kernels by ``flash_attn.route`` (device, dtype, head dim).
+``flash_attention_with_grad`` is the same call inside autograd, for
+training.
 
 Every P2P and M2L wrapper passes a leading batch axis through to its
 kernel: a batch of grids is one launch, and one count.
@@ -124,3 +126,30 @@ def flash_attention(q, k, v, causal: bool = True):
     if which == "tf32":
         return _fa.flash_attention_tf32(q, k, v, causal=causal)
     return _fa.flash_attention_cuda(q, k, v, causal=causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` as an autograd node.  The forward launches
+    the route's kernel and saves q, k and v; the backward recomputes the
+    plain version from them and differentiates it.  The TPU kernel has no
+    backward kernel either: the reference's training never calls it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _fa.flash_attention_plain(*qkv, causal=ctx.causal)
+        return (*torch.autograd.grad(out, qkv, grad), None)
+
+
+def flash_attention_with_grad(q, k, v, causal: bool = True):
+    """:func:`flash_attention` (the same launch, counted as it is) with a
+    gradient: the plain version's, recomputed in the backward.  Under
+    ``no_grad`` or ``inference_mode`` it records nothing."""
+    return _FlashAttention.apply(q, k, v, causal)

@@ -17,6 +17,10 @@ at every use, so storing ``cfg.dtype`` (round to nearest even, as the
 cast) gives the same bits.  ``lm_head``, ``embed`` when tied, and the
 weights of ``transformer.F32_WEIGHTS`` stay f32, because they are read in
 f32.
+
+``keep_dtype=True`` keeps each array's own dtype (f32, or bf16) instead:
+an AdamW state's ``mu`` and ``nu``, which mirror the parameters' structure
+but are kept in the optimizer's state dtype, not in the weights'.
 """
 from __future__ import annotations
 
@@ -42,12 +46,21 @@ def scan_groups(kinds: list[str]) -> list[tuple[list[str], int]]:
     return [([k], 1) for k in kinds]
 
 
-def params_from_jax(params_np: dict, cfg: ModelConfig, device=None) -> dict:
+def _own_dtype(a) -> torch.dtype:
+    name = np.asarray(a).dtype.name
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"an optimizer state array is {name}, not float32 or bfloat16")
+    return getattr(torch, name)
+
+
+def params_from_jax(params_np: dict, cfg: ModelConfig, device=None,
+                    keep_dtype: bool = False) -> dict:
     dev = resolve_device(device)
     wdt = compute_dtype(cfg)
 
     def tensor(a, dtype):
-        return torch.tensor(np.asarray(a, dtype=np.float32), dtype=dtype, device=dev)
+        return torch.tensor(np.asarray(a, dtype=np.float32),
+                            dtype=_own_dtype(a) if keep_dtype else dtype, device=dev)
 
     def tree(t, r=None, name=None):
         if isinstance(t, dict):

@@ -7,10 +7,12 @@ offset, ``T == S``, f32 scores, no window or one that covers every key,
 ``T <= window``, and a head dim the kernels take, a multiple of 8 up to
 256), where the kernels' top-left causal mask is the model's mask.  The dtype and head dim pick the kernel
 (``kernels.flash_attn.route``; the README's route table); the tensor-core
-kernels read the transposed views as they are.  Every other case, and
-every CPU tensor, takes ``attention_core_plain``: the reference's
-q-chunked exact softmax.  The choice follows the arguments alone; nothing falls back on a
-failure.
+kernels read the transposed views as they are.  The kernel runs inside
+autograd (``ops.flash_attention_with_grad``): training's forward launches
+it too, and its backward differentiates the plain version.  Every other
+case, and every CPU tensor, takes ``attention_core_plain``: the
+reference's q-chunked exact softmax.  The choice follows the arguments
+alone; nothing falls back on a failure.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ NEG_INF = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))     # f32, f64 in f64
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
@@ -61,8 +63,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores, no ``window`` or ``T <= window`` (where the window hides no
     key: ``kpos > qpos - window`` holds for every ``kpos <= qpos``) and a
     head dim that ``flash_attn.takes_head_dim`` this is a flash kernel
-    (``ops.flash_attention``, top-left mask, equal to the model's here);
-    otherwise :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
+    (``ops.flash_attention_with_grad``, top-left mask, equal to the model's
+    here); otherwise :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
     dry-run accounting probe, not a model, and raises.
     """
     if impl == "skip_core":
@@ -74,7 +76,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (q.device.type == "cuda" and causal and q_offset == 0 and T == S
             and score_dtype == torch.float32 and (window is None or T <= window)
             and flash_attn.takes_head_dim(q.shape[-1])):
-        return ops.flash_attention(q, k, v, causal=True)
+        return ops.flash_attention_with_grad(q, k, v, causal=True)
     return attention_core_plain(q, k, v, causal=causal, window=window,
                                 q_chunk=q_chunk, q_offset=q_offset,
                                 score_dtype=score_dtype)

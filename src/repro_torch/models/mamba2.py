@@ -4,13 +4,14 @@ The reference's ``models/mamba2.py``.  Prefill runs the chunked SSD
 algorithm: within a chunk a quadratic, attention-like product, across
 chunks a linear recurrence over the chunk states.  A length that the chunk
 does not divide is one chunk (the reference's fallback), whose ``(l, l)``
-decay and weight blocks are materialized whole; they are built in place
-and freed before the next layer.  Decode is the recurrence on a
-``(heads, head_dim, d_state)`` f32 state.  A single group (G = 1), as in
-the 1.3b config.
+decay and weight blocks are materialized whole; the decay block is built
+in place (autograd saves neither tensor those steps overwrite) and the
+weights out of place (autograd saves the decay block for the product's
+backward).  Decode is the recurrence on a ``(heads, head_dim, d_state)``
+f32 state.  A single group (G = 1), as in the 1.3b config.
 
 ``a_log``, ``dt_bias`` and ``d_skip`` are read in f32 and stored so; the
-rest in the compute dtype.
+rest in the compute dtype.  The f32 math is f64 in an f64 model.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ def _ssd_chunked(x, dt, a, Bm, Cm, chunk: int, init_state=None, big_dtype=None):
 
     ``big_dtype`` rounds the large intermediates (the weights W, x * dt,
     the chunk states' inputs) as the reference does; products accumulate in
-    f32 and the decay math stays f32."""
+    x's dtype (f32, or f64) and so does the decay math."""
     B_, T, H, P_ = x.shape
     N = Bm.shape[-1]
     l = min(chunk, T)
@@ -79,16 +80,16 @@ def _ssd_chunked(x, dt, a, Bm, Cm, chunk: int, init_state=None, big_dtype=None):
     bdt = big_dtype or x.dtype
 
     def rounded(t):
-        return t.to(bdt).to(torch.float32)
+        return t.to(bdt).to(x.dtype)
 
     dA = dtr * a                                          # (b, c, l, h)
     dA_cum = torch.cumsum(dA, dim=2)
 
     # 1) within each chunk: W = (C B^T) * L, then one batched (l,s)@(s,hp)
     S = torch.einsum("bcln,bcsn->bcls", Cr, Br)           # (b, c, l, s)
-    W = _segsum(dA.permute(0, 1, 3, 2)).exp_()            # L: (b, c, h, l, s)
-    W.mul_(S[:, :, None])                                 # S * L, in place
-    W = rounded(W)
+    L = _segsum(dA.permute(0, 1, 3, 2)).exp_()            # (b, c, h, l, s)
+    W = rounded(L * S[:, :, None])                        # L * S
+    del L
     xdt = rounded(xr * dtr[..., None])                    # (b, c, s, h, p)
     Y = torch.einsum("bchls,bcshp->bclhp", W, xdt)
     del W, S, xdt
@@ -137,10 +138,11 @@ def mamba_layer(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[dict] = No
     xbc = F.silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [d_in, m.d_state, m.d_state], dim=-1)
 
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])          # (B, T, H)
+    f32 = torch.promote_types(dt_, torch.float32)                      # f64 in f64
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])                     # (B, T, H)
     a = -torch.exp(p["a_log"])                                         # (H,)
-    xh = xs.reshape(B_, T, nheads, m.head_dim).to(torch.float32)
-    Bm32, Cm32 = Bm.to(torch.float32), Cm.to(torch.float32)
+    xh = xs.reshape(B_, T, nheads, m.head_dim).to(f32)
+    Bm32, Cm32 = Bm.to(f32), Cm.to(f32)
 
     if state is not None and T == 1:
         dec = torch.exp(dt[:, 0] * a)                                  # (B, H)

@@ -59,7 +59,16 @@ def _causal_conv4(x: torch.Tensor, w: torch.Tensor, state=None):
 
 def _lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t over axis 1, by doubling: after the step of
-    span s, (a_t, b_t) compose the 2s steps ending at t.  a, b: (B, T, W)."""
+    span s, (a_t, b_t) compose the 2s steps ending at t.  a, b: (B, T, W).
+
+    Under autograd each step builds a new ``a`` and ``b`` from the old ones
+    (autograd keeps the old ones for the backward); otherwise it updates
+    copies in place, which writes only the part that changes (12% of
+    recurrentgemma-2b's serving prefill on an H100, PERF.md §6).  Both take the same sums
+    and products, so they give the same values."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (a, b, h0)):
+        return _lru_scan_out_of_place(a, b, h0)
     a, b = a.clone(), b.clone()
     if h0 is not None:
         b[:, 0] += a[:, 0] * h0          # fold the initial state into the first step
@@ -69,6 +78,19 @@ def _lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
         # each right-hand side is formed whole before it is written back
         b[:, s:] += a[:, s:] * b[:, :-s]
         a[:, s:] = a[:, s:] * a[:, :-s]
+        s *= 2
+    return b
+
+
+def _lru_scan_out_of_place(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    """:func:`_lru_scan` with every step out of place, for autograd."""
+    if h0 is not None:
+        b = torch.cat([(b[:, 0] + a[:, 0] * h0)[:, None], b[:, 1:]], dim=1)
+    T = a.shape[1]
+    s = 1
+    while s < T:
+        b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         s *= 2
     return b
 

@@ -1,4 +1,4 @@
-"""Model assembly: block dispatch per family, caches, unembedding.
+"""Model assembly: block dispatch per family, caches, unembedding, loss.
 
 The reference's ``models/transformer.py``.  Families:
 
@@ -9,9 +9,12 @@ The reference's ``models/transformer.py``.  Families:
   ssm             : [mamba2 SSD] x L
 
 Layers run as a Python loop over ``params["layers"]``, one dict per layer
-in order; the reference's ``lax.scan`` groups and rematerialization have no
-counterpart in inference (``convert.params_from_jax`` reads its grouped
-layout).  ``lm_loss`` is not ported yet.
+in order (``convert.params_from_jax`` reads the reference's grouped
+``lax.scan`` layout).  ``forward(remat=True)`` runs each layer under
+non-reentrant ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan body; ``remat_policy="save_block_out"`` takes the same
+per-layer checkpoint, which gives the same values.  ``lm_loss`` is the
+reference's chunked cross-entropy, each chunk checkpointed.
 
 Parameters are a plain dict of tensors: ``embed`` (V, D), ``final_norm``
 (D,), ``lm_head`` (V, D) unless embeddings are tied, ``patch_proj``
@@ -37,6 +40,7 @@ conv tails into f32).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.backend import resolve_device
 from . import layers as ll
@@ -248,7 +252,7 @@ def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
-            pos_scalar=None, q_chunk: int = 512):
+            pos_scalar=None, q_chunk: int = 512, remat: bool = False):
     """Returns (hidden (B, T, D), caches).
 
     tokens: (B, T_text) integer.  For a vlm, ``patch_embeds`` (B, P,
@@ -256,8 +260,11 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     with ``pos_scalar`` and T == 1 decodes one token at position
     ``pos_scalar`` (an int, uniform across the batch); ``caches`` alone
     prefills them.  Each layer's entry of ``caches`` is replaced by its new
-    state.
+    state.  ``remat`` (training, no caches) keeps only each layer's input
+    for the backward and recomputes the layer there.
     """
+    if remat and caches is not None:
+        raise ValueError("remat=True is for training: it takes no caches")
     dt = compute_dtype(cfg)
     h = params["embed"][tokens].to(dt)
     if cfg.num_patches and patch_embeds is not None:
@@ -269,6 +276,10 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     else:
         positions = torch.arange(T, dtype=torch.int32, device=h.device)
     for i, kind in enumerate(layer_kinds(cfg)):
+        if remat:
+            h = checkpoint(_layer_out, params["layers"][i], h, cfg, kind, positions,
+                           q_chunk, use_reentrant=False)
+            continue
         h, st = apply_layer(params["layers"][i], h, cfg, kind, positions=positions,
                             cache=None if caches is None else caches[i],
                             pos_scalar=pos_scalar, q_chunk=q_chunk)
@@ -278,6 +289,47 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     return h, caches
 
 
+def _layer_out(p, h, cfg, kind, positions, q_chunk):
+    """One cache-free block's output (its recurrent state dropped)."""
+    return apply_layer(p, h, cfg, kind, positions=positions, cache=None,
+                       pos_scalar=None, q_chunk=q_chunk)[0]
+
+
 def unembed(params, h, cfg: ModelConfig):
     W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return h.to(torch.float32) @ W.to(torch.float32).T
+    f32 = torch.promote_types(h.dtype, torch.float32)     # f64 in an f64 model
+    return h.to(f32) @ W.to(f32).T
+
+
+# ---------------------------------------------------------------------------
+# Loss: chunked cross-entropy (never materializes (B, T, V))
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(h, labels, W):
+    """Summed NLL over labels >= 0 of one chunk, and their count."""
+    logits = h.to(torch.float32) @ W.to(torch.float32).T           # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    m = (labels >= 0).to(torch.float32)
+    return ((lse - tgt) * m).sum(), m.sum()
+
+
+def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256):
+    """Mean NLL over labels >= 0.  hidden (B, T, D); labels (B, T).
+
+    Runs T in chunks of ``chunk`` (all of T when ``chunk`` does not divide
+    it), each under a non-reentrant checkpoint: the (B, c, V) f32 logits
+    block exists only while its chunk runs, forward and backward.
+    """
+    T = hidden.shape[1]
+    W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    c = min(chunk, T)
+    if T % c:
+        c = T
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, c):
+        n, k = checkpoint(_chunk_nll, hidden[:, i:i + c], labels[:, i:i + c], W,
+                          use_reentrant=False)
+        nll, cnt = nll + n, cnt + k
+    return nll / torch.clamp(cnt, min=1.0)

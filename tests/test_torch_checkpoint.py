@@ -11,6 +11,7 @@ wrote, bit for bit.
 import dataclasses
 import os
 import shutil
+import threading
 
 import numpy as np
 import pytest
@@ -155,6 +156,29 @@ def test_async_save_error_surfaces(tmp_path, monkeypatch):
     mgr.save(4, trees, None)
     mgr.wait()
     assert mgr.latest_step() == 4
+
+
+def test_async_save_writes_the_values_at_save_time(tmp_path, monkeypatch):
+    """The writer thread writes what the tensors held when save() returned,
+    though training updates them in place before it runs: CPU tensors of
+    every dtype, held back until the update has happened."""
+    tree = {"f32": torch.zeros(4), "bf16": torch.zeros(4, dtype=torch.bfloat16),
+            "i32": torch.zeros(4, dtype=torch.int32), "np": np.zeros(4)}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    updated, savez = threading.Event(), np.savez
+
+    def late_savez(*a, **k):
+        assert updated.wait(60)
+        savez(*a, **k)
+
+    monkeypatch.setattr(np, "savez", late_savez)
+    mgr.save(1, {"params": tree})
+    for leaf in tree.values():
+        leaf += 1                         # the next step's in-place update
+    updated.set()
+    mgr.wait()
+    out, _ = mgr.restore({"params": tree})
+    assert all(not a.any() for a in out["params"].values())
 
 
 def test_latest_step_falls_back_when_latest_dangles(tmp_path):

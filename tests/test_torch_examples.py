@@ -8,8 +8,9 @@ against the direct sum), ``examples/torch_fmm_serve_demo.py`` (the
 four-tenant serving drill on four ranks, at the reference drill's
 arguments), ``examples/torch_partition_demo.py`` (the paper's Fig 5
 partition map, the reference demo's output line for line), the serving
-CLI on two ranks, and ``examples/torch_serve_lm.py`` (greedy decoding of a
-smoke model of each LM family)."""
+CLI on two ranks, ``examples/torch_serve_lm.py`` (greedy decoding of a
+smoke model of each LM family), ``examples/torch_train_lm.py`` and the
+training launcher (a few steps, a checkpoint resumed)."""
 import os
 import subprocess
 import sys
@@ -128,3 +129,33 @@ def test_torch_serve_lm_on_cpu(arch):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "generated (first seq):" in r.stdout and "device=cpu" in r.stdout
     assert r.stdout.rstrip().endswith("OK")
+
+
+@pytest.mark.parametrize("model", [("--preset", "tiny"), ("--arch", "recurrentgemma-2b")])
+def test_torch_train_lm_on_cpu(tmp_path, model):
+    """The port of ``examples/train_lm.py``: a preset, and a registry arch at
+    its smoke config."""
+    r = _run("torch_train_lm.py", *model, "--steps", "3", "--batch", "2", "--seq-len", "32",
+             "--ckpt-dir", str(tmp_path), "--device", "cpu", timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "step    0  loss" in r.stdout and "step    2  loss" in r.stdout
+    assert "tokens/s (steady state, cpu)" in r.stdout and r.stdout.rstrip().endswith("OK")
+
+
+def test_train_launcher_local_on_cpu_resumes(tmp_path):
+    """``launch/train.py --local``: an MoE smoke model with expert-load
+    probes, checkpointed every 2 steps, then relaunched to resume."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "granite-moe-1b-a400m", "--local", "--device", "cpu", "--ckpt-every", "2",
+            "--rebalance-every", "2", "--ckpt-dir", str(tmp_path)]
+    r = subprocess.run(argv + ["--steps", "2"], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=str(ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[train] done: 2 steps on cpu, final loss" in r.stdout
+    assert (tmp_path / "step_2" / "params.npz").exists()
+    r = subprocess.run(argv + ["--steps", "3"], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=str(ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[train] resumed at step 2" in r.stdout
+    assert "[train] done: 1 steps on cpu" in r.stdout      # step 2 only

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_reference():
                    "analysis/check.py", "analysis/contracts.py",
                    "analysis/lint.py", "analysis/retrace.py",
                    "analysis/schedule.py", "models/moe.py", "models/rglru.py",
-                   "models/mamba2.py"):
+                   "models/mamba2.py", "optim/__init__.py", "optim/adamw.py",
+                   "data/__init__.py", "data/pipeline.py", "train/__init__.py",
+                   "train/loop.py", "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -49,9 +51,9 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_port_examples_import_no_jax_and_no_reference():
     files = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(files) == 6
+    assert len(files) == 7
     for example in ("torch_fmm_serve_demo.py", "torch_partition_demo.py",
-                    "torch_serve_lm.py"):
+                    "torch_serve_lm.py", "torch_train_lm.py"):
         assert ROOT / "examples" / example in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -143,6 +145,25 @@ def test_lm_entry_points_raise_without_a_card():
         ServeEngine(params, SMOKE_CONFIG, batch_slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "yi-6b", "--local"])
+
+
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    """The Trainer, the data pipeline and the training launcher run on the
+    card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs.yi_6b import SMOKE_CONFIG
+    from repro_torch.data.pipeline import PipelineState, make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    shape = ShapeConfig("t", "train", 16, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(SMOKE_CONFIG, shape, tcfg=TrainerConfig(ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch(PipelineState(0, 0), SMOKE_CONFIG, 2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "yi-6b", "--local", "--ckpt-dir", str(tmp_path)])
 
 
 def test_engine_refuses_parameters_on_another_device():

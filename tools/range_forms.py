@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import subprocess
 import sys
@@ -30,10 +29,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import turns  # noqa: E402
 from repro_torch.core.equations import VORTEX  # noqa: E402
 from repro_torch.kernels import _build, m2l, ops, p2p  # noqa: E402
 
@@ -63,19 +64,6 @@ extern "C" int p2p_forced(const void* z, const void* q, const void* m, const voi
 """
 
 
-def load_checkout(root: Path, alias: str):
-    """The ``repro_torch`` package of another checkout, imported as ``alias``
-    (its kernels build under that checkout's ``build/``)."""
-    init = root / "src" / "repro_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(
-        alias, init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = pkg
-    spec.loader.exec_module(pkg)
-    return (importlib.import_module(f"{alias}.kernels.p2p"),
-            importlib.import_module(f"{alias}.kernels.m2l"))
-
-
 def forced_libs(tmp: Path):
     """This checkout's kernels with the forced-configuration entry points."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -100,11 +88,10 @@ def forced_libs(tmp: Path):
     return libs
 
 
-def turns(fns: dict, iters: int) -> dict:
+def timed(fns: dict, iters: int) -> dict:
     """CUDA-event ms of each callable, in turns other, this, this, other."""
-    order = ["other", "this", "this", "other"] if "other" in fns else ["this", "this"]
     out: dict = {}
-    for k in order:
+    for k in turns.order(["other"] if "other" in fns else [], "this"):
         out.setdefault(k, []).append(cs.cuda_ms(fns[k], iters))
     return out
 
@@ -130,7 +117,7 @@ def p2p_case(s, side, mode, passive, other, lib, sweep):
     errs = {k: check(f(), k) for k, f in fns.items()}
     row = {"kernel": "p2p_stream", "slots": s, "side": side, "mode": mode,
            "passive": passive, "split": p2p.stream_launch_config(side, side, s, s, nout)[0],
-           "rel_l2": errs, "ms": turns(fns, 10)}
+           "rel_l2": errs, "ms": timed(fns, 10)}
     if sweep:
         st = s
         out = torch.empty_like(want)
@@ -170,7 +157,7 @@ def m2l_case(p, batch, n, other, lib, sweep):
         fns["other"] = lambda: other[1].m2l_cuda(stack, W)
     errs = {k: check(f(), k) for k, f in fns.items()}
     row = {"kernel": "m2l_wide", "p": p, "batch": batch, "parents": n,
-           "config": m2l.wide_launch_config(n, n, p), "rel_l2": errs, "ms": turns(fns, 50)}
+           "config": m2l.wide_launch_config(n, n, p), "rel_l2": errs, "ms": timed(fns, 50)}
     if sweep:
         out = torch.empty_like(want)
         Ws = m2l.cached_split(W)
@@ -198,11 +185,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("range_forms: needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": card}), flush=True)
-    other = load_checkout(args.other.resolve(), "other_repro_torch") if args.other else None
+    print(json.dumps({"card": turns.card()}), flush=True)
+    other = (turns.load_checkout(args.other, "other_repro_torch", "kernels.p2p", "kernels.m2l")
+             if args.other else None)
     with tempfile.TemporaryDirectory() as tmp:
         libs = forced_libs(Path(tmp)) if args.sweep else (None, None)
         for case in cs.WIDE_P2P_CASES:

@@ -26,8 +26,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib
-import importlib.util
 import json
 import subprocess
 import sys
@@ -37,11 +35,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import turns  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, ops  # noqa: E402
 
 # (B, H, Hkv, T, S, d, causal, dtype) at forced splits: the served shape,
@@ -135,19 +135,6 @@ def forced(lib, q, k, v, causal: bool, split: int = 0) -> torch.Tensor:
     return out
 
 
-def load_checkout(root: Path, alias: str):
-    """The ``repro_torch`` kernels of another checkout, imported as ``alias``
-    (they build under that checkout's ``build/``)."""
-    init = root / "src" / "repro_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(
-        alias, init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = pkg
-    spec.loader.exec_module(pkg)
-    return (importlib.import_module(f"{alias}.kernels.flash_attn"),
-            importlib.import_module(f"{alias}.kernels.ops"))
-
-
 def inputs(B, H, Hkv, T, S, d, dtype, views: bool, seed: int):
     """q, k, v from a seeded generator on the card; with ``views`` the
     model's ``(B, T, H, d) -> (B, H, T, d)`` transposed views."""
@@ -185,9 +172,8 @@ def timed_case(case, other, iters: int) -> dict:
     first = fns["this"]()
     again = fns["this"]()
     torch.cuda.synchronize()
-    order = ["other", "this", "this", "other"] if other else ["this", "this"]
     ms: dict = {}
-    for name in order:
+    for name in turns.order(["other"] if other else [], "this"):
         ms.setdefault(name, []).append(cs.cuda_ms(fns[name], iters))
     ke = k.repeat_interleave(H // Hkv, dim=1)
     ve = v.repeat_interleave(H // Hkv, dim=1)
@@ -243,11 +229,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("simt_flash: needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": card}), flush=True)
-    other = load_checkout(args.other.resolve(), "other_repro_torch") if args.other else None
+    print(json.dumps({"card": turns.card()}), flush=True)
+    other = (turns.load_checkout(args.other, "other_repro_torch", "kernels.flash_attn",
+                                 "kernels.ops") if args.other else None)
     for case in cs.SIMT_TIMED:
         print(json.dumps(timed_case(case, other, args.iters)), flush=True)
     if args.sweep or args.variants:
