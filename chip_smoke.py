@@ -258,7 +258,17 @@ Phases, each printing one JSON line:
               recurrentgemma-2b and mamba2-1.3b at published widths and
               depths, batch 2 x 2048: loss and gradients finite, every
               ``lru_lambda`` and ``a_log`` gradient nonzero, recurrentgemma's
-              8 local-attention layers exactly 16 ``tc`` launches.
+              8 local-attention layers exactly 16 ``tc`` launches;
+    train_sharded — granite-moe-1b-a400m at its published widths trained
+              on 4 gloo ranks sharing the card as a (data 2, model 2)
+              grid (expert parallelism over model, FSDP over data): Part A
+              holds the f32 gradient of 4 layers to the one-rank gradient
+              (loss, grad norm, the whole tree; a planted fault caught; the
+              int8 gather), Part B runs ``Trainer(mesh=)`` at all 24 layers
+              in bf16 for 6 steps on one batch (loss, exact launches and
+              collectives a rank, schedules, step ms, staging; every copy
+              of a replicated block the same bytes on each rank) and
+              restores its checkpoint onto one rank bit for bit.
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, and again for the stepper's four steps in phase 4b, for
@@ -271,7 +281,8 @@ passive modes, ``step_all`` in phases 8 and 9 and each serve of phase 9b
 for the tensor-core flash kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the simt one, each gradient
 check of phase attn_grad, each step of phase train and each of phase
-train_families) and read right after it: every kernel must have run there.  Then come the card's
+train_families, and on each rank of phase train_sharded each gradient and
+each step) and read right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -281,6 +292,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import shutil
@@ -309,7 +321,8 @@ from repro_torch.core.quadtree import (box_centers, box_size, build_tree,  # noq
 from repro_torch.core.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.core.stepper import RecoveryPolicy, VortexStepper, rk2_step  # noqa: E402
 from repro_torch.core import parallel_fmm as pf  # noqa: E402
-from repro_torch.launch.mesh import MeshEvent, make_group_mesh, spawn_world  # noqa: E402
+from repro_torch.launch.mesh import (MeshEvent, make_grid_mesh, make_group_mesh,  # noqa: E402
+                                     spawn_world)
 from repro_torch.analysis import check as analysis_check  # noqa: E402
 from repro_torch.analysis import schedule as sched  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
@@ -322,7 +335,11 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.data.pipeline import PipelineState, make_inputs  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.layers import attention_core_plain  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state  # noqa: E402
+from repro_torch.optim.adamw import (AdamWConfig, apply_updates, global_norm,  # noqa: E402
+                                     init_state)
+from repro_torch.train import loop as tloop  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.train.loop import (make_loss_fn, make_train_step, unflatten,  # noqa: E402
                                     value_and_grad)
 from repro_torch.serve import fmm_service as svc  # noqa: E402
@@ -518,6 +535,42 @@ ATTN_GRAD_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # each at published widths and depths, batch 2 x 2048
 TRAIN_FAMILIES = ["recurrentgemma-2b", "mamba2-1.3b"]
 TRAIN_FAMILY_BATCH = 2
+# phase train_sharded: granite-moe at its published widths on the SHARDED_GRID
+# of RANKS gloo ranks sharing the card; Part A (f32, the gate) cut to 4 of 24
+# layers so that its one-rank gradients fit a file of about 1.3 GB
+TS_ARCH = "granite-moe-1b-a400m"
+TS_A_LAYERS, TS_A_BATCH = 4, 2
+TS_B_BATCH, TS_B_STEPS = 4, 6
+TS_SEQ = 2048
+TS_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=TS_B_STEPS)
+TS_A_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grad": 1e-4}
+TS_FAULT = 1e-2           # the planted fault's router and w_q gradients above this
+TS_Q8_LOSS = 5e-2         # the int8 gather's loss, relative (the reference test's)
+TS_MARGIN = 1.0           # Part B's last loss at least this far below step 0's
+
+
+def ts_collectives(layers: int, run: str = "grid") -> int:
+    """Collectives a rank issues in one gradient and its global norm on the
+    (2, 2) grid at granite-moe's widths, derived from the code (every dim
+    but the odd vocab splits in two):
+    - the dense weights' gathers: ``w_q``, ``w_k``, ``w_v``, ``w_o`` one over
+      data and one over model each, ``embed`` and ``lm_head`` one over data:
+      8 L + 2;
+    - their backward: one a dense leaf, a ``reduce_scatter`` over data for
+      the four above and the two tables, an all-reduce over data for
+      ``ln1``, ``ln2``, ``router`` and ``final_norm``: 7 L + 3;
+    - each MoE layer: 3 expert gathers and the output's all-reduce over
+      model in the forward, the 3 gathers again in remat's recompute (its
+      early stop ends before the all-reduce, whose output saves nothing),
+      3 ``reduce_scatter``s and the 2 all-reduces of ``copy_to_model``
+      (x and the router) in the backward: 12 L;
+    - ``lm_loss``'s count of labels and its value over data: 2; the global
+      norm over the grid: 1.
+    27 L + 8 in all (116 at 4 layers, 656 at 24); held to the CPU's
+    count at narrow widths of the same divisibility.  The int8 gather
+    (``run="q8"``) gathers each expert tensor's scales beside it, 6 L more;
+    the planted fault (``run="fault"``) drops ``copy_to_model``'s 2 L."""
+    return 27 * layers + 8 + {"grid": 0, "q8": 6, "fault": -2}[run] * layers
 
 
 def emit(obj) -> None:
@@ -2941,6 +2994,365 @@ def train_families_phase(dev) -> dict:
     return {"tc": tc}
 
 
+# ---------------------------------------------------------------------------
+# phase train_sharded: granite-moe on a (data, model) grid of gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def ts_config(layers: int, dtype: str, capacity_factor=None, bits: int = 16):
+    cfg = get_config(TS_ARCH)
+    moe_cfg = cfg.moe if capacity_factor is None else dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor)
+    return dataclasses.replace(cfg, num_layers=layers, dtype=dtype, moe=moe_cfg,
+                               moe_gather_bits=bits)
+
+
+def ts_part_a_config(bits: int = 16):
+    cfg = get_config(TS_ARCH)
+    return ts_config(TS_A_LAYERS, "float32", cfg.moe.num_experts / cfg.moe.top_k, bits)
+
+
+def ts_params(cfg, dev):
+    """The full parameters from the generator seeded with 0 on the card:
+    the same draws in every process."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return init_params(cfg, gen, dev)
+
+
+def ts_batch(cfg, batch: int, dev) -> dict:
+    return make_inputs(PipelineState(seed=0, step=0), cfg,
+                       ShapeConfig("train", "train", TS_SEQ, batch), dev)
+
+
+def ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks) -> dict:
+    """One gradient of the grid (``value_and_grad`` and the global norm),
+    its flash launches, collectives and, leaf by leaf, the squares of its
+    difference from the one-rank gradient's blocks and of those blocks,
+    summed over the grid."""
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    mark = len(grid.log)
+    loss, grads = tloop.value_and_grad(make_loss_fn(cfg, grid), blocks, batch, grid, specs)
+    gnorm = global_norm(unflatten(blocks, grads), grid, specs)
+    launches = flash_counts()
+    events = grid.log.events[mark:]
+    # per leaf: squares of the difference, of the one-rank gradient, and the
+    # count of non-finite elements
+    sums = torch.zeros((len(grads), 3), dtype=torch.float64, device=grid.device)
+    for i, (g, r, spec) in enumerate(zip(grads, ref_blocks, specs)):
+        if shd.counted_once(grid, spec):
+            g64, r64 = g.double(), r.double()
+            sums[i, 0] = torch.sum((g64 - r64) ** 2)
+            sums[i, 1] = torch.sum(r64 ** 2)
+        sums[i, 2] = torch.sum(~torch.isfinite(g))
+    sums = grid.all_reduce_sum(sums, grid.axis_names)
+    nonzero = [bool(g.abs().max() > 0) for g in grads]
+    return {"loss": float(loss), "grad_norm": float(gnorm), "launches": launches,
+            "collectives": len(events),
+            "by_kind": {f"{e.kind} over {'+'.join(e.axes)}": sum(
+                1 for x in events if (x.kind, x.axes) == (e.kind, e.axes)) for e in events},
+            "sums": sums.cpu(), "nonzero": nonzero}
+
+
+def train_sharded_rank(world, spec: dict) -> dict:
+    """One rank of phase train_sharded (``world`` is the default group's
+    mesh; the grid is built over it)."""
+    dev = world.device
+    grid = make_grid_mesh(SHARDED_GRID, ("data", "model"), device=dev)
+    out = {"rank": grid.rank, "coords": grid.coords}
+    # -- Part A: the f32 gradient against the one-rank one ----------------------
+    cfg = ts_part_a_config()
+    full = ts_params(cfg, dev)
+    specs = tloop.tree_specs(full, tloop.grid_specs(cfg, grid))
+    blocks = unflatten(full, [shd.local_block(t, s, grid).clone()
+                              for t, s in zip(transformer.param_tensors(full), specs)])
+    del full
+    ref = torch.load(spec["ref"], mmap=True)
+    ref_blocks = [shd.local_block(g, s, grid).to(dev)
+                  for g, s in zip(ref["grads"], specs)]
+    batch = tloop.local_rows(ts_batch(cfg, TS_A_BATCH, dev), grid)
+    out["grid"] = ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks)
+    good = moe.copy_to_model
+    moe.copy_to_model = lambda x, mesh: x          # the planted fault
+    try:
+        out["fault"] = ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks)
+    finally:
+        moe.copy_to_model = good
+    out["q8"] = ts_gradient_run(grid, ts_part_a_config(bits=8), blocks, specs, batch,
+                                ref_blocks)
+    out["names"] = [n for n, _ in shd.flat_names(blocks)]
+    out["part_a_log"] = list(grid.log.events)
+    del blocks, ref_blocks, ref, batch
+    torch.cuda.empty_cache()
+    # -- Part B: Trainer(mesh=grid) at full depth, bf16, timed ------------------
+    cfg = ts_config(get_config(TS_ARCH).num_layers, "bfloat16")
+    shape = ShapeConfig("train", "train", TS_SEQ, TS_B_BATCH)
+    t0 = time.perf_counter()
+    tr = tloop.Trainer(cfg, shape, AdamWConfig(**TS_OPT), tloop.TrainerConfig(
+        steps=TS_B_STEPS, ckpt_every=0, ckpt_dir=spec["ckpt"], seed=0), mesh=grid)
+    out["trainer_init_s"] = time.perf_counter() - t0
+    batch = ts_batch(cfg, TS_B_BATCH, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mark_b = len(grid.log)
+    rows = []
+    for _ in range(TS_B_STEPS):
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        grid.wire.reset()
+        mark = len(grid.log)
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        events = grid.log.events[mark:]
+        kinds = {}
+        for e in events:
+            key = f"{e.kind} over {'+'.join(e.axes)}"
+            kinds[key] = kinds.get(key, 0) + 1
+        rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "step_ms": ms,
+                     "flash_launches": flash_counts(),
+                     "staged_bytes": grid.wire.staged_bytes,
+                     "staging_s": grid.wire.staging_s,
+                     "collectives": len(events), "by_kind": kinds})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["part_b"] = rows
+    out["part_b_log"] = list(grid.log.events[mark_b:])
+    out["copies"] = ts_copy_digests(tr, grid)
+    t0 = time.perf_counter()
+    written = tr.save(TS_B_STEPS)
+    tr.ckpt.wait()
+    out["save_s"] = time.perf_counter() - t0
+    if written is not None:
+        out["digests"] = ts_digests(written)
+    return out
+
+
+def ts_copy_digests(tr, grid) -> dict:
+    """sha256 of this rank's block of each leaf that other ranks hold too
+    (a leaf replicated over an axis), parameters and moments, keyed by the
+    leaf and the block (its index on the axes of each dim)."""
+    out = {}
+    for tree_name, tree in (("params", tr.params), ("mu", tr.opt_state["mu"]),
+                            ("nu", tr.opt_state["nu"])):
+        for (name, t), spec in zip(shd.flat_names(tree), tr.specs):
+            if shd.axis_size(grid, [a for e in spec for a in shd.spec_axes(e)]) == grid.size:
+                continue                                # one rank holds this block
+            block = tuple(grid.axis_index(shd.spec_axes(e)) for e in spec)
+            host = ckpt_manager.to_host(t)
+            out[f"{tree_name}/{name}"] = (block, hashlib.sha256(host.tobytes()).hexdigest())
+    return out
+
+
+def ts_copies_agree(ranks) -> tuple[int, list]:
+    """(blocks held by more than one rank, those whose copies differ)."""
+    held: dict = {}
+    for rk in ranks:
+        for name, (block, digest) in rk["copies"].items():
+            held.setdefault((name, tuple(block)), set()).add(digest)
+    return len(held), sorted(f"{n} {b}" for (n, b), d in held.items() if len(d) > 1)
+
+
+def ts_digests(trees) -> dict:
+    """sha256 of each leaf's host bytes (bf16 widened to f32, as written)."""
+    out = {}
+    for name in ("params", "mu", "nu"):
+        tree = trees["params"] if name == "params" else trees["opt"][name]
+        for leaf_name, leaf in shd.flat_names(tree):
+            host = ckpt_manager.to_host(leaf)
+            out[f"{name}/{leaf_name}"] = hashlib.sha256(host.tobytes()).hexdigest()
+    return out
+
+
+def train_sharded_phase(dev, card) -> dict:
+    """Phase train_sharded: granite-moe-1b-a400m at its published widths on
+    ``RANKS`` gloo ranks sharing the card as a ``SHARDED_GRID`` (data 2,
+    model 2) grid, each model rank 16 of the 32 experts.
+
+    Part A (the gate): 4 of 24 layers in f32 at capacity factor E / k (no
+    drop on either side), one batch of ``TS_A_BATCH`` x 2048.  The gradient
+    on one rank here (its loss, grad norm and gradients go to a file), then
+    on the grid: loss and grad norm within ``TS_A_TOL``, the whole tree's
+    gradient within its rel L2 (each rank its blocks, the squares summed
+    over the grid; each leaf's figure printed), exactly ``2 x 4`` ``tf32``
+    launches a rank and no other route, ``ts_collectives(4)`` collectives
+    a rank, the ranks' logs verified.  The planted fault (``copy_to_model``
+    without its backward sum, swapped in here) must land above
+    ``TS_FAULT`` on every router's and every ``attn/w_q``'s gradient.  The
+    int8 gather: loss within ``TS_Q8_LOSS``, every gradient finite, every
+    expert leaf's nonzero.
+
+    Part B (timed): ``Trainer(mesh=grid)`` at all 24 layers, bf16 weights,
+    f32 moments, the config's capacity factor 1.25 (drops per shard), one
+    global batch of ``TS_B_BATCH`` x 2048, ``TS_B_STEPS`` steps: step 0's
+    loss within ``TRAIN_LOSS0_TOL`` of ln V, the last at least
+    ``TS_MARGIN`` below it, exactly 48 ``tc`` launches a rank a step,
+    ``ts_collectives(24)`` collectives a rank a step, the schedules
+    verified; every block that more than one rank holds (a leaf replicated
+    over an axis: norms, routers, the odd-vocab embedding over the model
+    axis) has the same sha256 on each of them after the last step,
+    parameters and moments, since the checkpoint keeps only rank 0's copy.
+    The grid's checkpoint after the last step restores onto one
+    rank here bit for bit (sha256 of every parameter and moment against
+    rank 0's gathered arrays).  Returns the ranks' flash launches."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_sharded_", dir=root))
+    try:
+        # -- Part A on one rank ----------------------------------------------
+        cfg = ts_part_a_config()
+        params = ts_params(cfg, dev)
+        batch = ts_batch(cfg, TS_A_BATCH, dev)
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(make_loss_fn(cfg), params, batch)
+        gnorm = global_norm(unflatten(params, grads))
+        one = {"loss": float(loss), "grad_norm": float(gnorm),
+               "ms": (time.perf_counter() - t0) * 1e3, "launches": flash_counts()}
+        require(one["launches"] == {"tc": 0, "tf32": 2 * TS_A_LAYERS, "simt": 0},
+                f"train_sharded one rank: flash launches {one['launches']}")
+        torch.save({"loss": one["loss"], "grad_norm": one["grad_norm"],
+                    "grads": [g.cpu() for g in grads]}, work / "one_rank.pt")
+        n_params = sum(t.numel() for t in transformer.param_tensors(params))
+        del params, grads, batch
+        torch.cuda.empty_cache()
+
+        # -- the grid -----------------------------------------------------------
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_sharded_rank, RANKS, device="cuda",
+                            timeout_s=RANK_TIMEOUT_S,
+                            args=({"ref": str(work / "one_rank.pt"),
+                                   "ckpt": str(work / "ckpt")},))
+        world_s = time.perf_counter() - t0
+
+        # -- Part A's gates ------------------------------------------------------
+        names = ranks[0]["names"]
+        want_a = {run: ts_collectives(TS_A_LAYERS, run) for run in ("grid", "fault", "q8")}
+        rep_a = sched.verify_schedules([r["part_a_log"] for r in ranks], label="part A")
+        part_a = {"one_rank": one, "params": n_params, "layers": TS_A_LAYERS,
+                  "batch": TS_A_BATCH, "seq": TS_SEQ, "schedules_agree": rep_a.ok,
+                  "collectives_expected": want_a}
+        for run in ("grid", "fault", "q8"):
+            r0 = ranks[0][run]
+            s = r0["sums"]
+            per_leaf = {n: math.sqrt(float(s[i, 0]) / max(float(s[i, 1]), 1e-300))
+                        for i, n in enumerate(names)}
+            part_a[run] = {
+                "loss": r0["loss"], "grad_norm": r0["grad_norm"],
+                "loss_rel": abs(r0["loss"] - one["loss"]) / abs(one["loss"]),
+                "grad_norm_rel": abs(r0["grad_norm"] - one["grad_norm"]) / one["grad_norm"],
+                "grad_rel_l2": math.sqrt(float(s[:, 0].sum()) / float(s[:, 1].sum())),
+                "leaf_rel_l2_max": max(per_leaf.values()),
+                "finite": float(s[:, 2].sum()) == 0,
+                "launches": [r[run]["launches"] for r in ranks],
+                "collectives": [r[run]["collectives"] for r in ranks],
+                "by_kind": r0["by_kind"]}
+            if run != "q8":
+                for n, x in per_leaf.items():
+                    print(f"train_sharded part A {run} grad rel L2 {n}: {x:.3e}", flush=True)
+            part_a[run]["per_leaf"] = per_leaf
+        emit({"phase": "train_sharded_part_a", **part_a})
+        g = part_a["grid"]
+        require(g["loss_rel"] <= TS_A_TOL["loss"], f"train_sharded A: loss {g['loss']} vs "
+                f"one rank {one['loss']} ({g['loss_rel']:.2e})")
+        require(g["grad_norm_rel"] <= TS_A_TOL["grad_norm"],
+                f"train_sharded A: grad norm {g['grad_norm']} vs {one['grad_norm']}")
+        require(g["grad_rel_l2"] <= TS_A_TOL["grad"],
+                f"train_sharded A: gradient rel L2 {g['grad_rel_l2']:.2e}")
+        want_f = {"tc": 0, "tf32": 2 * TS_A_LAYERS, "simt": 0}
+        for run in ("grid", "fault", "q8"):
+            require(all(x == want_f for x in part_a[run]["launches"]),
+                    f"train_sharded A {run}: flash launches {part_a[run]['launches']}")
+            require(all(x == want_a[run] for x in part_a[run]["collectives"]),
+                    f"train_sharded A {run}: collectives {part_a[run]['collectives']}, "
+                    f"expected {want_a[run]} a rank")
+        require(rep_a.ok, "train_sharded A: schedules disagree:\n" + "\n".join(rep_a.problems[:20]))
+        f = part_a["fault"]["per_leaf"]
+        caught = {n: x for n, x in f.items() if n.endswith("router") or n.endswith("attn/w_q")}
+        require(caught and min(caught.values()) > TS_FAULT,
+                f"train_sharded A: the planted fault was not caught: {caught}")
+        q = part_a["q8"]
+        require(q["loss_rel"] <= TS_Q8_LOSS and q["finite"],
+                f"train_sharded A q8: loss {q['loss']} ({q['loss_rel']:.2e}), finite {q['finite']}")
+        zero = [n for r in ranks for n, nz in zip(names, r["q8"]["nonzero"])
+                if "experts" in n and not nz]
+        require(not zero, f"train_sharded A q8: zero expert gradients at {zero}")
+
+        # -- Part B's gates ------------------------------------------------------
+        cfg = ts_config(get_config(TS_ARCH).num_layers, "bfloat16")
+        rows = ranks[0]["part_b"]
+        losses = [r["loss"] for r in rows]
+        want_b = ts_collectives(cfg.num_layers)
+        rep_b = sched.verify_schedules([r["part_b_log"] for r in ranks], label="part B")
+        steady = sorted(r["step_ms"] for r in rows[1:])[len(rows[1:]) // 2]
+        tokens = TS_B_BATCH * TS_SEQ
+        part_b = {
+            "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "capacity_factor": cfg.moe.capacity_factor, "batch": TS_B_BATCH, "seq": TS_SEQ,
+            "opt": TS_OPT, "losses": losses, "ln_vocab": math.log(cfg.vocab),
+            "step_ms": [[r["step_ms"] for r in rk["part_b"]] for rk in ranks],
+            "steady_step_ms": steady, "global_tok_per_s": tokens / (steady / 1e3),
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "staged_bytes_per_step": [[r["staged_bytes"] for r in rk["part_b"]] for rk in ranks],
+            "staging_s_per_step": [[r["staging_s"] for r in rk["part_b"]] for rk in ranks],
+            "collectives_per_step": rows[0]["collectives"], "by_kind": rows[0]["by_kind"],
+            "collectives_expected": want_b, "schedules_agree": rep_b.ok,
+            "trainer_init_s": [r["trainer_init_s"] for r in ranks],
+            "save_s": [r["save_s"] for r in ranks], "world_seconds": world_s,
+            "card": card, "note": "gloo ranks share one card: not a scaling result"}
+        for i, r in enumerate(rows):
+            print(f"train_sharded {cfg.name} grid {SHARDED_GRID} step {i}: loss "
+                  f"{r['loss']:.4f} {r['step_ms']:.1f} ms, staged "
+                  f"{r['staged_bytes'] / 1e9:.2f} GB in {r['staging_s']:.2f} s", flush=True)
+        require(abs(losses[0] - math.log(cfg.vocab)) <= TRAIN_LOSS0_TOL,
+                f"train_sharded B: step 0's loss {losses[0]} is not within "
+                f"{TRAIN_LOSS0_TOL} of ln({cfg.vocab})")
+        require(all(math.isfinite(x) for x in losses) and losses[-1] <= losses[0] - TS_MARGIN,
+                f"train_sharded B: the loss went from {losses[0]} to {losses[-1]}")
+        per_step = {"tc": 2 * cfg.num_layers, "tf32": 0, "simt": 0}
+        for rk in ranks:
+            for i, r in enumerate(rk["part_b"]):
+                require(r["flash_launches"] == per_step and r["collectives"] == want_b,
+                        f"train_sharded B rank {rk['rank']} step {i}: flash "
+                        f"{r['flash_launches']}, collectives {r['collectives']} "
+                        f"(expected {per_step}, {want_b})")
+        require(rep_b.ok, "train_sharded B: schedules disagree:\n" + "\n".join(rep_b.problems[:20]))
+        part_b["copied_blocks"], differ = ts_copies_agree(ranks)
+        part_b["copies_differ"] = differ
+        require(part_b["copied_blocks"] > 0 and not differ,
+                f"train_sharded B: the copies of {len(differ)} blocks differ across "
+                f"ranks after the last step: {differ[:10]}")
+
+        # -- the grid's checkpoint onto one rank ----------------------------------
+        t0 = time.perf_counter()
+        one_tr = tloop.Trainer(cfg, ShapeConfig("train", "train", TS_SEQ, TS_B_BATCH),
+                               AdamWConfig(**TS_OPT), tloop.TrainerConfig(
+                                   steps=TS_B_STEPS, ckpt_every=0, ckpt_dir=str(work / "ckpt")),
+                               device=dev)
+        restored = one_tr.try_restore()
+        digests = ts_digests({"params": one_tr.params, "opt": one_tr.opt_state})
+        part_b["restore_s"] = time.perf_counter() - t0
+        want_d = next(r["digests"] for r in ranks if "digests" in r)
+        part_b["restored_bit_for_bit"] = restored and digests == want_d
+        part_b["restored_step"] = int(one_tr.opt_state["step"])
+        part_b["seconds"] = time.perf_counter() - t_phase
+        del one_tr
+        torch.cuda.empty_cache()
+        emit({"phase": "train_sharded", **part_b})
+        require(part_b["restored_bit_for_bit"] and part_b["restored_step"] == TS_B_STEPS,
+                "train_sharded B: the grid's checkpoint did not restore bit for bit "
+                f"onto one rank ({len([k for k in want_d if digests.get(k) != want_d[k]])} "
+                "leaves differ)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"tc": sum(r["flash_launches"]["tc"] for rk in ranks for r in rk["part_b"]),
+            "tf32": one["launches"]["tf32"] + sum(
+                x["tf32"] for run in ("grid", "fault", "q8") for x in part_a[run]["launches"])}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3225,6 +3637,9 @@ def main() -> None:
     launches["flash_attn_tf32"] += attn_grad[1]["launches"]["tf32"]
     launches["flash_attn"] += train_phase(dev, card)["tc"]
     launches["flash_attn_d256"] += train_families_phase(dev)["tc"]
+    sharded_train = train_sharded_phase(dev, card)
+    launches["flash_attn"] += sharded_train["tc"]
+    launches["flash_attn_tf32"] += sharded_train["tf32"]
 
     # -- 10. card, kernels line, result --------------------------------------
     def entry(rows, name, source, replaces, **extra):
@@ -3335,7 +3750,9 @@ def main() -> None:
                                   "qwen1.5-32b; phase attn_grad: one bf16 call in "
                                   "autograd; phase train: 16 a step of 8-layer Yi-6B "
                                   "(forward and remat's recompute), 32 in its "
-                                  "two-microbatch step",
+                                  "two-microbatch step; phase train_sharded: 48 a "
+                                  "rank a step of 24-layer granite-moe (d = 64) on 4 "
+                                  "ranks, 6 steps",
               attn_grad=attn_grad[0],
               head_dim_256=d256_block(tc_rows[1], "flash_attn_d256", "bf16")),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
@@ -3343,7 +3760,10 @@ def main() -> None:
               launches_counted_in="phase 9: step_all of 2-layer f32 Yi-6B (d = 128); "
                                   "phase serve_families: the f32 prefills of the gated "
                                   "runs (the same seven models, the MoE ones at batch 1); "
-                                  "phase attn_grad: one f32 call in autograd",
+                                  "phase attn_grad: one f32 call in autograd; phase "
+                                  "train_sharded: 8 in the one-rank gradient of 4-layer "
+                                  "f32 granite-moe (d = 64), 8 a rank in each of the "
+                                  "grid's three (exact, planted fault, int8 gather)",
               attn_grad=attn_grad[1],
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"],
               head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),

@@ -224,9 +224,14 @@ class _NoHostCallback(_NoRecord):
     """No host round trip: no ``_local_scalar_dense`` (``.item()``,
     ``float(t)``), no operation whose output shape depends on the data
     (``nonzero``, ``masked_select``, ``unique``, boolean indexing), no copy
-    between the host and the card; on the card, nothing that
-    ``set_sync_debug_mode("error")`` refused.  Each serializes the card's
-    queue on the host."""
+    between the host and the card, no ``torch.cuda.synchronize()`` or
+    ``Event.synchronize()`` (recorded by the trace, since
+    ``set_sync_debug_mode`` misses them: ``trace_analysis.UNSEEN_SYNCS``);
+    on the card, nothing that ``set_sync_debug_mode("error")`` refused
+    (``Stream.synchronize()``, ``.item()``, ``.tolist()``, ``.cpu()``,
+    ``nonzero``).  Each serializes the card's queue on the host.  A read of
+    pinned memory after a non-blocking copy waits for nothing, so neither
+    sees it."""
 
     def __init__(self):
         super().__init__("no_host_callback",

@@ -16,7 +16,9 @@ the port runs the host program itself:
    process, each run on its own ``DryMesh``, and returns the ranks' logs;
 3. :func:`verify_schedules` checks the logs against each other: every rank
    issues the same all-gathers, all-reduces and barriers, in the same order,
-   with equal shapes and dtypes; every send of rank ``a`` to rank ``b`` in
+   with equal shapes and dtypes (on a grid of ranks, every rank of each
+   group issues that group's collectives so, and no two groups' are issued
+   in orders that block each other); every send of rank ``a`` to rank ``b`` in
    round ``t`` meets a receive at ``b`` from ``a`` in round ``t`` with the
    same shape and dtype, and no receive is left without its send; and each
    event is sane (peers in range, no send to itself, no peer twice in a
@@ -40,8 +42,11 @@ from ..launch.mesh import MeshEvent, Pending, ScheduleLog, Wire
 __all__ = ["DryMesh", "ScheduleReport", "simulate", "verify_schedules",
            "verify_entry", "same_schedule", "counts_text", "COLLECTIVES"]
 
-# the events every rank must issue in the same order with the same operands
-COLLECTIVES = ("all_gather", "all_reduce_max", "barrier")
+# the events every rank of a group must issue in the same order with the
+# same operands (a grid's collectives name their group; the others are the
+# whole world's)
+COLLECTIVES = ("all_gather", "all_reduce_max", "barrier", "all_reduce_sum",
+               "reduce_scatter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +176,32 @@ def _check_sanity(r: int, events, world: int) -> list:
     return problems
 
 
+def _blocked(coll, everyone) -> list:
+    """Run the ranks' collectives as blocking calls: each completes once it
+    heads the queue of every rank of its group.  Groups that agree event for
+    event can still block each other when two ranks issue collectives of two
+    groups in opposite orders; returns where the ranks would stop, if they
+    do."""
+    heads = [0] * len(coll)
+    moved = True
+    while moved:
+        moved = False
+        for r, seq in enumerate(coll):
+            if heads[r] >= len(seq):
+                continue
+            g = seq[heads[r]][1].group or everyone
+            if all(heads[m] < len(coll[m]) and
+                   (coll[m][heads[m]][1].group or everyone) == g for m in g):
+                for m in g:
+                    heads[m] += 1
+                moved = True
+    stuck = [r for r, seq in enumerate(coll) if heads[r] < len(seq)]
+    if not stuck:
+        return []
+    return ["the ranks block each other: " + "; ".join(
+        f"rank {r} waits in [{coll[r][heads[r]][1].brief()}]" for r in stuck)]
+
+
 def verify_schedules(logs, label: str = "") -> ScheduleReport:
     """Verify the schedules of all ranks of one world (``logs[r]`` is rank
     ``r``'s list of :class:`~repro_torch.launch.mesh.MeshEvent`s) against
@@ -181,26 +212,42 @@ def verify_schedules(logs, label: str = "") -> ScheduleReport:
     problems = []
     for r, events in enumerate(logs):
         problems.extend(_check_sanity(r, events, world))
-    # -- the collectives: one sequence on every rank --------------------------
+    # -- the collectives: one sequence on every rank of each group ------------
+    everyone = tuple(range(world))
     coll = [[(k, e) for k, e in enumerate(events) if e.kind in COLLECTIVES]
             for events in logs]
-    ref = coll[0]
-    for r in range(1, world):
-        seq = coll[r]
-        n = min(len(ref), len(seq))
-        k = next((i for i in range(n) if ref[i][1] != seq[i][1]), n)
-        if k < n:
-            problems.append(
-                f"rank {r} diverges from rank 0 at collective {k} "
-                f"({_round_before(logs[r], seq[k][0])}): "
-                f"[{ref[k][1].brief()}] vs [{seq[k][1].brief()}]")
-        elif len(ref) != len(seq):
-            longer, who = (ref, 0) if len(ref) > len(seq) else (seq, r)
-            problems.append(
-                f"rank {r} issues {len(seq)} collectives, rank 0 issues "
-                f"{len(ref)}; first unmatched: [{longer[k][1].brief()}] only "
-                f"on rank {who} ({_round_before(logs[who], longer[k][0])}): "
-                f"the other ranks would block in this collective for ever")
+    for r, seq in enumerate(coll):
+        for k, e in seq:
+            if e.group is not None and r not in e.group:
+                problems.append(f"rank {r} event {k}: a collective of group "
+                                f"{list(e.group)}, which does not hold rank {r}")
+    groups = sorted({e.group or everyone for seq in coll for _, e in seq})
+    for g in groups:
+        where = "" if g == everyone else f" in group {list(g)}"
+        members = [r for r in g if 0 <= r < world]
+        proj = {r: [(k, e) for k, e in coll[r] if (e.group or everyone) == g]
+                for r in members}
+        first = members[0]
+        ref = proj[first]
+        for r in members[1:]:
+            seq = proj[r]
+            n = min(len(ref), len(seq))
+            k = next((i for i in range(n) if ref[i][1] != seq[i][1]), n)
+            if k < n:
+                problems.append(
+                    f"rank {r} diverges from rank {first}{where} at collective "
+                    f"{k} ({_round_before(logs[r], seq[k][0])}): "
+                    f"[{ref[k][1].brief()}] vs [{seq[k][1].brief()}]")
+            elif len(ref) != len(seq):
+                longer, who = (ref, first) if len(ref) > len(seq) else (seq, r)
+                problems.append(
+                    f"rank {r} issues {len(seq)} collectives{where}, rank "
+                    f"{first} issues {len(ref)}; first unmatched: "
+                    f"[{longer[k][1].brief()}] only on rank {who} "
+                    f"({_round_before(logs[who], longer[k][0])}): the other "
+                    f"ranks would block in this collective for ever")
+    if not problems and len(groups) > 1:
+        problems.extend(_blocked(coll, everyone))
     # -- the exchanges: every send met by its receive, round by round ---------
     rounds = [{e.round: e for e in events if e.kind == "exchange"}
               for events in logs]

@@ -15,6 +15,11 @@ lands: the kernels stay on the card and only the messages are staged.
 took.  NCCL refuses two ranks on one card, so on one card a world of
 several ranks runs over ``gloo``.
 
+A :class:`GridMesh` lays a world's ranks out on named axes (``(data,
+model)``, say) as the reference's ``Mesh(np.array(devices).reshape(...))``
+does, with collectives over one axis or a tuple of axes on subgroups of the
+default group (:func:`make_grid_mesh`); training on a grid runs on it.
+
 :func:`spawn_world` starts a world of ``world`` processes (``spawn``, a
 ``file://`` store in a temporary directory: no network) and returns what
 each rank's function returned; :func:`join_world` joins a process that
@@ -35,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import itertools
+import math
 import os
 import pickle
 import shutil
@@ -47,6 +53,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..configs.backend import resolve_device
+from ..parallel.sharding import axis_size
 
 
 # one sequence for every mesh event and every operation a trace records
@@ -61,7 +68,9 @@ class MeshEvent:
     """One message call of one rank, in program order.
 
     ``kind`` is ``exchange``, ``all_gather``, ``all_reduce_max``,
-    ``barrier`` or ``wait``.  An exchange has its ``round`` (the tag its
+    ``barrier`` or ``wait``, or a :class:`GridMesh` collective
+    (``all_reduce_sum``, ``all_gather``, ``reduce_scatter``) with its
+    ``axes``, ``group`` and ``dim``.  An exchange has its ``round`` (the tag its
     messages carry) and ``sends``/``recvs`` as ``(peer, shape, dtype)``
     triples; an all-gather has the local ``shape`` and ``dtype``; a wait
     names, as ``issue``, the index in the log of the exchange or all-gather
@@ -76,6 +85,11 @@ class MeshEvent:
     dtype: Optional[str] = None
     issue: Optional[int] = None
     seq: int = dataclasses.field(default=-1, compare=False)
+    # a grid's collective: the axes it runs over, the global ranks of its
+    # group (in the axes' order) and the dim it gathers or scatters
+    axes: Optional[tuple] = None
+    group: Optional[tuple] = None
+    dim: Optional[int] = None
 
     def brief(self) -> str:
         bits = [self.kind]
@@ -88,6 +102,10 @@ class MeshEvent:
             bits.append(f"{tuple(self.shape)} {self.dtype}")
         if self.issue is not None:
             bits.append(f"of event {self.issue}")
+        if self.axes is not None:
+            bits.append(f"over {'+'.join(self.axes)} {list(self.group)}")
+        if self.dim is not None:
+            bits.append(f"dim {self.dim}")
         return " ".join(bits)
 
     def to_json(self) -> dict:
@@ -101,7 +119,10 @@ class MeshEvent:
         return cls(d["kind"], round=d["round"], sends=msgs(d["sends"]),
                    recvs=msgs(d["recvs"]),
                    shape=None if d["shape"] is None else tuple(d["shape"]),
-                   dtype=d["dtype"], issue=d["issue"], seq=d.get("seq", -1))
+                   dtype=d["dtype"], issue=d["issue"], seq=d.get("seq", -1),
+                   axes=None if d.get("axes") is None else tuple(d["axes"]),
+                   group=None if d.get("group") is None else tuple(d["group"]),
+                   dim=d.get("dim"))
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -302,6 +323,210 @@ class Pending:
             self._value = self._finish()
             self._finish = self._keep = self._works = None
         return self._value
+
+
+def _axes_tuple(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """One rank's view of a grid of ranks with named axes: the counterpart
+    of ``Mesh(np.array(devices).reshape(dims), axis_names)``.
+
+    Rank ``r`` sits at the row-major coordinates of ``r`` (on a
+    ``(data, model)`` grid of ``(D, M)``: ``(r // M, r % M)``), the place
+    of device ``r`` in that array, so its blocks are the reference's
+    device-``r`` shards.  Collectives run over one axis or a tuple of axes:
+    the group of the ranks that share this rank's coordinates on every
+    other axis, numbered in the axes' order (the first axis major), as
+    ``jax.lax`` collectives number a tuple of axes.  ``groups`` maps each
+    set of axes to this rank's process group over it (None where the axes
+    hold one rank).  A collective over axes of one rank in all is the
+    identity and issues nothing; every other one appends a
+    :class:`MeshEvent` that names its axes and group to ``log`` and, on a
+    ``gloo`` group off the CPU, is staged through host memory and counted
+    in ``wire``, as :class:`RankMesh`'s messages are."""
+
+    axis_names: tuple
+    dims: tuple
+    rank: int
+    device: torch.device
+    backend: str = "none"
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+    wire: Wire = dataclasses.field(default_factory=Wire, compare=False,
+                                   repr=False)
+    log: ScheduleLog = dataclasses.field(default_factory=ScheduleLog,
+                                         compare=False, repr=False)
+
+    def __post_init__(self):
+        self.log.rank = self.rank
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+    @property
+    def coords(self) -> tuple:
+        out, r = [], self.rank
+        for n in reversed(self.dims):
+            out.append(r % n)
+            r //= n
+        return tuple(reversed(out))
+
+    def axis_index(self, axes) -> int:
+        """This rank's index along ``axes`` (a name or a tuple of names,
+        the first major)."""
+        idx = 0
+        for a in _axes_tuple(axes):
+            idx = idx * self.shape[a] + self.coords[self.axis_names.index(a)]
+        return idx
+
+    def members(self, axes) -> tuple:
+        """The global ranks of this rank's group over ``axes``, in the axes'
+        order (the first major)."""
+        axes = _axes_tuple(axes)
+        base = list(self.coords)
+        out = []
+        for idx in range(axis_size(self, axes)):
+            c = list(base)
+            for a in reversed(axes):
+                n = self.shape[a]
+                c[self.axis_names.index(a)] = idx % n
+                idx //= n
+            out.append(_grid_rank(c, self.dims))
+        return tuple(out)
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type != "cpu"
+
+    # -- host staging --------------------------------------------------------
+
+    def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        if not self.staged:
+            return t
+        torch.cuda.current_stream(t.device).synchronize()
+        t0 = time.perf_counter()
+        host = t.cpu()
+        self.wire.staging_s += time.perf_counter() - t0
+        self.wire.staged_bytes += host.numel() * host.element_size()
+        return host
+
+    def _from_wire(self, buf: torch.Tensor) -> torch.Tensor:
+        if self.staged:
+            t0 = time.perf_counter()
+            buf = buf.to(self.device)
+            self.wire.staging_s += time.perf_counter() - t0
+            self.wire.staged_bytes += buf.numel() * buf.element_size()
+        return buf
+
+    def _begin(self, kind: str, t: torch.Tensor, axes, dim=None):
+        """The group of a collective over ``axes`` and this rank's members
+        in the axes' order, logged; None for axes of one rank."""
+        axes = _axes_tuple(axes)
+        if axis_size(self, axes) == 1:
+            return None
+        members = self.members(axes)
+        self.log.record(kind, shape=tuple(t.shape), dtype=_dtype_name(t.dtype),
+                        axes=axes, group=members, dim=dim)
+        return self.groups[frozenset(axes)], members
+
+    # -- collectives ----------------------------------------------------------
+
+    def all_reduce_sum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over ``axes`` (``jax.lax.psum``), on every rank."""
+        got = self._begin("all_reduce_sum", t, axes)
+        if got is None:
+            return t
+        w = self._to_wire(t).clone()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=got[0])
+        return self._from_wire(w)
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` over ``axes``, in the axes' order, concatenated
+        on ``dim`` (``jax.lax.all_gather(..., tiled=True)``)."""
+        dim = dim % t.dim()
+        got = self._begin("all_gather", t, axes, dim)
+        if got is None:
+            return t
+        group, members = got
+        w = self._to_wire(t)
+        bufs = [torch.empty_like(w) for _ in members]
+        dist.all_gather(bufs, w, group=group)
+        by_rank = dict(zip(sorted(members), bufs))
+        parts = [by_rank[m] for m in members]
+        return self._from_wire(torch.cat(parts, dim))
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """This rank's block, on ``dim``, of the sum of ``t`` over ``axes``
+        (``jax.lax.psum_scatter(..., tiled=True)``)."""
+        dim = dim % t.dim()
+        got = self._begin("reduce_scatter", t, axes, dim)
+        if got is None:
+            return t
+        group, members = got
+        n = len(members)
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                             f"does not split over {n} ranks")
+        w = self._to_wire(t)
+        chunks = dict(zip(members, w.chunk(n, dim)))
+        inputs = [chunks[m].contiguous() for m in sorted(members)]
+        out = torch.empty_like(inputs[0])
+        dist.reduce_scatter(out, inputs, group=group)
+        return self._from_wire(out)
+
+
+def _grid_rank(coords, dims) -> int:
+    r = 0
+    for c, n in zip(coords, dims):
+        r = r * n + c
+    return r
+
+
+def make_grid_mesh(shape=(2, 2), axes=("data", "model"), device=None) -> GridMesh:
+    """This rank's :class:`GridMesh` over the default process group, whose
+    world must hold ``prod(shape)`` ranks; a grid of one rank needs no
+    group.  Every rank of the default group must call it: it creates a
+    subgroup for each set of axes and each place on the other axes, all in
+    one order."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"grid {shape} names {len(axes)} axes {axes}")
+    size = math.prod(shape)
+    dev = resolve_device(device)
+    if size == 1:
+        return GridMesh(axes, shape, 0, dev)
+    if not dist.is_initialized() or dist.get_world_size() != size:
+        raise ValueError(f"the default process group must hold {size} ranks")
+    me = dist.get_rank()
+    groups = {}
+    for k in range(1, len(axes) + 1):
+        for subset in itertools.combinations(axes, k):
+            probe = GridMesh(axes, shape, 0, dev)
+            if axis_size(probe, subset) == 1:
+                continue
+            if axis_size(probe, subset) == size:
+                groups[frozenset(subset)] = dist.group.WORLD
+                continue
+            # one group for each place on the other axes, created by all
+            cosets = sorted({tuple(sorted(GridMesh(axes, shape, r, dev).members(subset)))
+                             for r in range(size)})
+            for members in cosets:
+                g = dist.new_group(list(members))
+                if me in members:
+                    groups[frozenset(subset)] = g
+    return GridMesh(axes, shape, me, dev, backend=str(dist.get_backend()),
+                    groups=groups)
 
 
 def make_local_mesh(axis: str = "data", device=None) -> RankMesh:

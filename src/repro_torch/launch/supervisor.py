@@ -189,11 +189,15 @@ class Supervisor:
             with open(cfg_path, "w") as f:
                 json.dump(cfg, f)
             log = open(os.path.join(gdir, f"worker_{rank}.log"), "w")
+            # each rank in a session of its own: a rank the hang drill
+            # SIGSTOPs is then in no process group of the supervisor's, so
+            # the SIGHUP and SIGCONT that POSIX sends to an orphaned group
+            # holding a stopped member can never reach the supervisor
             procs[rank] = (subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.supervisor",
                  "--worker", cfg_path],
                 stdout=log, stderr=subprocess.STDOUT,
-                env=self._worker_env()), log)
+                env=self._worker_env(), start_new_session=True), log)
         return procs
 
     def _teardown(self, procs: dict) -> None:
@@ -559,6 +563,8 @@ def worker_main(cfg_path: str) -> int:
         cfg = json.load(f)
     rank, gen = cfg["rank"], cfg["generation"]
     ranks = tuple(cfg["ranks"])
+    print(f"rank {rank} generation {gen}: pid {os.getpid()} ppid {os.getppid()} "
+          f"pgid {os.getpgid(0)} sid {os.getsid(0)}", flush=True)
     policy = rz.WatchdogPolicy(**cfg["watchdog"])
     coord = cfg["coord_dir"]
     guard = _Guard(cfg, policy)

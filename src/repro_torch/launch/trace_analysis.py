@@ -21,6 +21,10 @@ program text, so this module records the call itself:
 * Every message call of a mesh (``launch/mesh.py:ScheduleLog``) becomes a
   ``mesh`` record; mesh events and operations draw their sequence numbers
   from one counter, ``mesh.SEQ``.
+* ``torch.cuda.synchronize()`` and ``Event.synchronize()`` wait for the card
+  where ``set_sync_debug_mode("error")`` does not look
+  (:data:`UNSEEN_SYNCS`); while a trace is active each call becomes a
+  data-dependent ``fn`` record, which the "no host sync" contract refuses.
 
 :func:`analyze_trace` returns the keys of ``analyze_hlo``.  FLOPs are
 ``2 * out * K`` for each matrix product (``mm``, ``bmm``, ``addmm``,
@@ -41,7 +45,8 @@ from torch.utils._pytree import tree_flatten
 from . import mesh as _mesh
 
 __all__ = ["OpRecord", "OpTrace", "analyze_trace", "kernel_counts",
-           "shape_dim_hits", "collective_issue_depths", "input_tensors"]
+           "shape_dim_hits", "collective_issue_depths", "input_tensors",
+           "UNSEEN_SYNCS"]
 
 # products whose FLOPs are counted: 2 * out * K, K the last dim of the
 # left operand (the bias of addmm/baddbmm is argument 0)
@@ -213,9 +218,31 @@ class OpTrace(TorchDispatchMode):
                                      event=ev, log=id(log), index=index,
                                      rank=log.rank))
 
+    def _sync_call(self, name: str) -> None:
+        self._poll()
+        self.records.append(OpRecord(seq=next(_mesh.SEQ), kind="fn", name=name,
+                                     data_dependent=True))
+
+    def _patch_syncs(self) -> None:
+        """Route the host syncs that ``set_sync_debug_mode`` does not refuse
+        (:data:`UNSEEN_SYNCS`) through a recording wrapper while active."""
+        trace, real_sync, real_event = self, torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+        def synchronize(*args, **kwargs):
+            trace._sync_call("torch.cuda.synchronize")
+            return real_sync(*args, **kwargs)
+
+        def event_synchronize(event):
+            trace._sync_call("Event.synchronize")
+            return real_event(event)
+        self._real_syncs = (real_sync, real_event)
+        torch.cuda.synchronize = synchronize
+        torch.cuda.Event.synchronize = event_synchronize
+
     def __enter__(self):
         self._counts = kernel_counts()
         _mesh.OBSERVERS.append(self)
+        self._patch_syncs()
         self._fn.__enter__()
         return super().__enter__()
 
@@ -225,6 +252,7 @@ class OpTrace(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             self._fn.__exit__(*exc)
+            torch.cuda.synchronize, torch.cuda.Event.synchronize = self._real_syncs
             _mesh.OBSERVERS.remove(self)
 
     # -- aten operations ------------------------------------------------------
@@ -368,3 +396,8 @@ def collective_issue_depths(trace, collectives=("all_gather", "exchange")
         out[r.name].append(sum(1 for s in work if r.seq < s < end))
     return out
 
+
+# the host syncs that set_sync_debug_mode("error") lets pass on an H100
+# (torch 2.11, CUDA 12.8; tests/test_torch_sync_debug.py holds the list):
+# OpTrace records each call itself
+UNSEEN_SYNCS = ("torch.cuda.synchronize", "Event.synchronize")

@@ -1,7 +1,7 @@
-"""Mixture-of-Experts layer on one card, and cost-model expert placement.
+"""Mixture-of-Experts layer, on one card or with its experts over a grid's
+model axis, and cost-model expert placement.
 
-The reference's ``models/moe.py`` without its mesh: ``moe_layer`` is the
-single-rank path, every expert local.  Tokens are routed to their top-k
+The reference's ``models/moe.py``.  Tokens are routed to their top-k
 experts, gathered into a capacity-padded ``(E, C, D)`` block, run through
 the experts' SwiGLU FFNs as batched matrix products, and combined with
 their gate weights.  Capacity is per call, ``C = ceil(N k / E * cf)``
@@ -10,6 +10,21 @@ capacity is dropped, exactly as in the reference: the rank of an
 assignment within its expert is the exclusive count of earlier ones in the
 flat ``(token, choice)`` order.
 
+With a grid (``launch/mesh.py:GridMesh``) whose model axis holds more than
+one rank, ``moe_layer`` is the reference's replicated-dispatch expert
+parallelism, its ``shard_map`` body written out: activations are this data
+rank's rows, replicated over the model axis; model rank ``m`` holds experts
+``[m E_l, (m + 1) E_l)`` with their dim 1 split over the data axes (FSDP).
+Each rank gathers its experts' dim 1 back (``make_fsdp_gather_q8`` or the
+16-bit gather), routes its rows over all ``E`` experts, keeps the
+assignments to its own (capacity from its own rows, as the reference's
+per-shard count), and one all-reduce over the model axis adds the ranks'
+partial outputs.  The pair :func:`copy_to_model` / :func:`reduce_from_model`
+is what the ``shard_map`` specs imply for autograd: ``x`` and the router
+enter replicated over the model axis, so each model rank's gradient of them
+covers its own experts only and the backward sums them; the output leaves
+through the sum, whose backward is the identity.
+
 ``expert_placement`` is the paper's technique transplanted: experts as the
 vertices of a weighted graph (token loads) with co-activation edges,
 partitioned by ``core/partition.py``.
@@ -17,12 +32,15 @@ partitioned by ``core/partition.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.partition import Graph, partition
+from ..parallel.sharding import (axis_size, batch_axes, block_shape, normalize_spec,
+                                 param_spec)
 from .config import ModelConfig
 from .layers import normal_init
 
@@ -46,45 +64,55 @@ def capacity(num_tokens: int, cfg: ModelConfig) -> int:
     return max(int(math.ceil(num_tokens * m.top_k / m.num_experts * m.capacity_factor)), 1)
 
 
-def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int):
-    """Routing of ``x`` (N, D) over the router's E experts.
+def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
+          e_start: int = 0, e_local: Optional[int] = None):
+    """Routing of ``x`` (N, D) over the router's E experts, kept for the
+    ``e_local`` experts from ``e_start`` on (all E by default).
 
     Returns, per flat ``(token, choice)`` assignment in token-major order,
     ``(flat_e, flat_w, slot, keep)``: the expert, its softmax weight over
-    the token's top-k logits, the row of the ``(E * capacity + 1)`` gather
-    buffer it lands in (the last row is the overflow bin), and whether it is
-    within capacity.
+    the token's top-k logits, the row of the ``(e_local * capacity + 1)``
+    gather buffer it lands in (the last row is the overflow bin), and
+    whether it is one of the kept experts' and within capacity.  The rank of
+    an assignment within its expert counts the earlier assignments to that
+    expert, all of them this rank's.
     """
     E = router.shape[1]
+    e_local = E if e_local is None else e_local
     logits = x.to(torch.float32) @ router.to(torch.float32)          # (N, E)
     gate_w, gate_e = torch.topk(logits, top_k, dim=-1)               # sorted
     gate_w = torch.softmax(gate_w, dim=-1)
     flat_e, flat_w = gate_e.reshape(-1), gate_w.reshape(-1)
+    local_e = flat_e - e_start
+    mine = (local_e >= 0) & (local_e < e_local)
+    local_e = torch.where(mine, local_e, e_local)    # the others: one bucket past
     # rank of each assignment within its expert: the exclusive count of
     # earlier ones, read off a stable sort by expert
-    order = torch.sort(flat_e, stable=True).indices
+    order = torch.sort(local_e, stable=True).indices
     # counted by an integer index_add (exact in any order; bincount would
     # wait on the host for the largest key)
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
+    counts = torch.zeros(e_local + 1, dtype=flat_e.dtype, device=x.device).index_add_(
+        0, local_e, torch.ones_like(local_e))
     first = torch.cumsum(counts, dim=0) - counts          # each expert's first place
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.numel(), device=x.device) - first[flat_e[order]]
-    keep = rank < capacity
-    slot = torch.where(keep, flat_e * capacity + rank, E * capacity)
+    rank[order] = torch.arange(order.numel(), device=x.device) - first[local_e[order]]
+    keep = mine & (rank < capacity)
+    slot = torch.where(keep, local_e * capacity + rank, e_local * capacity)
     return flat_e, flat_w, slot, keep
 
 
-def _moe_local(x, router, wg, wi, wo, *, top_k: int, capacity: int):
-    """MoE over every expert: x (N, D) -> (N, D)."""
+def _moe_local(x, router, wg, wi, wo, *, top_k: int, capacity: int, e_start: int = 0):
+    """MoE over the experts ``wg``/``wi``/``wo`` hold (from ``e_start`` on):
+    x (N, D) -> (N, D), the sum of those experts' contributions."""
     N, D = x.shape
-    E = wg.shape[0]
-    _, flat_w, slot, keep = route(x, router, top_k=top_k, capacity=capacity)
+    E_local = wg.shape[0]
+    _, flat_w, slot, keep = route(x, router, top_k=top_k, capacity=capacity,
+                                  e_start=e_start, e_local=E_local)
     flat_tok = torch.arange(N, device=x.device).repeat_interleave(top_k)
-    # gather into (E * capacity + 1, D); the overflow bin is dropped
-    xe = torch.zeros((E * capacity + 1, D), dtype=x.dtype, device=x.device)
+    # gather into (E_local * capacity + 1, D); the overflow bin is dropped
+    xe = torch.zeros((E_local * capacity + 1, D), dtype=x.dtype, device=x.device)
     xe[slot] = torch.where(keep[:, None], x[flat_tok], 0)
-    xe = xe[:-1].reshape(E, capacity, D)
+    xe = xe[:-1].reshape(E_local, capacity, D)
     dt = x.dtype
     h = F.silu(torch.bmm(xe, wg.to(dt))) * torch.bmm(xe, wi.to(dt))
     ye = torch.bmm(h, wo.to(dt))                                      # (E, C, D)
@@ -96,14 +124,219 @@ def _moe_local(x, router, wg, wi, wo, *, top_k: int, capacity: int):
     return ytok.reshape(N, top_k, D).sum(dim=1)
 
 
-def moe_layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D), every expert on this card."""
+# ---------------------------------------------------------------------------
+# The grid's collectives under autograd
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    """Forward the identity; backward the sum over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_sum(g, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Forward the sum over ``axes``; backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce_sum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x, mesh, axes):
+    """``x`` entering a computation replicated over ``axes``: the identity,
+    whose backward adds the ranks' partial gradients over ``axes``."""
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x, mesh, axes):
+    """The sum of the ranks' partial ``x`` over ``axes``, whose backward
+    hands each rank the gradient as it is."""
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def copy_to_model(x, mesh):
+    return copy_to(x, mesh, ("model",))
+
+
+def reduce_from_model(x, mesh):
+    return reduce_from(x, mesh, ("model",))
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather on dim 1 over ``axes``; backward ``reduce_scatter`` of the
+    cotangent, in its dtype, over the same axes."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.all_gather(w, axes, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axes, dim=1), None, None
+
+
+def fsdp_gather(w, mesh, axes, compute_dtype):
+    """The 16-bit FSDP gather: cast to the compute dtype, then all-gather
+    dim 1 over ``axes`` (the wire carries the compute dtype)."""
+    return _Gather.apply(w.to(compute_dtype), mesh, axes)
+
+
+class _GatherQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, axes, compute_dtype):
+        ctx.mesh, ctx.axes, ctx.dtype = mesh, axes, w.dtype
+        scale = torch.amax(torch.abs(w), dim=(1, 2), keepdim=True) / 127.0 + 1e-12
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        qg = mesh.all_gather(q, axes, dim=1)
+        sg = mesh.all_gather(scale, axes, dim=1)                      # (E, nsh, 1)
+        e, d_full, f = qg.shape
+        nsh = sg.shape[1]
+        blocks = qg.reshape(e, nsh, d_full // nsh, f).to(compute_dtype)
+        return (blocks * sg[..., None].to(compute_dtype)).reshape(e, d_full, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        gl = ctx.mesh.reduce_scatter(g.to(torch.float32), ctx.axes, dim=1)
+        return gl.to(ctx.dtype), None, None, None
+
+
+def make_fsdp_gather_q8(axes, compute_dtype):
+    """int8-quantized FSDP all-gather with a straight-through backward.
+
+    Forward: per-expert absmax int8 quantization of the local dim-1 block
+    (``round`` half to even, as ``jnp.round``), an all-gather of the int8
+    payload and of the per-(expert, shard) scales, dequantized into the
+    compute dtype: the wire carries 1 byte an element.  Backward: the
+    exact adjoint of a tiled all-gather (``reduce_scatter`` of the f32
+    cotangent), the quantizer treated as the identity (STE).  Returns
+    ``gather(w, mesh)``."""
+    def gather(w, mesh):
+        return _GatherQ8.apply(w, mesh, axes, compute_dtype)
+    return gather
+
+
+# ---------------------------------------------------------------------------
+# The layer
+# ---------------------------------------------------------------------------
+
+
+def _fsdp_axes(mesh, dim1: int):
+    """The reference's chain for the experts' dim 1 (``moe.py:160-167``):
+    every batch axis when their product divides it, else ``data`` alone
+    when it does, else None."""
+    dp_axes = batch_axes(mesh)
+    dp = axis_size(mesh, dp_axes)
+    if dp > 1 and dim1 % dp == 0:
+        return dp_axes
+    if "data" in mesh.axis_names and mesh.shape["data"] > 1 \
+            and dim1 % mesh.shape["data"] == 0:
+        return ("data",)
+    return None
+
+
+def check_grid(mesh) -> None:
+    """Raise for a grid whose model axis holds one rank and whose batch axes
+    hold more.  There the reference routes the global batch on every
+    device (one capacity for all of its tokens), while each of the port's
+    data ranks would route its own rows: whenever tokens drop, another
+    model.  Routing there needs the per-expert counts scanned across the
+    data ranks, which the port does not do."""
+    if mesh is None or mesh.shape.get("model", 1) > 1:
+        return
+    if axis_size(mesh, batch_axes(mesh)) > 1:
+        raise NotImplementedError(
+            f"moe_layer on a grid {mesh.shape} with one model rank: the "
+            f"reference routes the global batch there; give the model axis "
+            f"more than one rank")
+
+
+def moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              placement: Optional[np.ndarray] = None) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D).
+
+    Without a grid, or on a grid of one rank, every expert is on this card
+    and capacity counts all of ``x``'s tokens.  On a grid whose model axis
+    holds more than one rank, ``x`` is this data rank's rows and ``p``'s
+    experts are this rank's blocks as ``parallel/sharding.py:param_spec``
+    stores them, ``(E / M, D / n_fsdp, F)``; the router is whole.  A grid
+    whose model axis holds one rank and whose batch axes hold more is
+    refused (:func:`check_grid`).  ``placement`` (a permutation of expert ids, the
+    cost-model placement) is taken as the reference takes it: the expert
+    weights are permuted where they are loaded, so it changes nothing here.
+    """
     B, T, D = x.shape
     m = cfg.moe
-    out = _moe_local(x.reshape(B * T, D), p["router"], p["experts_gate"],
-                     p["experts_in"], p["experts_out"], top_k=m.top_k,
-                     capacity=capacity(B * T, cfg))
-    return out.reshape(B, T, D)
+    check_grid(mesh)
+    if mesh is None or "model" not in mesh.axis_names or mesh.shape["model"] == 1:
+        out = _moe_local(x.reshape(B * T, D), p["router"], p["experts_gate"],
+                         p["experts_in"], p["experts_out"], top_k=m.top_k,
+                         capacity=capacity(B * T, cfg))
+        return out.reshape(B, T, D)
+
+    tp = mesh.shape["model"]
+    if m.num_experts % tp:
+        raise ValueError(f"{m.num_experts} experts do not split over {tp} model ranks")
+    e_local = m.num_experts // tp
+    cap = capacity(B * T, cfg)              # this data rank's rows: per shard
+    fsdp_ax = _fsdp_axes(mesh, D)
+    want = ("model", fsdp_ax, None)
+    shapes = {"experts_gate": (m.num_experts, D, m.expert_ff),
+              "experts_in": (m.num_experts, D, m.expert_ff),
+              "experts_out": (m.num_experts, m.expert_ff, D)}
+    for name, shape in shapes.items():
+        spec = param_spec(mesh, name, shape)
+        if normalize_spec(spec, mesh) != normalize_spec(want, mesh):
+            raise ValueError(f"moe_layer: {name} {shape} is stored as {spec} but "
+                             f"the layer reads it as {want}; the port does not "
+                             f"reshard")
+        if tuple(p[name].shape) != block_shape(mesh, spec, shape):
+            raise ValueError(f"moe_layer: {name} is {tuple(p[name].shape)}, not "
+                             f"this rank's block {block_shape(mesh, spec, shape)}")
+    dt = x.dtype
+    wg, wi, wo = p["experts_gate"], p["experts_in"], p["experts_out"]
+    if fsdp_ax is not None:
+        if cfg.moe_gather_bits == 8:
+            gather = make_fsdp_gather_q8(fsdp_ax, dt)
+            wg, wi, wo = gather(wg, mesh), gather(wi, mesh), gather(wo, mesh)
+        else:
+            wg, wi, wo = (fsdp_gather(w, mesh, fsdp_ax, dt) for w in (wg, wi, wo))
+    rest = tuple(a for a in batch_axes(mesh) if a not in (fsdp_ax or ()))
+    if axis_size(mesh, rest) > 1:
+        # experts replicated over a batch axis: their gradient sums over it
+        wg, wi, wo = (copy_to(w, mesh, rest) for w in (wg, wi, wo))
+    xs = copy_to_model(x, mesh)
+    router = copy_to_model(p["router"], mesh)
+    out = _moe_local(xs.reshape(B * T, D), router, wg, wi, wo, top_k=m.top_k,
+                     capacity=cap, e_start=mesh.axis_index("model") * e_local)
+    return reduce_from_model(out, mesh).reshape(B, T, D)
+
+
+def moe_param_specs(mesh) -> dict:
+    """The reference's specs of the MoE parameters: experts over the model
+    axis (EP), every other dim whole.  This is the expert-parallel view
+    alone: ``param_spec`` also splits the experts' dim 1 over the batch
+    axes where it divides (FSDP), and ``moe_layer`` reads the experts as
+    ``param_spec`` stores them, so it takes blocks of these specs only on
+    a grid whose batch axes hold one rank."""
+    return {
+        "router": (None, None),
+        "experts_gate": ("model", None, None),
+        "experts_in": ("model", None, None),
+        "experts_out": ("model", None, None),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,8 @@ from . import layers as ll
 from .config import ModelConfig
 from .layers import init_attention, init_mlp, mlp_layer, normal_init, rms_norm
 from .mamba2 import init_mamba, init_mamba_state, mamba_layer
-from .moe import init_moe, moe_layer
+from ..parallel.sharding import axis_size, batch_axes
+from .moe import init_moe, moe_layer, reduce_from
 from .rglru import init_rglru, init_rglru_state, rglru_layer
 
 # weights read in f32 whatever the compute dtype (besides lm_head and a tied embed)
@@ -222,16 +223,17 @@ def _masked_decode_attn(q1, ck, cv, kpos, t, window):
     return out.reshape(B, H, 1, d).to(q1.dtype)
 
 
-def _ffn_block(p, h, cfg, kind):
+def _ffn_block(p, h, cfg, kind, mesh=None):
     x = rms_norm(h, p["ln2"].to(h.dtype), cfg.rms_eps)
     if kind == "moe":
-        return h + moe_layer(p["moe"], x, cfg)
+        return h + moe_layer(p["moe"], x, cfg, mesh)
     return h + mlp_layer(p["mlp"], x)
 
 
-def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
+def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk,
+                mesh=None):
     """One block.  Returns (h, cache): the attention cache written in place,
-    or a recurrent layer's new state."""
+    or a recurrent layer's new state.  ``mesh`` reaches the MoE layer only."""
     if kind == "mamba":
         x = rms_norm(h, p["ln"].to(h.dtype), cfg.rms_eps)
         out, st = mamba_layer(p["mamba"], x, cfg, cache)
@@ -243,7 +245,7 @@ def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
     window = cfg.rglru.window if cfg.rglru is not None else None
     h, st = _attn_block(p, h, cfg, positions=positions, window=window,
                         cache=cache, pos_scalar=pos_scalar, q_chunk=q_chunk)
-    return _ffn_block(p, h, cfg, kind), st
+    return _ffn_block(p, h, cfg, kind, mesh), st
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +254,7 @@ def apply_layer(p, h, cfg, kind, *, positions, cache, pos_scalar, q_chunk):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
-            pos_scalar=None, q_chunk: int = 512, remat: bool = False):
+            pos_scalar=None, q_chunk: int = 512, remat: bool = False, mesh=None):
     """Returns (hidden (B, T, D), caches).
 
     tokens: (B, T_text) integer.  For a vlm, ``patch_embeds`` (B, P,
@@ -261,7 +263,10 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     ``pos_scalar`` (an int, uniform across the batch); ``caches`` alone
     prefills them.  Each layer's entry of ``caches`` is replaced by its new
     state.  ``remat`` (training, no caches) keeps only each layer's input
-    for the backward and recomputes the layer there.
+    for the backward and recomputes the layer there.  ``mesh`` (a
+    ``GridMesh``) reaches ``moe_layer`` only, as in the reference: ``params``
+    then holds the dense weights whole and the experts as this rank's
+    blocks, and ``tokens`` this data rank's rows.
     """
     if remat and caches is not None:
         raise ValueError("remat=True is for training: it takes no caches")
@@ -278,21 +283,21 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     for i, kind in enumerate(layer_kinds(cfg)):
         if remat:
             h = checkpoint(_layer_out, params["layers"][i], h, cfg, kind, positions,
-                           q_chunk, use_reentrant=False)
+                           q_chunk, mesh, use_reentrant=False)
             continue
         h, st = apply_layer(params["layers"][i], h, cfg, kind, positions=positions,
                             cache=None if caches is None else caches[i],
-                            pos_scalar=pos_scalar, q_chunk=q_chunk)
+                            pos_scalar=pos_scalar, q_chunk=q_chunk, mesh=mesh)
         if caches is not None:
             caches[i] = st
     h = rms_norm(h, params["final_norm"].to(dt), cfg.rms_eps)
     return h, caches
 
 
-def _layer_out(p, h, cfg, kind, positions, q_chunk):
+def _layer_out(p, h, cfg, kind, positions, q_chunk, mesh=None):
     """One cache-free block's output (its recurrent state dropped)."""
     return apply_layer(p, h, cfg, kind, positions=positions, cache=None,
-                       pos_scalar=None, q_chunk=q_chunk)[0]
+                       pos_scalar=None, q_chunk=q_chunk, mesh=mesh)[0]
 
 
 def unembed(params, h, cfg: ModelConfig):
@@ -315,12 +320,19 @@ def _chunk_nll(h, labels, W):
     return ((lse - tgt) * m).sum(), m.sum()
 
 
-def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256):
+def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256, mesh=None):
     """Mean NLL over labels >= 0.  hidden (B, T, D); labels (B, T).
 
     Runs T in chunks of ``chunk`` (all of T when ``chunk`` does not divide
     it), each under a non-reentrant checkpoint: the (B, c, V) f32 logits
     block exists only while its chunk runs, forward and backward.
+
+    On a grid, ``hidden`` and ``labels`` are this data rank's rows and the
+    mean is over the global batch: this rank's NLL sum over the global
+    count of labels >= 0, summed over the batch axes.  The value is the
+    reference's on every rank; the sum's backward is the identity, so each
+    rank's gradient is its rows' share, and the shares add up exactly over
+    the data ranks.
     """
     T = hidden.shape[1]
     W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -332,4 +344,8 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256):
         n, k = checkpoint(_chunk_nll, hidden[:, i:i + c], labels[:, i:i + c], W,
                           use_reentrant=False)
         nll, cnt = nll + n, cnt + k
-    return nll / torch.clamp(cnt, min=1.0)
+    axes = () if mesh is None else batch_axes(mesh)
+    if axis_size(mesh, axes) == 1:
+        return nll / torch.clamp(cnt, min=1.0)
+    cnt = mesh.all_reduce_sum(cnt.detach(), axes)
+    return reduce_from(nll / torch.clamp(cnt, min=1.0), mesh, axes)

@@ -12,8 +12,11 @@ Yi-6B's size) rounded to each one's dtype.  A weight stored in bf16 is
 therefore updated in f32 arithmetic and rounded once a step; there is no
 f32 master copy beside it.
 
-``compressed_psum_mean`` (a ``psum`` inside ``shard_map``) waits for the
-port's data parallelism over ranks.
+On a grid of ranks (``launch/mesh.py:GridMesh``) every tree holds this
+rank's blocks (``parallel/sharding.py``).  ``apply_updates(mesh=, specs=)``
+then clips by the norm of the global tree, every element counted once, and
+updates the blocks elementwise; ``compressed_psum_mean`` is the reference's
+int8-compressed mean over one axis, its wire f32 as the reference's is.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import math
 import torch
 
 from ..models.transformer import param_tensors
+from ..parallel.sharding import counted_once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,19 +69,32 @@ def init_state(params, cfg: "AdamWConfig | None" = None) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in param_tensors(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm of every element of ``tree``.  On a grid, ``tree`` holds
+    this rank's blocks under ``specs`` (one a leaf): a rank adds the squares
+    of its blocks, except that a leaf replicated over an axis is added only
+    by the ranks at index 0 on it, and the sum over the whole grid is taken,
+    so every rank has the same norm."""
+    leaves = param_tensors(tree)
+    if mesh is None or mesh.size == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves))
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, spec in zip(leaves, specs):
+        if counted_once(mesh, spec):
+            total = total + torch.sum(torch.square(x.to(torch.float32)))
+    return torch.sqrt(mesh.all_reduce_sum(total, mesh.axis_names))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig, mesh=None, specs=None):
     """One AdamW step.  Returns (params, state, metrics): the given
     parameter and state tensors, written in place, and ``grad_norm`` and
-    ``lr`` as 0-dim device tensors."""
+    ``lr`` as 0-dim device tensors.  On a grid the trees are this rank's
+    blocks under ``specs`` (:func:`global_norm`)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
     stepf = step.to(torch.float32)
@@ -124,3 +141,24 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor):
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     g_hat = q.to(torch.float32) * scale
     return g_hat, g32 - g_hat
+
+
+def compressed_psum_mean(grads, errors, mesh, axis):
+    """int8-quantized mean over ``axis`` with error feedback: each leaf of
+    ``grads`` plus its ``errors`` leaf through :func:`compress_decompress`,
+    then the sum of the f32 ``g_hat`` over ``axis`` divided by its size (the
+    reference's ``shard_map`` body, whose wire is f32 too).  Returns the
+    mean tree and the new error tree, in ``grads``' structure."""
+    n = mesh.shape[axis] if axis in mesh.axis_names else 1
+
+    def walk(g, e):
+        if isinstance(g, torch.Tensor):
+            gh, ne = compress_decompress(g, e)
+            return mesh.all_reduce_sum(gh, (axis,)) / n, ne
+        keys = g.keys() if isinstance(g, dict) else range(len(g))
+        pairs = {k: walk(g[k], e[k]) for k in keys}
+        if isinstance(g, dict):
+            return ({k: v[0] for k, v in pairs.items()},
+                    {k: v[1] for k, v in pairs.items()})
+        return [pairs[k][0] for k in keys], [pairs[k][1] for k in keys]
+    return walk(grads, errors)

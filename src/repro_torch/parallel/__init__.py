@@ -1,1 +1,2 @@
-"""Cross-process fault tolerance of the port (``resilience``)."""
+"""Cross-rank parts of the port: the sharding rules of a grid of ranks
+(``sharding``) and cross-process fault tolerance (``resilience``)."""

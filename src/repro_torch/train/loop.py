@@ -1,6 +1,7 @@
-"""Training loop on one card: the step, fault tolerance, expert-load probing.
+"""Training loop: the step, fault tolerance, expert-load probing, on one
+card or on a grid of ranks.
 
-The reference's ``train/loop.py`` without a mesh:
+The reference's ``train/loop.py``:
 
 * ``make_train_step`` differentiates ``make_loss_fn`` with
   ``torch.autograd.grad`` (the reference's ``jax.value_and_grad``); a
@@ -14,10 +15,23 @@ The reference's ``train/loop.py`` without a mesh:
   resumes the same stream; ``restore_reference`` resumes from a checkpoint
   that the reference's ``Trainer`` wrote.
 * ``probe_expert_load`` counts layer 0's routed tokens per expert, the
-  load that the reference's expert placement balances; on one card there
-  is nothing to place.
+  load that the reference's expert placement balances.
 
-A ``mesh`` (sharded training over ranks) is not taken yet.
+On a grid (``mesh``, a ``launch/mesh.py:GridMesh``) each rank holds its
+blocks of the parameters and of the AdamW state (``parallel/sharding.py``)
+and takes its data rank's rows of every global batch.  There is no
+compiler to propagate shardings, so the step writes out what GSPMD does
+for the reference: the dense weights (every leaf but the experts) are
+gathered whole at the start of the step, and their gather's backward sums
+the gradient over the batch axes and keeps this rank's slice over the
+others (the dense compute is replicated over the model axis, so its
+gradient is the same on every model rank); the experts stay blocks, which
+``moe_layer`` gathers layer by layer.  The loss is the global batch's mean
+(``lm_loss(mesh=)``).  Checkpoints hold full arrays, written by rank 0 in
+the one-rank format, and a restore keeps each rank's blocks of them, so a
+checkpoint of any grid restores onto any other (the elastic restore).
+One card is a grid of one rank (:func:`one_rank_grid`), where a block is
+the whole array and no collective is issued: one code path for both.
 """
 from __future__ import annotations
 
@@ -31,25 +45,31 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoint.manager import CheckpointManager
+from ..checkpoint.manager import CheckpointManager, to_host
 from ..configs.backend import resolve_device
 from ..data.pipeline import PipelineState, advance, make_inputs
+from ..launch.mesh import GridMesh, make_grid_mesh
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.convert import params_from_jax
 from ..models.layers import rms_norm
 from ..models.transformer import forward, init_params, lm_loss, param_tensors
 from ..optim.adamw import AdamWConfig, apply_updates, init_state
+from ..models import moe as moe_mod
+from ..parallel import sharding as shd
 
 
-def make_loss_fn(cfg: ModelConfig, *, q_chunk: int = 512, loss_chunk: int = 256,
-                 remat: bool = True):
+def make_loss_fn(cfg: ModelConfig, mesh=None, *, q_chunk: int = 512,
+                 loss_chunk: int = 256, remat: bool = True):
+    if cfg.moe is not None:
+        moe_mod.check_grid(mesh)
+
     def loss_fn(params, batch):
         h, _ = forward(params, batch["tokens"], cfg,
                        patch_embeds=batch.get("patch_embeds"),
-                       q_chunk=q_chunk, remat=remat)
+                       q_chunk=q_chunk, remat=remat, mesh=mesh)
         if cfg.num_patches:
             h = h[:, cfg.num_patches:]      # loss over text positions only
-        return lm_loss(params, h, batch["labels"], cfg, chunk=loss_chunk)
+        return lm_loss(params, h, batch["labels"], cfg, chunk=loss_chunk, mesh=mesh)
     return loss_fn
 
 
@@ -66,28 +86,132 @@ def unflatten(template, leaves):
     return build(template)
 
 
-def value_and_grad(loss_fn, params, batch):
+# ---------------------------------------------------------------------------
+# The grid: specs, blocks, the dense weights' gather
+# ---------------------------------------------------------------------------
+
+
+def one_rank_grid(device="meta") -> GridMesh:
+    """A grid of one rank: the mesh of a step on one card.  It issues no
+    collective, so its device is read only by a caller that moves data
+    to it (``Trainer`` gives its own)."""
+    return make_grid_mesh((1, 1), device=device)
+
+
+def grid_specs(cfg: ModelConfig, mesh) -> dict[str, tuple]:
+    """Every parameter's spec on ``mesh`` by its name (``layers/0/attn/w_q``),
+    from the full shapes (drawn on the meta device)."""
+    full = init_params(cfg, torch.Generator(), "meta")
+    return dict(zip((n for n, _ in shd.flat_names(full)), shd.param_specs(mesh, full)))
+
+
+def tree_specs(tree, by_name: dict) -> list[tuple]:
+    """The specs of ``tree``'s leaves in :func:`param_tensors`' order (a
+    tree's order is its dicts' order, which differs between trees built
+    in different ways)."""
+    return [by_name[n] for n, _ in shd.flat_names(tree)]
+
+
+def expert_leaves(params, mesh) -> list[bool]:
+    """Which leaves (in :func:`param_tensors`' order) ``moe_layer`` gathers
+    itself: the expert weights, when the grid's model axis holds more than
+    one rank (else ``moe_layer`` runs its one-rank path on them whole)."""
+    ep = mesh.shape.get("model", 1) > 1
+    return [ep and "experts" in name for name, _ in shd.flat_names(params)]
+
+
+def dense_grad_block(g: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of a dense weight's gradient from ``g``, its
+    gradient of the whole weight over this data rank's rows: summed over
+    the batch axes (a ``reduce_scatter`` on a dim split over them, else an
+    all-reduce) and sliced on the dims split over the other axes, on which
+    ``g`` is the same on every rank."""
+    batch = shd.batch_axes(mesh)
+    if any(set(shd.spec_axes(e)) & set(batch) and not set(shd.spec_axes(e)) <= set(batch)
+           for e in spec):
+        raise ValueError(f"spec {spec} mixes batch and other axes on one dim")
+    summed: set = set()
+    for d, entry in enumerate(spec):
+        axes = shd.spec_axes(entry)
+        if axes and set(axes) <= set(batch) and shd.axis_size(mesh, axes) > 1:
+            g = mesh.reduce_scatter(g, axes, dim=d)
+            summed |= set(axes)
+    rest = tuple(a for a in batch if a not in summed)
+    if shd.axis_size(mesh, rest) > 1:
+        g = mesh.all_reduce_sum(g, rest)
+    other = tuple(e if not set(shd.spec_axes(e)) & set(batch) else None for e in spec)
+    return shd.local_block(g, other, mesh)
+
+
+class _GatherDense(torch.autograd.Function):
+    """A dense weight's block -> the whole weight on every rank; backward
+    :func:`dense_grad_block`."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return shd.gather_full(block, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dense_grad_block(g, ctx.spec, ctx.mesh), None, None
+
+
+def _own(block: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """``block`` (:func:`shd.local_block` of ``full``) in storage of its
+    own when it is a part of ``full``, so that ``full`` can be freed."""
+    return block if block is full else block.clone()
+
+
+def local_rows(batch: dict, mesh) -> dict:
+    """This data rank's rows of a global batch (``batch_spec``)."""
+    out = {}
+    for k, v in batch.items():
+        spec = shd.batch_spec(mesh, v.dim())
+        if v.shape[0] % shd.axis_size(mesh, spec[0]):
+            raise ValueError(f"batch of {v.shape[0]} rows does not split over "
+                             f"{spec[0]}")
+        out[k] = shd.local_block(v, spec, mesh)
+    return out
+
+
+def value_and_grad(loss_fn, params, batch, mesh=None, specs=None):
     """(loss, gradients in :func:`param_tensors`' order): each gradient in its
-    parameter's dtype, zero for a parameter the loss does not reach."""
+    parameter's dtype, zero for a parameter the loss does not reach.
+
+    With a grid ``mesh``, ``params`` are this rank's blocks under ``specs``
+    and ``batch`` its data rank's rows: the dense weights are gathered
+    whole (:class:`_GatherDense`), and the gradients are this rank's blocks
+    of the global batch's gradient."""
     live = [t.detach().requires_grad_() for t in param_tensors(params)]
     with torch.enable_grad():
-        loss = loss_fn(unflatten(params, live), batch)
+        used = live
+        if mesh is not None:
+            used = [t if expert else _GatherDense.apply(t, mesh, spec)
+                    for t, spec, expert in zip(live, specs, expert_leaves(params, mesh))]
+        loss = loss_fn(unflatten(params, used), batch)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), [torch.zeros_like(t) if g is None else g
                            for t, g in zip(live, grads)]
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                     num_microbatches: int = 1, **loss_kw):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``num_microbatches > 1`` is gradient accumulation: the
-    batch splits on dim 0, so live activations scale 1/n."""
-    loss_fn = make_loss_fn(cfg, **loss_kw)
+    batch splits on dim 0, so live activations scale 1/n.  On a grid
+    ``mesh`` (without one, a grid of one rank), the trees are this rank's
+    blocks and ``batch`` its data rank's rows (a data rank's microbatch
+    ``i`` is the ``i``-th share of its rows)."""
+    mesh = one_rank_grid() if mesh is None else mesh
+    loss_fn = make_loss_fn(cfg, mesh, **loss_kw)
     n = num_microbatches
+    by_name = grid_specs(cfg, mesh)
 
     def train_step(params, opt_state, batch):
+        specs = tree_specs(params, by_name)
         if n == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = value_and_grad(loss_fn, params, batch, mesh, specs)
         else:
             B = batch["tokens"].shape[0]
             if B % n:
@@ -97,7 +221,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(n):
                 mb = {k: v.reshape((n, B // n) + v.shape[1:])[i] for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mb)
+                l, g = value_and_grad(loss_fn, params, mb, mesh, specs)
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)
                 loss = loss + l
@@ -105,7 +229,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = loss / n
             grads = [acc.div_(n) for acc in grads]
         params, opt_state, metrics = apply_updates(params, unflatten(params, grads),
-                                                   opt_state, opt_cfg)
+                                                   opt_state, opt_cfg, mesh, specs)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -128,16 +252,6 @@ def probe_expert_load(params, batch, cfg: ModelConfig) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Checkpoints: the port's own, and the reference's
 # ---------------------------------------------------------------------------
-
-
-def _load_into(tree, arrays) -> None:
-    """Copy restored host arrays (``tree``'s structure) into ``tree``'s
-    tensors, rounded to each tensor's dtype."""
-    if isinstance(tree, torch.Tensor):
-        tree.copy_(torch.from_numpy(np.asarray(arrays)))
-        return
-    for k, t in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
-        _load_into(t, arrays[k])
 
 
 def _nest(flat: dict) -> dict:
@@ -207,21 +321,28 @@ class TrainerConfig:
 class Trainer:
     """End-to-end driver used by ``examples/torch_train_lm.py``,
     ``launch/train.py`` and the tests; on the card unless ``device="cpu"``.
-    Weights are random, from a generator seeded with ``tcfg.seed``."""
+    Weights are random, from a generator seeded with ``tcfg.seed``.
+
+    With a grid ``mesh`` (``launch/mesh.py:make_grid_mesh``; every rank
+    builds its own Trainer) each rank draws the full parameters from the
+    seed and keeps its blocks, and so its blocks of the AdamW state; a step
+    takes its data rank's rows of the global batch (module docstring).
+    Without one, the Trainer runs on a grid of one rank, whose blocks are
+    the whole arrays: one code path for every grid."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  opt_cfg: Optional[AdamWConfig] = None,
                  tcfg: Optional[TrainerConfig] = None, device=None,
                  remat: bool = True, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer takes no mesh yet: training sharded over ranks is item "
-                "4c of the port's roadmap; train on one device (mesh=None)")
+        if mesh is not None and not isinstance(mesh, GridMesh):
+            raise TypeError(f"Trainer's mesh is a grid of ranks (launch.mesh."
+                            f"GridMesh), not {type(mesh).__name__}")
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg or TrainerConfig()
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=self.tcfg.steps)
-        self.device = resolve_device(device)
+        self.mesh = one_rank_grid(resolve_device(device)) if mesh is None else mesh
+        self.device = self.mesh.device
         self.ckpt = CheckpointManager(self.tcfg.ckpt_dir, keep=self.tcfg.keep)
         self.pipeline = PipelineState(seed=self.tcfg.seed, step=0)
         self.step_times: list[float] = []
@@ -229,19 +350,54 @@ class Trainer:
 
         gen = torch.Generator(device=self.device if self.device.type == "cuda" else "cpu")
         gen.manual_seed(self.tcfg.seed)
-        self.params = init_params(cfg, gen, self.device)
+        params = init_params(cfg, gen, self.device)
+        self.specs = tree_specs(params, grid_specs(cfg, self.mesh))
+        self.params = unflatten(params, [_own(shd.local_block(t, s, self.mesh), t)
+                                         for t, s in zip(param_tensors(params), self.specs)])
+        del params
         self.opt_state = init_state(self.params, self.opt_cfg)
-        self._step_fn = make_train_step(cfg, self.opt_cfg, remat=remat)
+        self._step_fn = make_train_step(cfg, self.opt_cfg, self.mesh, remat=remat)
         self.metrics_log: list[dict] = []
+
+    # -- blocks and full arrays -----------------------------------------------
+
+    def _load_blocks(self, tree, full) -> None:
+        """Copy into ``tree`` (blocks in the parameters' structure) this
+        rank's blocks of ``full``, a tree of whole arrays matched by leaf
+        name (its order may differ)."""
+        by_name = dict(shd.flat_names(full))
+        for (name, t), spec in zip(shd.flat_names(tree), self.specs):
+            whole = torch.as_tensor(by_name[name]).to(self.device)
+            t.copy_(shd.local_block(whole, spec, self.mesh))
+
+    def _full_tree(self, tree):
+        """``tree`` (blocks in the parameters' structure) gathered whole on
+        rank 0, and None elsewhere; every rank takes part.  A gathered leaf
+        is a host array, a block that is already whole stays the tensor (the
+        checkpoint's writer copies it to the host itself)."""
+        host = []
+        for t, spec in zip(param_tensors(tree), self.specs):
+            full = shd.gather_full(t, spec, self.mesh)
+            host.append((full if full is t else to_host(full))
+                        if self.mesh.rank == 0 else None)
+            del full
+        return unflatten(tree, host) if self.mesh.rank == 0 else None
 
     # -- fault tolerance ----------------------------------------------------
 
     def try_restore(self) -> bool:
-        out, meta = self.ckpt.restore({"params": self.params, "opt": self.opt_state})
+        # every rank reads the full arrays and keeps its blocks: any grid's
+        # checkpoint restores onto any other
+        full = init_params(self.cfg, torch.Generator(), "meta")
+        out, meta = self.ckpt.restore({"params": full, "opt": {
+            "mu": full, "nu": full, "step": torch.empty((), dtype=torch.int32,
+                                                       device="meta")}})
         if out is None:
             return False
-        _load_into(self.params, out["params"])
-        _load_into(self.opt_state, out["opt"])
+        self._load_blocks(self.params, out["params"])
+        self._load_blocks(self.opt_state["mu"], out["opt"]["mu"])
+        self._load_blocks(self.opt_state["nu"], out["opt"]["nu"])
+        self.opt_state["step"].copy_(torch.as_tensor(out["opt"]["step"]))
         self.pipeline = PipelineState(seed=meta["pipeline_seed"],
                                       step=meta["pipeline_step"])
         return True
@@ -252,17 +408,40 @@ class Trainer:
         got = read_reference_checkpoint(directory, self.cfg, self.device, step)
         if got is None:
             return False
-        self.params, self.opt_state, meta = got
+        params, opt_state, meta = got
+        self._load_blocks(self.params, params)
+        self._load_blocks(self.opt_state["mu"], opt_state["mu"])
+        self._load_blocks(self.opt_state["nu"], opt_state["nu"])
+        self.opt_state["step"].copy_(opt_state["step"])
         self.pipeline = PipelineState(seed=meta["pipeline_seed"],
                                       step=meta["pipeline_step"])
         return True
 
     def save(self, step: int):
-        self.ckpt.save(step, {"params": self.params, "opt": self.opt_state},
-                       meta={"pipeline_seed": self.pipeline.seed,
-                             "pipeline_step": self.pipeline.step})
+        """Checkpoint ``step``; returns the trees written (``params`` and
+        ``opt``, each leaf whole: :meth:`_full_tree`) on rank 0, and None on
+        the others, which take part in the gather."""
+        meta = {"pipeline_seed": self.pipeline.seed, "pipeline_step": self.pipeline.step}
+        # every leaf gathered to rank 0, which writes the one-rank format
+        params = self._full_tree(self.params)
+        opt = {"mu": self._full_tree(self.opt_state["mu"]),
+               "nu": self._full_tree(self.opt_state["nu"]),
+               "step": self.opt_state["step"]}
+        if self.mesh.rank != 0:
+            return None
+        trees = {"params": params, "opt": opt}
+        self.ckpt.save(step, trees, meta=meta)
+        return trees
 
     # -- main loop ----------------------------------------------------------
+
+    def step(self, batch: dict) -> dict:
+        """One step on the global ``batch`` (this rank takes its data rank's
+        rows); returns the metrics as floats."""
+        batch = local_rows(batch, self.mesh)
+        self.params, self.opt_state, metrics = self._step_fn(
+            self.params, self.opt_state, batch)
+        return {k: float(v) for k, v in metrics.items()}
 
     def run(self, steps: Optional[int] = None) -> list[dict]:
         steps = steps or self.tcfg.steps
@@ -270,9 +449,7 @@ class Trainer:
         for i in range(start, steps):
             batch = make_inputs(self.pipeline, self.cfg, self.shape, self.device)
             t0 = time.perf_counter()
-            self.params, self.opt_state, metrics = self._step_fn(
-                self.params, self.opt_state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = self.step(batch)
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
             self.pipeline = advance(self.pipeline)
@@ -283,13 +460,29 @@ class Trainer:
                 self.save(i + 1)
             if (self.tcfg.rebalance_every and self.cfg.moe is not None
                     and (i + 1) % self.tcfg.rebalance_every == 0):
-                self.refresh_expert_placement(batch)
+                self.refresh_expert_placement(local_rows(batch, self.mesh))
         self.ckpt.wait()
         return self.metrics_log
 
     # -- the paper's technique: dynamic load balancing for MoE --------------
 
     def refresh_expert_placement(self, batch) -> np.ndarray:
-        """Layer 0's expert loads.  On one card there is one rank, so no
-        placement is assigned (``expert_assignment`` stays None)."""
-        return probe_expert_load(self.params, batch, self.cfg)
+        """Layer 0's expert loads over the global batch (``batch`` is this
+        rank's rows; the counts are summed over the batch axes).  With more
+        than one model rank, ``expert_assignment`` becomes the cost-model
+        placement's expert permutation, as in the reference; nothing applies
+        it yet."""
+        spec = dict(zip((n for n, _ in shd.flat_names(self.params)), self.specs))["embed"]
+        embed = shd.gather_full(self.params["embed"], spec, self.mesh)
+        counts = probe_expert_load({"embed": embed, "layers": self.params["layers"][:1]},
+                                   batch, self.cfg)
+        axes = shd.batch_axes(self.mesh)
+        counts = self.mesh.all_reduce_sum(
+            torch.from_numpy(counts).to(self.device), axes).cpu().numpy()
+        ranks = self.mesh.shape.get("model", 1)
+        if ranks > 1:
+            coact = np.zeros((self.cfg.moe.num_experts,) * 2)
+            assign = moe_mod.expert_placement(counts, coact, ranks)
+            self.expert_assignment = moe_mod.placement_permutation(assign, ranks)
+        return counts
+

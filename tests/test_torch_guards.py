@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
                    "analysis/schedule.py", "models/moe.py", "models/rglru.py",
                    "models/mamba2.py", "optim/__init__.py", "optim/adamw.py",
                    "data/__init__.py", "data/pipeline.py", "train/__init__.py",
-                   "train/loop.py", "launch/train.py"):
+                   "train/loop.py", "launch/train.py", "parallel/sharding.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_modules(f)
@@ -102,13 +102,14 @@ def test_sharded_entry_points_raise_without_a_card():
     from repro_torch.core.parallel_fmm import (parallel_fmm_evaluate,
                                                parallel_fmm_p2p_prefetch)
     from repro_torch.core.quadtree import build_tree
-    from repro_torch.launch.mesh import make_local_mesh, spawn_world
+    from repro_torch.launch.mesh import make_grid_mesh, make_local_mesh, spawn_world
     rng = np.random.default_rng(0)
     pos, gamma = rng.uniform(size=(50, 2)), rng.normal(size=50)
     tree, _ = build_tree(pos, gamma, level=2, sigma=0.01, device="cpu")
     for call in (lambda: parallel_fmm_evaluate(tree, 8),
                  lambda: parallel_fmm_p2p_prefetch(tree),
                  lambda: make_local_mesh(),
+                 lambda: make_grid_mesh((1, 1)),
                  lambda: spawn_world(print, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

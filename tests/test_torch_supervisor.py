@@ -199,6 +199,13 @@ def test_hang_drill_sigstop_detected_within_deadline(tmp_path):
             for r in result.ranks]
     for k in ("z", "q", "mask"):
         np.testing.assert_array_equal(outs[0][k], outs[1][k])
+    # the stopped rank led a session of its own: no process group of this
+    # one held a stopped member, so no SIGHUP for an orphaned group could
+    # reach it
+    with open(os.path.join(rz.gen_dir(cfg.coord_dir, 0), "worker_1.log")) as f:
+        ids = next(line.split() for line in f if line.startswith("rank 1 "))
+    pid, pgid, sid = (int(ids[ids.index(k) + 1]) for k in ("pid", "pgid", "sid"))
+    assert pgid == sid == pid and sid != os.getsid(0)
 
 
 def test_cli_without_device_needs_the_card(monkeypatch, tmp_path):

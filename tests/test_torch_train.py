@@ -34,6 +34,7 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import lm_loss, param_tensors
 from repro_torch.optim import adamw as topt
+from repro_torch.parallel.sharding import flat_names
 from repro_torch.train import loop as tloop
 from repro_torch.train.loop import Trainer, TrainerConfig
 
@@ -415,7 +416,10 @@ def test_bf16_optimizer_state_still_trains(tmp_path):
 
 
 def test_trainer_takes_no_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="4c"):
+    """No mesh but a grid of ranks: anything else is refused (the grid's
+    own cases are ``test_torch_train_parallel.py``'s and
+    ``test_torch_train_elastic.py``'s)."""
+    with pytest.raises(TypeError, match="GridMesh"):
         Trainer(registry.get_smoke_config("yi-6b"), TINY,
                 tcfg=TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu", mesh=object())
 
@@ -454,11 +458,14 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
                                {k: jnp.asarray(v) for k, v in batch.items()})
     for k in ("loss", "grad_norm", "lr"):
         assert abs(float(m[k]) - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
-    want = params_from_jax(jax.tree.map(np.asarray, pj), cfg, CPU)
-    for got, w in zip(param_tensors(params), param_tensors(want)):
-        assert _rel(got, w.numpy()) < 1e-5
+    # matched by leaf name: the converted tree orders its leaves otherwise
+    # than the Trainer's own
+    want = dict(flat_names(params_from_jax(jax.tree.map(np.asarray, pj), cfg, CPU)))
+    for name, got in flat_names(params):
+        assert _rel(got, want[name].numpy()) < 1e-5, name
     for key in ("mu", "nu"):
-        want = params_from_jax(jax.tree.map(np.asarray, jst[key]), cfg, CPU, keep_dtype=True)
-        for got, w in zip(param_tensors(st[key]), param_tensors(want)):
-            assert _rel(got, w.numpy()) < 1e-4
+        want = dict(flat_names(params_from_jax(jax.tree.map(np.asarray, jst[key]), cfg,
+                                               CPU, keep_dtype=True)))
+        for name, got in flat_names(st[key]):
+            assert _rel(got, want[name].numpy()) < 1e-4, name
     assert int(st["step"]) == 3
