@@ -3,8 +3,9 @@
 (vortex steps, the sharded driver and stepper on 4 ranks sharing the card,
 Laplace and tracer evaluations, the host-side planner, the FMM service with
 its batched buckets), Yi-6B serving at full width, every other LM family of
-the registry served at full width, and training: Yi-6B at full width (8 of
-32 layers) and a step of each recurrent family.
+the registry served at full width, training: Yi-6B at full width (8 of 32
+layers), a step of each recurrent family and granite-moe on a (2, 2) grid,
+the production dry run against the card's bytes, and serving on the grid.
 
 Run from the repository root with no arguments (``--seed`` seeds phase
 fmm_serve's jobs, 0 by default):
@@ -268,7 +269,22 @@ Phases, each printing one JSON line:
               in bf16 for 6 steps on one batch (loss, exact launches and
               collectives a rank, schedules, step ms, staging; every copy
               of a replicated block the same bytes on each rank) and
-              restores its checkpoint onto one rank bit for bit.
+              restores its checkpoint onto one rank bit for bit;
+    dryrun  — ``launch/dryrun.py``'s traces (subprocesses run beside the
+              training phases, host cores only) against this run: (a)
+              phase train_families' mamba2-1.3b step and (b) one decode
+              step of phase 8's Yi-6B, arguments plus temporaries within
+              10% of the card's bytes; (c) the fake (2, 2) trace of Part
+              B's step logs rank 0's real events one for one, its bytes a
+              rank beside Part B's peak; (d) Yi-6B train_4k and decode_32k
+              on (16, 16) and the FMM on 256 ranks, each OK, bytes a rank
+              against the card;
+    serve_sharded — granite-moe served on the (2, 2) grid of 4 gloo ranks
+              (``ServeEngine(mesh=)``): an f32 gate (granite-moe x4, and
+              recurrentgemma-2b through its first attention layer, whose
+              1 KV head splits the caches by sequence) against the one-rank
+              engine with a planted fault, then bf16 x24 timed (prefill
+              and decode ms, peak a rank, 24 ``tc`` launches a rank).
 
 The launch counters are zeroed right before each main path (phase 3 for
 the FMM kernels, and again for the stepper's four steps in phase 4b, for
@@ -281,8 +297,9 @@ passive modes, ``step_all`` in phases 8 and 9 and each serve of phase 9b
 for the tensor-core flash kernels, phase 7's two recurrentgemma-2b calls for both tensor-core
 kernels at d = 256 and its f32 d = 32 call for the simt one, each gradient
 check of phase attn_grad, each step of phase train and each of phase
-train_families, and on each rank of phase train_sharded each gradient and
-each step) and read right after it: every kernel must have run there.  Then come the card's
+train_families, on each rank of phase train_sharded each gradient and
+each step, and each prefill of phase serve_sharded and its timed
+``step_all``) and read right after it: every kernel must have run there.  Then come the card's
 name and power limit as nvidia-smi reports them, the kernels line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure ends the run with a
 nonzero exit code; without a CUDA device, or without the repository's
@@ -291,14 +308,18 @@ sources beside this file, it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
+import gc
 import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -332,6 +353,7 @@ from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              lm_loss, param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve import grid as sgrid  # noqa: E402
 from repro_torch.data.pipeline import PipelineState, make_inputs  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.layers import attention_core_plain  # noqa: E402
@@ -547,6 +569,24 @@ TS_A_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grad": 1e-4}
 TS_FAULT = 1e-2           # the planted fault's router and w_q gradients above this
 TS_Q8_LOSS = 5e-2         # the int8 gather's loss, relative (the reference test's)
 TS_MARGIN = 1.0           # Part B's last loss at least this far below step 0's
+# phase dryrun: launch/dryrun.py's predictions against this run's measurements
+DRYRUN_TOL = 0.10         # (a), (b): predicted bytes within this of the measured
+DRYRUN_TIMEOUT_S = 600    # each dry-run process
+# phase serve_sharded: serving on the SHARDED_GRID of RANKS gloo ranks; the
+# f32 gate on granite-moe at 4 layers and recurrentgemma-2b through its first
+# attention layer (its prompt fills its 2048-token window), then granite-moe
+# at 24 layers in bf16, timed
+SS_GATE_ARCHS = ["granite-moe-1b-a400m", "recurrentgemma-2b"]
+SS_MOE_LAYERS = 4
+SS_BATCH, SS_PROMPT, SS_DECODES, SS_NEW = 4, 2048, 8, 4
+SS_MAX_LEN = SS_PROMPT + 16
+SS_TOL = 1e-4             # grid logits against the one-rank engine's, rel L2
+# a token that the grid first sends to other experts than the one-rank
+# engine does must be a near tie there: its k-th and next router logits
+# within this (f32 sums in another order move a logit of about 1 by a few
+# ulps, 1.2e-7 each)
+SS_TIE = 1e-5
+SS_FAULT_RANK = 1         # whose cache blocks the planted fault zeroes
 
 
 def ts_collectives(layers: int, run: str = "grid") -> int:
@@ -2434,12 +2474,42 @@ def serve_once(dev, params, cfg, prompts, new, max_len, *, patches=None,
     return record, launches, engine
 
 
+def decode_step_bytes(engine, prompts, base: int) -> dict:
+    """The bytes of one ``decode_step`` at position ``T`` after a prefill of
+    ``prompts`` (phase dryrun's part (b)): ``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` with the parameters, the caches and the
+    token resident, less ``base`` (what was allocated before the model
+    was drawn)."""
+    B, T = prompts.shape
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, device=engine.device).long()
+        caches = engine.init_cache(B)
+        logits, caches = engine.prefill_fn(engine.params, tokens, caches)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        del logits, tokens
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = engine.decode_fn(engine.params, tok, T, caches)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out, caches
+    return {"batch": B, "pos": T, "max_len": engine.max_len,
+            "resident_bytes": resident - base, "peak_bytes": peak - base}
+
+
 def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
-                other_route: str | None = None) -> tuple[dict, dict]:
+                other_route: str | None = None,
+                decode_bytes: bool = False) -> tuple[dict, dict]:
     """``cfg`` behind ServeEngine.step_all; returns the phase's record and
     the launches of each flash kernel counted inside step_all.  With
     ``other_route``, after the counted run, one prefill is timed on the
-    route ``flash_attn.route`` names and on ``other_route``, alternately."""
+    route ``flash_attn.route`` names and on ``other_route``, alternately.
+    With ``decode_bytes``, the record's ``decode_step`` holds one decode
+    step's bytes (:func:`decode_step_bytes`)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     params, _, init_s, n_params = random_model(cfg, dev)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (batch, prompt)).astype(np.int32)
@@ -2452,6 +2522,8 @@ def serve_phase(dev, cfg, batch, prompt, new, max_len, profile: bool,
         caches = init_cache(cfg, batch, max_len, device=dev)
         record["prefill_ms_by_route"] = prefill_by_route(
             lambda: engine.prefill_fn(params, tokens, caches), other_route)
+    if decode_bytes:
+        record["decode_step"] = decode_step_bytes(engine, prompts, base)
     return record, launches
 
 
@@ -2950,16 +3022,24 @@ def train_families_phase(dev) -> dict:
     loss and every gradient finite, every RG-LRU ``lru_lambda`` and SSD
     ``a_log`` gradient nonzero, and the hybrid's local attention (its window
     covers the sequence) on the ``tc`` kernel twice a layer.  Returns the
-    ``tc`` launches."""
+    ``tc`` launches and each step's bytes: the peak of
+    ``max_memory_allocated`` after ``reset_peak_memory_stats`` with the
+    parameters, AdamW state and batch resident, less what was allocated
+    before the model was drawn (phase dryrun's part (a))."""
     tc = 0
+    step_bytes = {}
     for arch in TRAIN_FAMILIES:
         cfg = get_config(arch)
+        gc.collect()                    # what the last arch's graph still holds
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         params, _, init_s, n_params = random_model(cfg, dev)
         opt_cfg = AdamWConfig(**TRAIN_OPT)
         state = init_state(params, opt_cfg)
         batch = make_inputs(PipelineState(seed=0, step=0), cfg,
                             ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_FAMILY_BATCH), dev)
         torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         zero_flash_counts()
         t0 = time.perf_counter()
@@ -2979,6 +3059,8 @@ def train_families_phase(dev) -> dict:
                "params": n_params, "init_params_s": init_s, "batch": TRAIN_FAMILY_BATCH,
                "seq": TRAIN_SEQ, "loss": loss, "grad_norm": gnorm, "step_ms": ms,
                "tok_per_s": TRAIN_FAMILY_BATCH * TRAIN_SEQ / (ms / 1e3), "peak_bytes": peak,
+               "resident_before_bytes": before, "arguments_bytes": resident - before,
+               "step_bytes": peak - before,
                "flash_launches": launches, "recurrent_params": len(recurrent),
                "recurrent_grad_min_abs_max": min(float(t.abs().max()) for _, t in recurrent)}
         emit({"phase": "train_families", **row})
@@ -2989,9 +3071,10 @@ def train_families_phase(dev) -> dict:
         want = {"tc": 2 * attn_layers, "tf32": 0, "simt": 0}
         require(launches == want, f"{arch}: flash launches {launches}, expected {want}")
         tc += launches["tc"]
+        step_bytes[arch] = peak - before
         del params, state, batch, g, grads, recurrent
         torch.cuda.empty_cache()
-    return {"tc": tc}
+    return {"tc": tc, "step_bytes": step_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -3111,6 +3194,8 @@ def train_sharded_rank(world, spec: dict) -> dict:
         for e in events:
             key = f"{e.kind} over {'+'.join(e.axes)}"
             kinds[key] = kinds.get(key, 0) + 1
+        if not rows:
+            out["part_b_step0_log"] = [e.to_json() for e in grid.log.since(mark)]
         rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "step_ms": ms,
                      "flash_launches": flash_counts(),
                      "staged_bytes": grid.wire.staged_bytes,
@@ -3350,7 +3435,459 @@ def train_sharded_phase(dev, card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     return {"tc": sum(r["flash_launches"]["tc"] for rk in ranks for r in rk["part_b"]),
             "tf32": one["launches"]["tf32"] + sum(
-                x["tf32"] for run in ("grid", "fault", "q8") for x in part_a[run]["launches"])}
+                x["tf32"] for run in ("grid", "fault", "q8") for x in part_a[run]["launches"]),
+            "step0_log": ranks[0]["part_b_step0_log"],
+            "peak_bytes": ranks[0]["peak_bytes"]}
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: the production dry run (launch/dryrun.py), in subprocesses
+# ---------------------------------------------------------------------------
+
+
+class DryrunJobs:
+    """The dry run's cells, each ``python -m repro_torch.launch.dryrun`` (a
+    process of its own: the dry run owns a default process group), run one
+    after another in a thread while the card's phases go on; the traces
+    use host cores only.  Every cell's JSON lands in ``out``.  ``stop``
+    kills a cell still running (the script's exit)."""
+
+    def __init__(self, out: Path, jobs: dict):
+        self.out, self.jobs, self.done = out, jobs, {}
+        self.proc = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        atexit.register(self.stop)
+
+    def _run(self) -> None:
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        for name, args in self.jobs.items():
+            d = self.out / name
+            d.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(d), *args],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+                cwd=str(Path(__file__).resolve().parent))
+            try:
+                text, _ = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                text, _ = self.proc.communicate()
+            cells = [json.loads(f.read_text()) for f in sorted(d.glob("*.json"))]
+            self.done[name] = {"rc": self.proc.returncode, "seconds": time.perf_counter() - t0,
+                               "tail": text[-3000:], "cells": cells}
+
+    def wait(self) -> dict:
+        self.thread.join()
+        return self.done
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+
+
+def start_dryrun(out: Path) -> DryrunJobs:
+    """Phase dryrun's cells: (a) phase train_families' mamba2-1.3b step,
+    (b) one decode step of phase 8's Yi-6B, both on a grid of one rank;
+    (c) Part B's granite-moe step of phase train_sharded on the fake (2, 2)
+    grid, its events kept; (d) Yi-6B train_4k and decode_32k on (16, 16)
+    and the FMM cell on 256 ranks."""
+    return DryrunJobs(out, {
+        "a": ["--arch", "mamba2-1.3b", "--shape", "train_4k", "--grid", "1x1",
+              "--batch", str(TRAIN_FAMILY_BATCH), "--seq-len", str(TRAIN_SEQ)],
+        "b": ["--arch", SERVE_ARCH, "--shape", "decode_32k", "--grid", "1x1",
+              "--batch", str(SERVE_BATCH), "--seq-len", str(SERVE_MAX_LEN),
+              "--pos", str(SERVE_PROMPT)],
+        "c": ["--arch", TS_ARCH, "--shape", "train_4k",
+              "--grid", "x".join(map(str, SHARDED_GRID)), "--batch", str(TS_B_BATCH),
+              "--seq-len", str(TS_SEQ), "--events"],
+        "d_train": ["--arch", SERVE_ARCH, "--shape", "train_4k"],
+        "d_decode": ["--arch", SERVE_ARCH, "--shape", "decode_32k"],
+        "d_fmm": ["--fmm"]})
+
+
+def dryrun_phase(jobs: DryrunJobs, measured: dict) -> dict:
+    """Phase dryrun: the dry run's predictions held against this run's
+    measurements.  (a) and (b): arguments plus temporaries within
+    ``DRYRUN_TOL`` of the measured bytes (phase train_families' mamba2-1.3b
+    step; one decode step of phase 8's Yi-6B); (c) rank 0's events of the
+    fake (2, 2) trace equal, event for event, those rank 0 logged in Part
+    B's first real step (kind, shape, dtype, axes, group), and the
+    predicted bytes a rank stand beside Part B's measured peak (recorded,
+    not gated: the card's attention takes the flash route there, the
+    trace the plain one); (d) every production cell OK, with its bytes a
+    rank against the card's memory and its wall time."""
+    t0 = time.perf_counter()
+    done = jobs.wait()
+    waited = time.perf_counter() - t0
+    for name, run in done.items():
+        print(f"dryrun {name}: rc {run['rc']} in {run['seconds']:.1f} s", flush=True)
+        require(run["rc"] == 0 and run["cells"] and all(
+            "memory_analysis" in c for c in run["cells"]),
+            f"dryrun {name} failed (rc {run['rc']}):\n{run['tail']}")
+    cap = torch.cuda.get_device_properties(0).total_memory
+
+    def predicted(name):
+        mem = done[name]["cells"][0]["memory_analysis"]
+        return mem["argument_bytes"] + mem["temp_bytes"], mem
+
+    out = {"waited_s": waited, "card_bytes": cap, "parts": {}}
+    for part, what in (("a", measured["train_mamba2"]), ("b", measured["decode_yi"])):
+        want, mem = predicted(part)
+        rel = abs(want - what) / what
+        out["parts"][part] = {"predicted_bytes": want, "measured_bytes": what, "rel": rel,
+                              "argument_bytes": mem["argument_bytes"],
+                              "temp_bytes": mem["temp_bytes"],
+                              "temp_at_peak_by_op": mem.get("temp_at_peak_by_op"),
+                              "trace_s": done[part]["cells"][0]["wall"]["trace_s"]}
+    cell = done["c"]["cells"][0]
+    fake = [MeshEvent.from_json(e) for e in cell["events"]]
+    real = [MeshEvent.from_json(e) for e in measured["ts_step0_log"]]
+    first = next((i for i, (x, y) in enumerate(zip(fake, real)) if x != y), None)
+    want_c, mem_c = predicted("c")
+    out["parts"]["c"] = {"events": len(fake), "real_events": len(real),
+                         "first_difference": first,
+                         "predicted_bytes": want_c, "measured_peak_bytes": measured["ts_peak"],
+                         "argument_bytes": mem_c["argument_bytes"],
+                         "temp_bytes": mem_c["temp_bytes"],
+                         "trace_s": cell["wall"]["trace_s"]}
+    out["parts"]["d"] = [{"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"],
+                          "bytes": c["fits"]["bytes"], "card_bytes": cap,
+                          "fits": c["fits"]["bytes"] <= cap,
+                          "argument_bytes": c["memory_analysis"]["argument_bytes"],
+                          "temp_bytes": c["memory_analysis"]["temp_bytes"],
+                          "flops": c["cost_analysis"]["flops"],
+                          "collective_bytes": c["collectives"]["total_bytes"],
+                          "collectives": c["collectives"]["count"], "wall": c["wall"]}
+                         for name in ("d_train", "d_decode", "d_fmm")
+                         for c in done[name]["cells"]]
+    for row in out["parts"]["d"]:
+        print(f"dryrun {row['arch']} x {row['shape']} ({row['mesh']}): OK, "
+              f"{row['bytes'] / 1e9:.3f} GB a rank of {cap / 1e9:.3f}"
+              f"{'' if row['fits'] else ' (does not fit)'}, traced in "
+              f"{row['wall']['trace_s']} s", flush=True)
+    emit({"phase": "dryrun", **out})
+    for part in ("a", "b"):
+        r = out["parts"][part]
+        require(r["rel"] <= DRYRUN_TOL,
+                f"dryrun ({part}): predicted {r['predicted_bytes']} bytes, measured "
+                f"{r['measured_bytes']} ({r['rel']:.3f} off)")
+    require(first is None and len(fake) == len(real) > 0,
+            f"dryrun (c): the fake trace's events differ from the real rank 0's at event "
+            f"{first} ({len(fake)} against {len(real)}): "
+            + (f"{fake[first].brief()} / {real[first].brief()}" if first is not None else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase serve_sharded: granite-moe served on the (2, 2) grid of gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def ss_gate_config(arch: str):
+    """The f32 gate's config: granite-moe at SS_MOE_LAYERS layers with
+    capacity factor E / k (nothing drops on either side), recurrentgemma-2b
+    through its first attention layer."""
+    cfg = get_config(arch)
+    layers = SS_MOE_LAYERS if cfg.moe is not None else \
+        transformer.layer_kinds(cfg).index("attn") + 1
+    moe_cfg = None if cfg.moe is None else dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, num_layers=layers, dtype="float32", moe=moe_cfg)
+
+
+def ss_prompts(cfg) -> np.ndarray:
+    return np.random.default_rng(11).integers(0, cfg.vocab, (SS_BATCH, SS_PROMPT)).astype(np.int32)
+
+
+class RouteLog:
+    """``moe.route`` wrapped while active: records each call's expert choices
+    (N, k) and its gaps (each token's k-th largest router logit less the
+    next); with ``forced`` (choices in call order) each call routes to
+    those experts instead (``route(choices=)``)."""
+
+    def __init__(self, forced=None):
+        self.forced, self.choices, self.gaps = forced, [], []
+
+    def __enter__(self):
+        self._real = moe.route
+
+        def route(x, router, *, top_k, **kw):
+            logits = x.to(torch.float32) @ router.to(torch.float32)
+            top = torch.topk(logits, top_k + 1, dim=-1).values
+            self.gaps.append((top[:, -2] - top[:, -1]).cpu())
+            if self.forced is not None:
+                kw["choices"] = self.forced[len(self.choices)]
+            out = self._real(x, router, top_k=top_k, **kw)
+            self.choices.append(out[0].reshape(x.shape[0], top_k).cpu())
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._real
+
+
+def ss_forced(engine, params, cfg, tokens_after, fault=None) -> tuple[list, dict]:
+    """Prefill ``ss_prompts`` then ``SS_DECODES`` decode steps fed the
+    tokens ``tokens_after`` (B, SS_DECODES), on f32 caches: each step's
+    logits on the host, and the flash launches of the prefill.
+    ``fault(caches)``, where given, runs after the prefill."""
+    dev = engine.device
+    with torch.inference_mode():
+        prompts = torch.as_tensor(ss_prompts(cfg), device=dev).long()
+        # f32 caches: the gate is f32 end to end (a bf16 KV cache turns the
+        # grid's f32 differences of about 1e-7 into bf16 rounding flips)
+        if engine.mesh is None:
+            caches = init_cache(cfg, SS_BATCH, SS_MAX_LEN, torch.float32, device=dev)
+        else:
+            caches = sgrid.init_cache_blocks(cfg, SS_BATCH, SS_MAX_LEN, engine.mesh,
+                                             torch.float32)
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        logits, caches = engine.prefill_fn(params, prompts, caches)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        if fault is not None:
+            fault(caches)
+        out = [logits.float().cpu()]
+        for i in range(SS_DECODES):
+            tok = torch.as_tensor(tokens_after[:, i:i + 1], device=dev).long()
+            logits, caches = engine.decode_fn(params, tok, SS_PROMPT + i, caches)
+            out.append(logits.float().cpu())
+    return out, launches
+
+
+def ss_one_rank(dev, forced=None) -> dict:
+    """The one-rank engine's logits of the f32 gate, by arch, the greedy
+    tokens the grid is fed, and each MoE call's routing; with ``forced``
+    (by arch: the grid's tokens and its choices in call order), routed as
+    the grid routed."""
+    out = {}
+    for arch in SS_GATE_ARCHS:
+        cfg = ss_gate_config(arch)
+        params = ts_params(cfg, dev)
+        engine = ServeEngine(params, cfg, batch_slots=SS_BATCH, max_len=SS_MAX_LEN, device=dev)
+        if forced is None:
+            tokens = engine.step_all(ss_prompts(cfg), SS_DECODES)
+        else:
+            tokens = forced[arch]["tokens"]
+        with RouteLog(None if forced is None else forced[arch]["choices"]) as log:
+            logits, launches = ss_forced(engine, params, cfg, tokens)
+        out[arch] = {"tokens": tokens, "logits": logits, "launches": launches,
+                     "choices": log.choices, "gaps": log.gaps}
+        del params, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def ss_routing(one: dict, grid_choices: list) -> dict:
+    """Where the grid's routing (every data rank's rows, in call order) left
+    the one-rank engine's: by call, the tokens sent to another set of
+    experts, and the one-rank gaps of those in the first call that
+    differs."""
+    differ, first = [], None
+    for i, (a, b) in enumerate(zip(one["choices"], grid_choices)):
+        rows = (a.sort(dim=1).values != b.sort(dim=1).values).any(dim=1)
+        differ.append(int(rows.sum()))
+        if first is None and differ[-1]:
+            first = {"call": i, "gaps": one["gaps"][i][rows].tolist()}
+    return {"tokens_routed_otherwise": differ, "first": first}
+
+
+def serve_sharded_rank(world, spec: dict) -> dict:
+    """One rank of phase serve_sharded (``world`` is the default group's mesh;
+    the grid is built over it)."""
+    grid = make_grid_mesh(SHARDED_GRID, ("data", "model"), device=world.device)
+    out = {"rank": grid.rank, "coords": grid.coords, "gate": {}}
+    one = torch.load(spec["one"], weights_only=False)
+    for arch in SS_GATE_ARCHS:
+        cfg = ss_gate_config(arch)
+        blocks = sgrid.param_blocks(ts_params(cfg, grid.device), cfg, grid)
+        torch.cuda.empty_cache()
+        engine = ServeEngine(blocks, cfg, batch_slots=SS_BATCH, max_len=SS_MAX_LEN, mesh=grid)
+        tokens = one[arch]["tokens"]
+        with RouteLog() as log:
+            logits, launches = ss_forced(engine, blocks, cfg, tokens)
+
+        def fault(caches):      # one rank's cache blocks zeroed (pos is whole on every rank)
+            if grid.rank == SS_FAULT_RANK:
+                for layer in caches:
+                    for k, t in layer.items():
+                        if k != "pos":
+                            t.zero_()
+        bad, fault_launches = ss_forced(engine, blocks, cfg, tokens, fault)
+        out["gate"][arch] = {
+            "logits": logits, "fault_logits": bad, "choices": log.choices,
+            "launches": launches, "fault_launches": fault_launches,
+            "layout": sgrid.kv_layout(cfg, grid),
+            "attention_layers": sum(k == "attn" or k == "moe"
+                                    for k in transformer.layer_kinds(cfg))}
+        del blocks, engine
+        torch.cuda.empty_cache()
+    out["gate_log"] = list(grid.log.events)
+    # -- timed: bf16 at all 24 layers, the config's capacity factor ------------
+    cfg = get_config(TS_ARCH)
+    blocks = sgrid.param_blocks(ts_params(cfg, grid.device), cfg, grid)
+    torch.cuda.empty_cache()
+    engine = ServeEngine(blocks, cfg, batch_slots=SS_BATCH, max_len=SS_MAX_LEN, mesh=grid)
+    marks = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = fn(*args, **kwargs)
+            b.record()
+            marks[name].append((a, b))
+            return res
+        return call
+    engine.prefill_fn = timed("prefill", engine.prefill_fn)
+    engine.decode_fn = timed("decode", engine.decode_fn)
+    prompts = ss_prompts(cfg)
+    engine.step_all(prompts, 1)                      # warm-up
+    torch.cuda.synchronize()
+    for v in marks.values():
+        v.clear()
+    torch.cuda.reset_peak_memory_stats()
+    grid.wire.reset()
+    mark = len(grid.log)
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    tokens = engine.step_all(prompts, SS_NEW)
+    torch.cuda.synchronize()
+    out["timed"] = {"step_all_s": time.perf_counter() - t0,
+                    "prefill_ms": sum(a.elapsed_time(b) for a, b in marks["prefill"]),
+                    "decode_ms_per_step": sum(a.elapsed_time(b) for a, b in marks["decode"])
+                    / len(marks["decode"]),
+                    "decode_steps": len(marks["decode"]),
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "flash_launches": flash_counts(), "tokens": tokens,
+                    "staged_bytes": grid.wire.staged_bytes, "staging_s": grid.wire.staging_s,
+                    "collectives": len(grid.log) - mark}
+    out["timed_log"] = list(grid.log.events[mark:])
+    return out
+
+
+def serve_sharded_phase(dev, card) -> dict:
+    """Phase serve_sharded: serving on the ``SHARDED_GRID`` of ``RANKS``
+    gloo ranks sharing the card (``ServeEngine(mesh=)``; parameters and
+    caches each rank's blocks).
+
+    The gate, in f32: granite-moe at ``SS_MOE_LAYERS`` layers (its KV heads
+    split over the model axis) and recurrentgemma-2b through its first
+    attention layer (1 KV head: the caches split by sequence).  The one-rank
+    engine serves ``SS_BATCH`` x ``SS_PROMPT`` prompts here; on every rank
+    the prefill's logits and those of ``SS_DECODES`` decode steps fed the
+    one-rank engine's tokens, on f32 caches (a bf16 KV cache rounds the
+    grid's f32 differences of about 1e-7 to bf16 flips: 4.7e-5 to 1.2e-4 on
+    the card), lie within ``SS_TOL`` rel L2 of the one-rank
+    engine's routed as the grid routed (``moe.route(choices=)``: a near tie
+    among a token's router logits falls either way under the grid's sums in
+    another order, and one token sent elsewhere moves the logits by about
+    1e-4; the first tokens the grid routes otherwise must be such ties, gap
+    under ``SS_TIE``, and the unforced figure is recorded); the prefill
+    launches exactly one flash kernel an attention layer (``tf32``: its own
+    query heads), and with one rank's cache blocks zeroed after the prefill
+    every decode step lands above ``SS_TOL``.  The ranks' schedules verify.
+
+    Timed: granite-moe at all 24 layers in bf16, the config's capacity
+    factor, ``step_all`` of ``SS_NEW`` tokens after a warm-up: prefill ms,
+    decode ms a step, the peak bytes a rank, exactly 24 ``tc`` launches a
+    rank (one an attention layer, all in the prefill), the same tokens on
+    every rank.  Returns the ranks' flash launches."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="serve_sharded_", dir=root))
+    try:
+        one = ss_one_rank(dev)
+        torch.save({a: {"tokens": v["tokens"]} for a, v in one.items()}, work / "one.pt")
+        t0 = time.perf_counter()
+        ranks = spawn_world(serve_sharded_rank, RANKS, device="cuda",
+                            timeout_s=RANK_TIMEOUT_S, args=({"one": str(work / "one.pt")},))
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rep_gate = sched.verify_schedules([r["gate_log"] for r in ranks], label="gate")
+    rep_timed = sched.verify_schedules([r["timed_log"] for r in ranks], label="timed")
+    # the grid's routing: every data rank's rows in order (model rank 0's)
+    by_data = sorted((r for r in ranks if r["coords"][1] == 0), key=lambda r: r["coords"][0])
+    grid_choices = {arch: [torch.cat(calls) for calls in zip(
+        *[r["gate"][arch]["choices"] for r in by_data])] for arch in SS_GATE_ARCHS}
+    same = ss_one_rank(dev, {a: {"tokens": one[a]["tokens"], "choices": grid_choices[a]}
+                             for a in SS_GATE_ARCHS})
+    gate = {}
+    for arch in SS_GATE_ARCHS:
+        rows = [r["gate"][arch] for r in ranks]
+        want = same[arch]["logits"]
+        rel = [[rel_l2(a, b) for a, b in zip(r["logits"], want)] for r in rows]
+        gate[arch] = {"layers": ss_gate_config(arch).num_layers, "layout": rows[0]["layout"],
+                      "rel_l2_max": max(max(x) for x in rel),
+                      "rel_l2_by_step_rank0": rel[0],
+                      "rel_l2_own_routing_max": max(
+                          rel_l2(a, b) for r in rows
+                          for a, b in zip(r["logits"], one[arch]["logits"])),
+                      "routing": ss_routing(one[arch], grid_choices[arch]),
+                      "forced_routing_equal": all(
+                          torch.equal(a, b) for a, b in zip(same[arch]["choices"],
+                                                            grid_choices[arch])),
+                      "fault_rel_l2_min": min(rel_l2(a, b) for r in rows
+                                              for a, b in zip(r["fault_logits"][1:], want[1:])),
+                      "launches": [r["launches"] for r in rows],
+                      "fault_launches": [r["fault_launches"] for r in rows],
+                      "one_rank_launches": [one[arch]["launches"], same[arch]["launches"]],
+                      "attention_layers": rows[0]["attention_layers"]}
+    cfg = get_config(TS_ARCH)
+    timed = [r["timed"] for r in ranks]
+    out = {"grid": list(SHARDED_GRID), "ranks": RANKS, "batch": SS_BATCH, "prompt": SS_PROMPT,
+           "gate": gate, "schedules_agree": rep_gate.ok and rep_timed.ok,
+           "timed": {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+                     "new": SS_NEW, "capacity_factor": cfg.moe.capacity_factor,
+                     "prefill_ms": [t["prefill_ms"] for t in timed],
+                     "decode_ms_per_step": [t["decode_ms_per_step"] for t in timed],
+                     "step_all_s": [t["step_all_s"] for t in timed],
+                     "peak_bytes": [t["peak_bytes"] for t in timed],
+                     "flash_launches": [t["flash_launches"] for t in timed],
+                     "staged_bytes": [t["staged_bytes"] for t in timed],
+                     "staging_s": [t["staging_s"] for t in timed],
+                     "collectives": [t["collectives"] for t in timed]},
+           "world_seconds": world_s, "seconds": time.perf_counter() - t_phase, "card": card,
+           "note": "gloo ranks share one card, weights gathered through host memory: "
+                   "not a scaling result"}
+    emit({"phase": "serve_sharded", **out})
+    for arch, g in gate.items():
+        want = {"tc": 0, "tf32": g["attention_layers"], "simt": 0}
+        first = g["routing"]["first"] or {"call": None, "gaps": [0.0]}
+        require(max(first["gaps"]) < SS_TIE,
+                f"serve_sharded {arch}: the grid first routed {len(first['gaps'])} tokens "
+                f"otherwise at call {first['call']}, not near ties: gaps {first['gaps'][:8]}")
+        require(g["forced_routing_equal"],
+                f"serve_sharded {arch}: the one-rank engine did not take the grid's routing")
+        require(g["rel_l2_max"] <= SS_TOL,
+                f"serve_sharded {arch}: logits {g['rel_l2_max']:.2e} from the one-rank engine "
+                f"routed as the grid routed")
+        require(g["fault_rel_l2_min"] > SS_TOL,
+                f"serve_sharded {arch}: the planted fault was not caught "
+                f"({g['fault_rel_l2_min']:.2e})")
+        require(all(x == want for x in g["launches"] + g["fault_launches"]
+                    + g["one_rank_launches"]),
+                f"serve_sharded {arch}: prefill flash launches {g['launches']}, expected {want}")
+    require(gate["granite-moe-1b-a400m"]["layout"] == "heads"
+            and gate["recurrentgemma-2b"]["layout"] == "sequence",
+            f"serve_sharded: cache layouts {[g['layout'] for g in gate.values()]}")
+    want = {"tc": cfg.num_layers, "tf32": 0, "simt": 0}
+    require(all(t["flash_launches"] == want for t in timed),
+            f"serve_sharded timed: flash launches {[t['flash_launches'] for t in timed]}, "
+            f"expected {want} a rank")
+    require(all(np.array_equal(t["tokens"], timed[0]["tokens"]) for t in timed),
+            "serve_sharded timed: the ranks returned different tokens")
+    require(rep_gate.ok and rep_timed.ok, "serve_sharded: schedules disagree:\n"
+            + "\n".join((rep_gate.problems + rep_timed.problems)[:20]))
+    return {"tc": sum(t["flash_launches"]["tc"] for t in timed),
+            "tf32": sum(x["tf32"] for g in gate.values()
+                        for x in g["launches"] + g["fault_launches"] + g["one_rank_launches"])}
 
 
 def main() -> None:
@@ -3602,7 +4139,8 @@ def main() -> None:
 
     # -- 8. main path: Yi-6B serving, bf16, on the tensor-core kernel -------
     serve, serve_launches = serve_phase(dev, cfg, SERVE_BATCH, SERVE_PROMPT,
-                                        SERVE_NEW, SERVE_MAX_LEN, profile=True)
+                                        SERVE_NEW, SERVE_MAX_LEN, profile=True,
+                                        decode_bytes=True)
     emit({"phase": "serve", **serve})
     require(serve_launches == {"tc": cfg.num_layers, "tf32": 0, "simt": 0},
             f"flash launches in step_all {serve_launches}, expected "
@@ -3631,15 +4169,33 @@ def main() -> None:
     launches["flash_attn_tf32"] += families["tf32"]
     launches["flash_attn_tf32_d256"] += families["tf32_d256"]
 
+    # the dry run's traces need host cores only: they run from here on, in
+    # processes of their own, beside the training phases (phase dryrun)
+    dry_out = Path(__file__).resolve().parent / "build" / "dryrun"
+    shutil.rmtree(dry_out, ignore_errors=True)
+    dry = start_dryrun(dry_out)
+
     # -- 9c. main path: training; the flash kernel inside autograd -----------
     attn_grad = [check_attn_grad(dt, gen) for dt in (torch.bfloat16, torch.float32)]
     launches["flash_attn"] += attn_grad[0]["launches"]["tc"]
     launches["flash_attn_tf32"] += attn_grad[1]["launches"]["tf32"]
     launches["flash_attn"] += train_phase(dev, card)["tc"]
-    launches["flash_attn_d256"] += train_families_phase(dev)["tc"]
+    families_train = train_families_phase(dev)
+    launches["flash_attn_d256"] += families_train["tc"]
     sharded_train = train_sharded_phase(dev, card)
     launches["flash_attn"] += sharded_train["tc"]
     launches["flash_attn_tf32"] += sharded_train["tf32"]
+
+    # -- 9d. the production dry run against this run's measurements ----------
+    dryrun_phase(dry, {"train_mamba2": families_train["step_bytes"]["mamba2-1.3b"],
+                       "decode_yi": serve["decode_step"]["peak_bytes"],
+                       "ts_step0_log": sharded_train["step0_log"],
+                       "ts_peak": sharded_train["peak_bytes"]})
+
+    # -- 9e. main path: serving on the (data, model) grid ---------------------
+    served_grid = serve_sharded_phase(dev, card)
+    launches["flash_attn"] += served_grid["tc"]
+    launches["flash_attn_tf32"] += served_grid["tf32"]
 
     # -- 10. card, kernels line, result --------------------------------------
     def entry(rows, name, source, replaces, **extra):
@@ -3752,7 +4308,9 @@ def main() -> None:
                                   "(forward and remat's recompute), 32 in its "
                                   "two-microbatch step; phase train_sharded: 48 a "
                                   "rank a step of 24-layer granite-moe (d = 64) on 4 "
-                                  "ranks, 6 steps",
+                                  "ranks, 6 steps; phase serve_sharded: 24 a rank in "
+                                  "the timed bf16 step_all of 24-layer granite-moe on "
+                                  "the (2, 2) grid (its own query heads)",
               attn_grad=attn_grad[0],
               head_dim_256=d256_block(tc_rows[1], "flash_attn_d256", "bf16")),
         entry(tf32_rows, "flash_attn_tf32", "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
@@ -3763,7 +4321,12 @@ def main() -> None:
                                   "phase attn_grad: one f32 call in autograd; phase "
                                   "train_sharded: 8 in the one-rank gradient of 4-layer "
                                   "f32 granite-moe (d = 64), 8 a rank in each of the "
-                                  "grid's three (exact, planted fault, int8 gather)",
+                                  "grid's three (exact, planted fault, int8 gather); "
+                                  "phase serve_sharded: the f32 gate's prefills, one a "
+                                  "layer, of 4-layer granite-moe (d = 64) and "
+                                  "recurrentgemma-2b's first attention layer (d = "
+                                  "256), on one rank and twice on each of 4 (exact, "
+                                  "planted fault)",
               attn_grad=attn_grad[1],
               simt_ms_same_inputs=tf32_rows[0]["simt_ms_same_inputs"],
               head_dim_256=d256_block(tf32_rows[1], "flash_attn_tf32_d256", "f32")),

@@ -63,7 +63,7 @@ class DryMesh:
                                          compare=False, repr=False)
 
     def __post_init__(self):
-        self.log.rank = self.rank
+        self.log.rank, self.log.size = self.rank, self.size
 
     @property
     def shape(self) -> dict[str, int]:

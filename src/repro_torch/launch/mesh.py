@@ -20,6 +20,13 @@ model)``, say) as the reference's ``Mesh(np.array(devices).reshape(...))``
 does, with collectives over one axis or a tuple of axes on subgroups of the
 default group (:func:`make_grid_mesh`); training on a grid runs on it.
 
+The production grids: :func:`make_production_mesh` is this rank's ``(16,
+16)`` grid of 256 ranks (``(2, 16, 16)`` of 512 across two pods) over the
+default group, :func:`make_flat_mesh` the one-axis mesh over the same ranks
+(the FMM's), and :func:`fake_world` a default group of that many ranks in
+one process, whose collectives move nothing: the dry run's world
+(``launch/dryrun.py``).
+
 :func:`spawn_world` starts a world of ``world`` processes (``spawn``, a
 ``file://`` store in a temporary directory: no network) and returns what
 each rank's function returned; :func:`join_world` joins a process that
@@ -37,6 +44,7 @@ operations it records.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -69,7 +77,8 @@ class MeshEvent:
 
     ``kind`` is ``exchange``, ``all_gather``, ``all_reduce_max``,
     ``barrier`` or ``wait``, or a :class:`GridMesh` collective
-    (``all_reduce_sum``, ``all_gather``, ``reduce_scatter``) with its
+    (``all_reduce_sum``, ``all_reduce_max``, ``all_gather``,
+    ``reduce_scatter``) with its
     ``axes``, ``group`` and ``dim``.  An exchange has its ``round`` (the tag its
     messages carry) and ``sends``/``recvs`` as ``(peer, shape, dtype)``
     triples; an all-gather has the local ``shape`` and ``dtype``; a wait
@@ -131,11 +140,13 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 class ScheduleLog:
     """The :class:`MeshEvent`s of one mesh, in program order; ``rank`` is
-    the mesh's."""
+    the mesh's and ``size`` its world's (the group of an event that names
+    none)."""
 
-    def __init__(self, rank: int = -1):
+    def __init__(self, rank: int = -1, size: int = 1):
         self.events: list[MeshEvent] = []
         self.rank = rank
+        self.size = size
 
     def record(self, kind: str, **fields) -> int:
         """Append one event; returns its index in the log."""
@@ -205,7 +216,7 @@ class RankMesh:
                                          compare=False, repr=False)
 
     def __post_init__(self):
-        self.log.rank = self.rank
+        self.log.rank, self.log.size = self.rank, self.size
 
     @property
     def shape(self) -> dict[str, int]:
@@ -363,7 +374,7 @@ class GridMesh:
                                          compare=False, repr=False)
 
     def __post_init__(self):
-        self.log.rank = self.rank
+        self.log.rank, self.log.size = self.rank, self.size
 
     @property
     def shape(self) -> dict[str, int]:
@@ -451,6 +462,16 @@ class GridMesh:
         dist.all_reduce(w, op=dist.ReduceOp.SUM, group=got[0])
         return self._from_wire(w)
 
+    def all_reduce_max(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise largest ``t`` over ``axes`` (``jax.lax.pmax``),
+        on every rank."""
+        got = self._begin("all_reduce_max", t, axes)
+        if got is None:
+            return t
+        w = self._to_wire(t).clone()
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=got[0])
+        return self._from_wire(w)
+
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` over ``axes``, in the axes' order, concatenated
         on ``dim`` (``jax.lax.all_gather(..., tiled=True)``)."""
@@ -527,6 +548,55 @@ def make_grid_mesh(shape=(2, 2), axes=("data", "model"), device=None) -> GridMes
                     groups[frozenset(subset)] = g
     return GridMesh(axes, shape, me, dev, backend=str(dist.get_backend()),
                     groups=groups)
+
+
+# the production grids: one pod of 256 cards, and two pods of 512
+PRODUCTION_GRIDS = {False: ((16, 16), ("data", "model")),
+                    True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> GridMesh:
+    """This rank's grid of ``(16, 16)`` on ``("data", "model")`` (one pod of
+    256 ranks), or with ``multi_pod`` of ``(2, 16, 16)`` on ``("pod",
+    "data", "model")`` (512), through :func:`make_grid_mesh` over the
+    default process group, which must hold that many ranks (a world
+    started by ``torchrun``, or :func:`fake_world` for a dry run)."""
+    shape, axes = PRODUCTION_GRIDS[bool(multi_pod)]
+    size = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != size:
+        raise ValueError(f"the production grid {shape} on {axes} needs a default "
+                         f"process group of {size} ranks; "
+                         + ("none is initialised" if have is None else f"it holds {have}"))
+    return make_grid_mesh(shape, axes, device=device)
+
+
+def make_flat_mesh(grid: GridMesh, axis: str = "data") -> RankMesh:
+    """The one-axis :class:`RankMesh` over the ranks of ``grid``, numbered
+    as they are there (the reference's ``Mesh(devices.reshape(-1))``): the
+    FMM slab path's mesh on a production grid."""
+    if grid.size == 1:
+        return make_local_mesh(axis, grid.device)
+    return RankMesh(group=dist.group.WORLD, axis=axis, size=grid.size, rank=grid.rank,
+                    device=grid.device, backend=grid.backend)
+
+
+@contextlib.contextmanager
+def fake_world(size: int, rank: int = 0):
+    """A default process group of ``size`` ranks in this one process, as
+    rank ``rank``: the ``fake`` backend of ``torch.distributed``, whose
+    collectives return at once and move nothing.  The port's counterpart of
+    the reference's ``--xla_force_host_platform_device_count``: a dry run
+    builds the production grid in it and traces one rank's call on fake
+    tensors.  The group is destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_local_mesh(axis: str = "data", device=None) -> RankMesh:

@@ -21,20 +21,26 @@ program text, so this module records the call itself:
 * Every message call of a mesh (``launch/mesh.py:ScheduleLog``) becomes a
   ``mesh`` record; mesh events and operations draw their sequence numbers
   from one counter, ``mesh.SEQ``.
+* :class:`PeakTracker` is a second dispatch mode: the bytes of the storages
+  that a call's operations make, live and at their peak (the dry run's
+  temporaries, on real or fake tensors).
 * ``torch.cuda.synchronize()`` and ``Event.synchronize()`` wait for the card
   where ``set_sync_debug_mode("error")`` does not look
   (:data:`UNSEEN_SYNCS`); while a trace is active each call becomes a
   data-dependent ``fn`` record, which the "no host sync" contract refuses.
 
-:func:`analyze_trace` returns the keys of ``analyze_hlo``.  FLOPs are
+:func:`analyze_trace` returns the keys of ``analyze_hlo``, the mesh
+events' bytes by the reference's rule (:func:`collective_bytes`).  FLOPs are
 ``2 * out * K`` for each matrix product (``mm``, ``bmm``, ``addmm``,
-``baddbmm``, ``matmul``), the reference's count, in which a complex product
+``baddbmm``, ``matmul``, and ``einsum`` with ``K`` its contracted dims),
+the reference's count, in which a complex product
 counts as one; ``real_flops`` counts it as the 4 real products it is.
 The kernels' launches are counted by name and add no FLOPs.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import Counter, defaultdict
 
 import torch
@@ -44,7 +50,8 @@ from torch.utils._pytree import tree_flatten
 
 from . import mesh as _mesh
 
-__all__ = ["OpRecord", "OpTrace", "analyze_trace", "kernel_counts",
+__all__ = ["OpRecord", "OpTrace", "PeakTracker", "analyze_trace",
+           "collective_bytes", "kernel_counts",
            "shape_dim_hits", "collective_issue_depths", "input_tensors",
            "UNSEEN_SYNCS"]
 
@@ -93,6 +100,7 @@ class OpRecord:
     log: int = 0                    # id() of the mesh record's log
     index: int = -1                 # its index in that log
     rank: int = -1                  # the rank whose mesh logged it
+    group_size: int = 1             # the ranks of the mesh record's group
 
     def brief(self) -> str:
         if self.kind == "mesh":
@@ -151,10 +159,30 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _storage(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its C++ object: fake tensors have
+    no data pointer)."""
     try:
-        return t.untyped_storage().data_ptr()
+        return t.untyped_storage()._cdata
     except (RuntimeError, NotImplementedError):
         return 0
+
+
+def _einsum_k(equation: str, operands) -> int:
+    """The product of the contracted dims of an ``einsum`` (the labels of
+    its inputs that its output drops): with ``2 * out``, its FLOPs.  Under
+    ``inference_mode`` an ``einsum`` reaches a dispatch mode whole, not as
+    the ``bmm`` it becomes under autograd."""
+    lhs, _, out = equation.replace(" ", "").partition("->")
+    sizes = {}
+    for term, t in zip(lhs.split(","), operands):
+        term = term.replace("...", "")
+        for label, n in zip(reversed(term), reversed(t.shape)):
+            sizes[label] = n
+    k = 1
+    for label, n in sizes.items():
+        if label not in out:
+            k *= n
+    return k
 
 
 class _FnTrace(TorchFunctionMode):
@@ -216,7 +244,8 @@ class OpTrace(TorchDispatchMode):
         ev = log.events[index]
         self.records.append(OpRecord(seq=ev.seq, kind="mesh", name=ev.kind,
                                      event=ev, log=id(log), index=index,
-                                     rank=log.rank))
+                                     rank=log.rank,
+                                     group_size=len(ev.group) if ev.group else log.size))
 
     def _sync_call(self, name: str) -> None:
         self._poll()
@@ -287,6 +316,8 @@ class OpTrace(TorchDispatchMode):
         if short in _PRODUCTS and flat_out:
             lhs = args[_PRODUCTS[short]]
             flops = 2.0 * flat_out[0].numel() * lhs.shape[-1]
+        elif short == "einsum" and flat_out:
+            flops = 2.0 * flat_out[0].numel() * _einsum_k(args[0], args[1])
         real = flops * (4 if flat_out and flat_out[0].is_complex() else 1)
         self.records.append(OpRecord(
             seq=next(_mesh.SEQ), kind="op", name=short,
@@ -300,11 +331,98 @@ class OpTrace(TorchDispatchMode):
         return out
 
 
+class PeakTracker(TorchDispatchMode):
+    """The bytes that a call's operations hold live, and their peak: the
+    port's counterpart of ``compiled.memory_analysis()``'s temporaries.
+
+    Counts storages, not tensors: the first output of an operation that
+    lies in a storage neither an input of that operation nor already
+    counted adds the storage's ``nbytes()`` (views and in-place results add
+    nothing), and ``weakref.finalize`` takes it off when the storage is
+    freed.  Works alike on real and on fake tensors (``FakeTensorMode``
+    outside this mode), so a dry run reads the peak of a call that it never
+    allocates; a tensor on the meta device holds nothing and is not
+    counted.  ``inputs`` (any nest of tensors) are the call's arguments:
+    their storages are never counted.  ``live`` is the bytes counted now,
+    ``peak`` the most at any point, both above the arguments; ``at_peak``
+    the bytes live at the peak by the operation that made them."""
+
+    def __init__(self, inputs=()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self.at_peak: dict[str, int] = {}
+        self._sizes: dict[int, tuple[int, str]] = {}
+        self._by_op: Counter = Counter()
+        self._known = {_storage(t) for t in input_tensors(inputs)}
+
+    def _free(self, key: int) -> None:
+        n, op = self._sizes.pop(key, (0, ""))
+        self.live -= n
+        self._by_op[op] -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        seen = {_storage(t) for t in tree_flatten((args, kwargs))[0]
+                if isinstance(t, torch.Tensor)}
+        for t in tree_flatten(out)[0]:
+            if not isinstance(t, torch.Tensor) or t.device.type == "meta":
+                continue            # a meta tensor holds no memory (a shape probe)
+            try:
+                st = t.untyped_storage()
+            except (RuntimeError, NotImplementedError):
+                continue
+            key = st._cdata
+            if key in seen or key in self._sizes or key in self._known:
+                continue
+            n, op = st.nbytes(), func._schema.name.split("::")[-1]
+            self._sizes[key] = (n, op)
+            self.live += n
+            self._by_op[op] += n
+            weakref.finalize(st, self._free, key)
+        if self.live > self.peak:
+            self.peak = self.live
+            self.at_peak = {k: v for k, v in self._by_op.items() if v}
+        return out
+
+
+def _elems(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def _itemsize(dtype: str) -> int:
+    return torch.empty((), dtype=getattr(torch, dtype)).element_size()
+
+
+def collective_bytes(record: OpRecord) -> int:
+    """The bytes of one mesh record by the reference's rule
+    (``hlo_analysis.py``): a collective's result, times the group size for
+    a reduce-scatter.  An exchange's result is what it receives; an
+    all-gather's is its input times the group; an all-reduce's and a
+    reduce-scatter's (times the group) are their input's.  A host-float
+    ``all_reduce_max`` of a :class:`RankMesh` carries one f64; a barrier and
+    a wait carry nothing."""
+    ev = record.event
+    if ev.kind == "exchange":
+        return sum(_elems(shape) * _itemsize(dtype) for _, shape, dtype in ev.recvs)
+    if ev.kind in ("barrier", "wait"):
+        return 0
+    if ev.shape is None:                    # RankMesh.all_reduce_max: one f64
+        return 8
+    n = _elems(ev.shape) * _itemsize(ev.dtype)
+    return n * record.group_size if ev.kind == "all_gather" else n
+
+
 def analyze_trace(trace) -> dict:
     """``analyze_hlo``'s keys for one traced call: ``flops`` (and
     ``real_flops``), ``bytes`` (outputs of the operations that make data,
-    views excluded), ``collective_bytes`` and ``per_kind`` (bytes sent in
-    exchanges and gathered, by kind), ``count`` and ``count_per_kind``
+    views excluded), ``collective_bytes`` and ``per_kind`` (bytes of the
+    mesh events by kind, by the reference's rule: :func:`collective_bytes`),
+    ``count`` and ``count_per_kind``
     (mesh events by kind, and the exchanges' ``messages`` and distinct
     ``directions``, a direction being a send's peer less its rank),
     ``bytes_by_op`` and ``count_by_op`` (aten operations by name), and
@@ -330,22 +448,10 @@ def analyze_trace(trace) -> dict:
             ev = r.event
             counts[ev.kind] += 1
             if ev.kind == "exchange":
-                sent = 0
-                for peer, shape, dtype in ev.sends:
-                    n = 1
-                    for d in shape:
-                        n *= d
-                    sent += n * torch.empty((), dtype=getattr(torch, dtype)
-                                            ).element_size()
-                    directions.add(peer - r.rank)
+                directions.update(peer - r.rank for peer, _, _ in ev.sends)
                 counts["messages"] += len(ev.sends)
-                per_kind["exchange"] += sent
-            elif ev.kind == "all_gather":
-                n = 1
-                for d in ev.shape:
-                    n *= d
-                per_kind["all_gather"] += n * torch.empty(
-                    (), dtype=getattr(torch, ev.dtype)).element_size()
+            if ev.kind != "barrier":
+                per_kind[ev.kind] += collective_bytes(r)
     if isinstance(trace, OpTrace):
         launches = Counter(trace.launches)
     launches["p2p"] = sum(n for k, n in launches.items() if k.startswith("p2p["))

@@ -64,12 +64,16 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key: ``kpos > qpos - window`` holds for every ``kpos <= qpos``) and a
     head dim that ``flash_attn.takes_head_dim`` this is a flash kernel
     (``ops.flash_attention_with_grad``, top-left mask, equal to the model's
-    here); otherwise :func:`attention_core_plain`.  ``impl="skip_core"`` is the reference's
-    dry-run accounting probe, not a model, and raises.
+    here); otherwise :func:`attention_core_plain`.  ``impl="skip_core"`` is
+    the reference's dry-run accounting stand-in for a flash kernel, not a
+    model: the same q/k/v/o streams and no score-sized block (``q`` plus
+    the keys' and values' means over the sequence, each kv head's repeated
+    over its group), on any device.
     """
     if impl == "skip_core":
-        raise ValueError("attn_impl='skip_core' is the reference's dry-run "
-                         "accounting probe, not a model; the port does not run it")
+        g = q.shape[1] // k.shape[1]
+        return (q + k.mean(dim=2, keepdim=True).repeat_interleave(g, dim=1)
+                + v.mean(dim=2, keepdim=True).repeat_interleave(g, dim=1)).to(q.dtype)
     if impl != "chunked":
         raise ValueError(f"unknown attention impl {impl!r}")
     T, S = q.shape[2], k.shape[2]

@@ -65,9 +65,14 @@ def capacity(num_tokens: int, cfg: ModelConfig) -> int:
 
 
 def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
-          e_start: int = 0, e_local: Optional[int] = None):
+          e_start: int = 0, e_local: Optional[int] = None,
+          choices: Optional[torch.Tensor] = None):
     """Routing of ``x`` (N, D) over the router's E experts, kept for the
-    ``e_local`` experts from ``e_start`` on (all E by default).
+    ``e_local`` experts from ``e_start`` on (all E by default).  ``choices``
+    (N, top_k), when given, are the experts each token takes in place of
+    its top-k (their weights the softmax of its logits at them): a check
+    that holds one run to another routes both alike, since a near tie
+    among the logits may fall either way under f32 sums in another order.
 
     Returns, per flat ``(token, choice)`` assignment in token-major order,
     ``(flat_e, flat_w, slot, keep)``: the expert, its softmax weight over
@@ -80,7 +85,11 @@ def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
     E = router.shape[1]
     e_local = E if e_local is None else e_local
     logits = x.to(torch.float32) @ router.to(torch.float32)          # (N, E)
-    gate_w, gate_e = torch.topk(logits, top_k, dim=-1)               # sorted
+    if choices is None:
+        gate_w, gate_e = torch.topk(logits, top_k, dim=-1)           # sorted
+    else:
+        gate_e = choices.to(device=x.device, dtype=torch.long)
+        gate_w = torch.gather(logits, -1, gate_e)
     gate_w = torch.softmax(gate_w, dim=-1)
     flat_e, flat_w = gate_e.reshape(-1), gate_w.reshape(-1)
     local_e = flat_e - e_start

@@ -33,7 +33,7 @@ import torch
 
 __all__ = ["BATCH_AXES", "FSDP_AXIS", "TP_AXIS", "AbstractGrid", "batch_axes",
            "axis_size", "param_spec", "param_specs", "batch_spec",
-           "activation_spec", "kv_cache_spec", "constrain", "spec_axes",
+           "activation_spec", "kv_cache_spec", "cache_spec", "constrain", "spec_axes",
            "normalize_spec", "counted_once",
            "block_shape", "local_block", "gather_full", "flat_names"]
 
@@ -160,6 +160,32 @@ def kv_cache_spec(mesh, num_kv_heads: int, batch: int) -> tuple:
     if num_kv_heads % axis_size(mesh, TP_AXIS) == 0:
         return (b_ax, TP_AXIS, None, None)
     return (b_ax, None, TP_AXIS, None)
+
+
+def cache_spec(mesh, name: str, shape) -> tuple:
+    """The spec of one decode-cache leaf by its role, the reference's
+    ``dryrun.py:cache_shardings``: ``k``/``v`` (B, Hkv, S, d) as
+    :func:`kv_cache_spec` gives them (heads over the model axis where they
+    divide it, else the sequence); ``pos`` replicated; ``ssm`` (B, H, P, N)
+    its heads over the model axis, ``h`` (B, W) its width, ``conv`` (B, dc,
+    ch) its channels, each where it divides; the batch over the batch axes
+    where it divides.  Leading dims (a stacked layer dim) stay whole."""
+    shape = tuple(shape)
+    dp = batch_axes(mesh)
+    if name.endswith(("/k", "/v")):
+        base = kv_cache_spec(mesh, shape[-3], shape[-4])
+    elif name.endswith("/pos"):
+        base = (None,)
+    elif name.endswith("/ssm"):
+        base = (_maybe(mesh, shape[-4], dp), _maybe(mesh, shape[-3], TP_AXIS), None, None)
+    elif name.endswith("/h"):
+        base = (_maybe(mesh, shape[-2], dp), _maybe(mesh, shape[-1], TP_AXIS))
+    elif name.endswith("/conv"):
+        base = (_maybe(mesh, shape[-3], dp), None, _maybe(mesh, shape[-1], TP_AXIS))
+    else:
+        base = (None,) * len(shape)
+    base = tuple(e or None for e in base)       # no batch axis: replicated
+    return (None,) * (len(shape) - len(base)) + base
 
 
 def spec_axes(entry) -> tuple:

@@ -36,6 +36,7 @@ the whole array and no collective is issued: one code path for both.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import tempfile
@@ -100,9 +101,16 @@ def one_rank_grid(device="meta") -> GridMesh:
 
 def grid_specs(cfg: ModelConfig, mesh) -> dict[str, tuple]:
     """Every parameter's spec on ``mesh`` by its name (``layers/0/attn/w_q``),
-    from the full shapes (drawn on the meta device)."""
+    from the full shapes (drawn on the meta device); kept per config and
+    grid shape, since serving asks at every step."""
+    return _grid_specs(cfg, tuple(mesh.dims), tuple(mesh.axis_names))
+
+
+@functools.lru_cache(maxsize=32)
+def _grid_specs(cfg: ModelConfig, dims: tuple, axis_names: tuple) -> dict[str, tuple]:
     full = init_params(cfg, torch.Generator(), "meta")
-    return dict(zip((n for n, _ in shd.flat_names(full)), shd.param_specs(mesh, full)))
+    grid = shd.AbstractGrid(dims, axis_names)
+    return dict(zip((n for n, _ in shd.flat_names(full)), shd.param_specs(grid, full)))
 
 
 def tree_specs(tree, by_name: dict) -> list[tuple]:

@@ -84,7 +84,7 @@ def test_trace_orders_ops_kernel_launches_and_mesh_events():
     assert collective_issue_depths(tr, ("all_gather",)) == {"all_gather": [2]}
     stats = analyze_trace(tr)
     assert stats["launches"]["m2l"] == 1 and stats["count"] == 1
-    assert stats["per_kind"]["all_gather"] == 16
+    assert stats["per_kind"]["all_gather"] == 32     # 4 f32 from each of 2 ranks
 
 
 def test_trace_marks_views_writes_and_products():

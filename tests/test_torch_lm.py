@@ -112,9 +112,18 @@ def test_attention_core_bf16_scores():
 
 
 def test_attention_core_refuses_the_dry_run_probe():
-    q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(ValueError, match="dry-run"):
-        tl.attention_core(q, q, q, impl="skip_core")
+    """The dry run's accounting stand-in (``impl="skip_core"``) was refused
+    until the port's dry run needed it; it is now the reference's stand-in
+    (GQA, 4 query heads on 2 kv heads), and an unknown impl is refused."""
+    rng = np.random.default_rng(5)
+    jq, tq = _both(rng.normal(size=(2, 4, 8, 16)))
+    jk, tk = _both(rng.normal(size=(2, 2, 8, 16)))
+    jv, tv = _both(rng.normal(size=(2, 2, 8, 16)))
+    want = jl.attention_core(jq, jk, jv, impl="skip_core")
+    got = tl.attention_core(tq, tk, tv, impl="skip_core")
+    assert got.shape == tq.shape and _rel(got, want) < 1e-6
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tl.attention_core(tq, tk, tv, impl="flash")
 
 
 @pytest.mark.parametrize("window", [None, 8])
