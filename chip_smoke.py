@@ -262,23 +262,34 @@ Phases, each printing one JSON line:
               8 local-attention layers exactly 16 ``tc`` launches;
     train_sharded — granite-moe-1b-a400m at its published widths trained
               on 4 gloo ranks sharing the card as a (data 2, model 2)
-              grid (expert parallelism over model, FSDP over data): Part A
-              holds the f32 gradient of 4 layers to the one-rank gradient
-              (loss, grad norm, the whole tree; a planted fault caught; the
-              int8 gather), Part B runs ``Trainer(mesh=)`` at all 24 layers
-              in bf16 for 6 steps on one batch (loss, exact launches and
-              collectives a rank, schedules, step ms, staging; every copy
-              of a replicated block the same bytes on each rank) and
-              restores its checkpoint onto one rank bit for bit;
+              grid in the reference's layout (attention heads over model,
+              each layer's weights gathered over data inside its
+              checkpoint, expert parallelism over model): Part A holds the
+              f32 gradient of 4 layers to the one-rank gradient (loss, grad
+              norm, the whole tree; two planted faults caught, the MoE's
+              and the attention's ``copy_to_model`` without its backward
+              sum; the int8 gather), Part B runs ``Trainer(mesh=)`` at all
+              24 layers in bf16 for 6 steps on one batch (loss, exact
+              launches and collectives a rank, schedules, step ms,
+              staging; every copy of a replicated block the same bytes on
+              each rank) and restores its checkpoint onto one rank bit for
+              bit; Part C holds granite-moe x4's f32 gradient on a (4, 1)
+              grid at capacity factor 1.25 to one rank's on the whole batch
+              (the grid routes the global batch; assignments drop, as many
+              as on one rank); Part D holds Yi-6B's f32 gradient at full
+              width, 2 layers, on the (2, 2) grid to one rank's, then times
+              3 steps of 8 layers in bf16 at 4 x 2048 (16 ``tc`` launches a
+              rank a step: each rank's call covers its 16 query heads);
     dryrun  — ``launch/dryrun.py``'s traces (subprocesses run beside the
               training phases, host cores only) against this run: (a)
               phase train_families' mamba2-1.3b step and (b) one decode
               step of phase 8's Yi-6B, arguments plus temporaries within
               10% of the card's bytes; (c) the fake (2, 2) trace of Part
               B's step logs rank 0's real events one for one, its bytes a
-              rank beside Part B's peak; (d) Yi-6B train_4k and decode_32k
-              on (16, 16) and the FMM on 256 ranks, each OK, bytes a rank
-              against the card;
+              rank within 10% of Part B's peak; (d) Yi-6B train_4k and
+              decode_32k on (16, 16) and the FMM on 256 ranks, each OK,
+              bytes a rank against the card; (e) phase train's Yi-6B x8
+              step, within 10% of the card's bytes;
     serve_sharded — granite-moe served on the (2, 2) grid of 4 gloo ranks
               (``ServeEngine(mesh=)``): an f32 gate (granite-moe x4, and
               recurrentgemma-2b through its first attention layer, whose
@@ -349,7 +360,7 @@ from repro_torch.analysis import schedule as sched  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
-from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.models import moe, tensor_parallel, transformer  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              lm_loss, param_tensors, unembed)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -569,6 +580,13 @@ TS_A_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grad": 1e-4}
 TS_FAULT = 1e-2           # the planted fault's router and w_q gradients above this
 TS_Q8_LOSS = 5e-2         # the int8 gather's loss, relative (the reference test's)
 TS_MARGIN = 1.0           # Part B's last loss at least this far below step 0's
+# Part C: granite-moe x4 f32 on a (4, 1) grid, the config's capacity factor
+# 1.25 (tokens drop), one row of 2048 a data rank; Part D: Yi-6B at full
+# width on the (2, 2) grid, f32 at 2 layers (the gate), then bf16 at 8 of 32
+# layers, 4 x 2048, timed (8 layers: phase train's cut, and 4 ranks share
+# the card)
+TS_C_GRID, TS_C_BATCH = (4, 1), 4
+TS_D_ARCH, TS_D_GATE_LAYERS, TS_D_LAYERS, TS_D_STEPS = "yi-6b", 2, 8, 3
 # phase dryrun: launch/dryrun.py's predictions against this run's measurements
 DRYRUN_TOL = 0.10         # (a), (b): predicted bytes within this of the measured
 DRYRUN_TIMEOUT_S = 600    # each dry-run process
@@ -591,26 +609,28 @@ SS_FAULT_RANK = 1         # whose cache blocks the planted fault zeroes
 
 def ts_collectives(layers: int, run: str = "grid") -> int:
     """Collectives a rank issues in one gradient and its global norm on the
-    (2, 2) grid at granite-moe's widths, derived from the code (every dim
-    but the odd vocab splits in two):
-    - the dense weights' gathers: ``w_q``, ``w_k``, ``w_v``, ``w_o`` one over
-      data and one over model each, ``embed`` and ``lm_head`` one over data:
-      8 L + 2;
-    - their backward: one a dense leaf, a ``reduce_scatter`` over data for
-      the four above and the two tables, an all-reduce over data for
-      ``ln1``, ``ln2``, ``router`` and ``final_norm``: 7 L + 3;
-    - each MoE layer: 3 expert gathers and the output's all-reduce over
-      model in the forward, the 3 gathers again in remat's recompute (its
-      early stop ends before the all-reduce, whose output saves nothing),
-      3 ``reduce_scatter``s and the 2 all-reduces of ``copy_to_model``
-      (x and the router) in the backward: 12 L;
-    - ``lm_loss``'s count of labels and its value over data: 2; the global
-      norm over the grid: 1.
-    27 L + 8 in all (116 at 4 layers, 656 at 24); held to the CPU's
+    (2, 2) grid at granite-moe's widths, derived from the code (16 query
+    and 8 KV heads split over model, D over data; the odd vocab does not
+    split, so the tables are gathered whole and the loss runs whole):
+    - each layer's forward: ``w_q``, ``w_k``, ``w_v`` (their model column
+      blocks) and ``w_o`` (its row block) gathered over data, the 3 expert
+      gathers, the attention's and the MoE's all-reduce over model: 9;
+    - remat's recompute: the 7 gathers again and the attention's
+      all-reduce (its early stop ends before the MoE's, whose output saves
+      nothing): 8;
+    - the layer's backward: ``reduce_scatter`` over data of the 4 attention
+      weights and the 3 experts, an all-reduce over data of ``ln1``,
+      ``ln2`` and ``router``, and over model the attention input's
+      ``copy_to_model`` and the MoE's two (x and the router): 13;
+    - ``embed`` and ``lm_head`` gathered over data and reduce-scattered
+      back, ``final_norm``'s all-reduce over data, ``lm_loss``'s count of
+      labels and its value over data, the global norm over the grid: 8.
+    30 L + 8 in all (128 at 4 layers, 728 at 24); held to the CPU's
     count at narrow widths of the same divisibility.  The int8 gather
     (``run="q8"``) gathers each expert tensor's scales beside it, 6 L more;
-    the planted fault (``run="fault"``) drops ``copy_to_model``'s 2 L."""
-    return 27 * layers + 8 + {"grid": 0, "q8": 6, "fault": -2}[run] * layers
+    the planted faults drop ``copy_to_model``'s sums: the MoE's 2 L
+    (``run="fault"``), the attention input's L (``run="tp_fault"``)."""
+    return 30 * layers + 8 + {"grid": 0, "q8": 6, "fault": -2, "tp_fault": -1}[run] * layers
 
 
 def emit(obj) -> None:
@@ -2859,6 +2879,9 @@ def train_phase(dev, card) -> dict:
     t_phase = time.perf_counter()
     full = get_config(TRAIN_ARCH)
     cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     params, _, init_s, n_params = random_model(cfg, dev)
     opt_cfg = AdamWConfig(**TRAIN_OPT)
     state = init_state(params, opt_cfg)
@@ -2872,6 +2895,9 @@ def train_phase(dev, card) -> dict:
     for _ in range(TRAIN_STEPS):
         params, state, row = train_step_row(step, params, state, batch, tokens)
         rows.append(row)
+    # phase dryrun's part (e): the one-microbatch steps' peak with the
+    # parameters, AdamW state and batch resident, less what came before
+    step_bytes = torch.cuda.max_memory_allocated() - before
     params, state, row2 = train_step_row(make_train_step(cfg, opt_cfg, num_microbatches=2),
                                          params, state, batch, tokens)
     peak = torch.cuda.max_memory_allocated()
@@ -2888,7 +2914,7 @@ def train_phase(dev, card) -> dict:
     real = attention_grad_state(unflatten(params, g))
     del g
     own = ops.flash_attention_with_grad
-    ops.flash_attention_with_grad = lambda q, k, v, causal=True: ops.flash_attention(
+    ops.flash_attention_with_grad = lambda q, k, v, causal=True, **_: ops.flash_attention(
         q, k, v, causal=causal)
     try:
         _, g = value_and_grad(loss_fn, params, batch)
@@ -2929,6 +2955,7 @@ def train_phase(dev, card) -> dict:
               "losses": losses, "first_step_ms": rows[0]["step_ms"],
               "steady_step_ms": steady, "steady_tok_per_s": tokens / (steady / 1e3),
               "steps": rows, "two_microbatches": row2, "peak_bytes": peak,
+              "step_bytes": step_bytes, "resident_before_bytes": before,
               "ln_vocab": math.log(cfg.vocab), "margin_gate": TRAIN_MARGIN,
               "grads": real, "planted_fault": fault, "shares": shares,
               "profile": profile}
@@ -2953,7 +2980,8 @@ def train_phase(dev, card) -> dict:
     del params, state, batch
     torch.cuda.empty_cache()
     emit({"phase": "train_summary", "seconds": time.perf_counter() - t_phase})
-    return {"tc": sum(r["flash_launches"]["tc"] for r in rows) + row2["flash_launches"]["tc"]}
+    return {"tc": sum(r["flash_launches"]["tc"] for r in rows) + row2["flash_launches"]["tc"],
+            "step_bytes": step_bytes}
 
 
 def check_attn_grad(dtype, gen) -> dict:
@@ -3095,6 +3123,79 @@ def ts_part_a_config(bits: int = 16):
     return ts_config(TS_A_LAYERS, "float32", cfg.moe.num_experts / cfg.moe.top_k, bits)
 
 
+def ts_d_config(layers: int, dtype: str):
+    return dataclasses.replace(get_config(TS_D_ARCH), num_layers=layers, dtype=dtype)
+
+
+class CountDrops:
+    """Within it, the assignments that ``moe.route`` drops (not kept: past
+    capacity) in its first ``calls`` calls: a forward's, one a layer."""
+
+    def __init__(self, calls: int):
+        self.calls, self.seen, self.dropped = calls, 0, 0
+
+    def __enter__(self):
+        self.route = moe.route
+
+        def counting(*args, **kw):
+            out = self.route(*args, **kw)
+            if self.seen < self.calls:
+                self.dropped += int((~out[3]).sum())
+            self.seen += 1
+            return out
+        moe.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.route
+
+
+def ts_one_rank(cfg, batch_rows: int, dev, path) -> dict:
+    """The one-rank gradient of ``cfg`` (parameters from ts_params) on
+    ``batch_rows`` x 2048: loss, grad norm, flash launches and assignments
+    dropped in the forward returned, the gradients written to ``path``."""
+    params = ts_params(cfg, dev)
+    batch = ts_batch(cfg, batch_rows, dev)
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    with CountDrops(cfg.num_layers if cfg.moe is not None else 0) as drops:
+        loss, grads = value_and_grad(make_loss_fn(cfg), params, batch)
+    gnorm = global_norm(unflatten(params, grads))
+    out = {"loss": float(loss), "grad_norm": float(gnorm),
+           "ms": (time.perf_counter() - t0) * 1e3, "launches": flash_counts(),
+           "dropped": drops.dropped,
+           "params": sum(t.numel() for t in transformer.param_tensors(params))}
+    torch.save({"loss": out["loss"], "grad_norm": out["grad_norm"],
+                "grads": [g.cpu() for g in grads]}, path)
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_grid_gradient(grid, cfg, batch_rows: int, ref_path: str, dev) -> dict:
+    """:func:`ts_gradient_run` of ``cfg`` on ``grid`` from this rank's blocks
+    of ts_params' parameters, against the one-rank gradient in
+    ``ref_path``; with the assignments this rank's forward dropped and the
+    grid's events."""
+    full = ts_params(cfg, dev)
+    specs = tloop.tree_specs(full, tloop.grid_specs(cfg, grid))
+    blocks = unflatten(full, [shd.local_block(t, s, grid).clone()
+                              for t, s in zip(transformer.param_tensors(full), specs)])
+    del full
+    ref = torch.load(ref_path, mmap=True)
+    ref_blocks = [shd.local_block(g, s, grid).to(dev) for g, s in zip(ref["grads"], specs)]
+    batch = tloop.local_rows(ts_batch(cfg, batch_rows, dev), grid)
+    mark = len(grid.log)
+    with CountDrops(cfg.num_layers if cfg.moe is not None else 0) as drops:
+        out = ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks)
+    out.update(dropped=drops.dropped, names=[n for n, _ in shd.flat_names(blocks)],
+               log=list(grid.log.events[mark:]))
+    del blocks, ref_blocks, ref, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def ts_params(cfg, dev):
     """The full parameters from the generator seeded with 0 on the card:
     the same draws in every process."""
@@ -3116,7 +3217,7 @@ def ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks) -> dict:
     torch.cuda.synchronize()
     zero_flash_counts()
     mark = len(grid.log)
-    loss, grads = tloop.value_and_grad(make_loss_fn(cfg, grid), blocks, batch, grid, specs)
+    loss, grads = tloop.value_and_grad(make_loss_fn(cfg, grid), blocks, batch)
     gnorm = global_norm(unflatten(blocks, grads), grid, specs)
     launches = flash_counts()
     events = grid.log.events[mark:]
@@ -3162,6 +3263,12 @@ def train_sharded_rank(world, spec: dict) -> dict:
         out["fault"] = ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks)
     finally:
         moe.copy_to_model = good
+    good = tensor_parallel.copy_to_model
+    tensor_parallel.copy_to_model = lambda x, mesh: x    # the attention's input
+    try:
+        out["tp_fault"] = ts_gradient_run(grid, cfg, blocks, specs, batch, ref_blocks)
+    finally:
+        tensor_parallel.copy_to_model = good
     out["q8"] = ts_gradient_run(grid, ts_part_a_config(bits=8), blocks, specs, batch,
                                 ref_blocks)
     out["names"] = [n for n, _ in shd.flat_names(blocks)]
@@ -3211,6 +3318,38 @@ def train_sharded_rank(world, spec: dict) -> dict:
     out["save_s"] = time.perf_counter() - t0
     if written is not None:
         out["digests"] = ts_digests(written)
+    del tr, written
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- Part C: MoE on a (4, 1) grid, tokens dropping -----------------------
+    grid_c = make_grid_mesh(TS_C_GRID, ("data", "model"), device=dev)
+    out["c"] = ts_grid_gradient(grid_c, ts_config(TS_A_LAYERS, "float32"), TS_C_BATCH,
+                                spec["ref_c"], dev)
+    # -- Part D: Yi-6B on the (2, 2) grid: the f32 gate, then bf16 timed -------
+    out["d_gate"] = ts_grid_gradient(grid, ts_d_config(TS_D_GATE_LAYERS, "float32"),
+                                     TS_A_BATCH, spec["ref_d"], dev)
+    cfg = ts_d_config(TS_D_LAYERS, "bfloat16")
+    shape = ShapeConfig("train", "train", TS_SEQ, TS_B_BATCH)
+    tr = tloop.Trainer(cfg, shape, AdamWConfig(**TS_OPT), tloop.TrainerConfig(
+        steps=TS_D_STEPS, ckpt_every=0, ckpt_dir=spec["ckpt"], seed=0), mesh=grid)
+    batch = ts_batch(cfg, TS_B_BATCH, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(TS_D_STEPS):
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        grid.wire.reset()
+        mark = len(grid.log)
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "flash_launches": flash_counts(), "collectives": len(grid.log) - mark,
+                     "staged_bytes": grid.wire.staged_bytes,
+                     "staging_s": grid.wire.staging_s})
+    out["d_rows"], out["d_peak"] = rows, torch.cuda.max_memory_allocated()
     return out
 
 
@@ -3280,47 +3419,55 @@ def train_sharded_phase(dev, card) -> dict:
     parameters and moments, since the checkpoint keeps only rank 0's copy.
     The grid's checkpoint after the last step restores onto one
     rank here bit for bit (sha256 of every parameter and moment against
-    rank 0's gathered arrays).  Returns the ranks' flash launches."""
+    rank 0's gathered arrays).
+
+    Part C: granite-moe x4 in f32 at the config's capacity factor (1.25:
+    tokens drop) on a ``TS_C_GRID`` (data 4, model 1) grid, one row of 2048
+    a data rank: the gradient against one rank's on the whole batch within
+    ``TS_A_TOL``, and the assignments the ranks drop in the forward adding
+    up to the one rank's, more than 0 (the grid routes the global batch).
+    Part D: Yi-6B at full width on the (2, 2) grid, f32 at
+    ``TS_D_GATE_LAYERS`` layers, its gradient against one rank's within
+    ``TS_A_TOL``; then ``Trainer(mesh=grid)`` at ``TS_D_LAYERS`` layers in
+    bf16 on 4 x 2048, ``TS_D_STEPS`` steps timed: exactly 16 ``tc``
+    launches a rank a step, losses finite; step ms, peak a rank and
+    staging recorded.  Returns the ranks' flash launches."""
     t_phase = time.perf_counter()
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="train_sharded_", dir=root))
     try:
         # -- Part A on one rank ----------------------------------------------
-        cfg = ts_part_a_config()
-        params = ts_params(cfg, dev)
-        batch = ts_batch(cfg, TS_A_BATCH, dev)
-        torch.cuda.synchronize()
-        zero_flash_counts()
-        t0 = time.perf_counter()
-        loss, grads = value_and_grad(make_loss_fn(cfg), params, batch)
-        gnorm = global_norm(unflatten(params, grads))
-        one = {"loss": float(loss), "grad_norm": float(gnorm),
-               "ms": (time.perf_counter() - t0) * 1e3, "launches": flash_counts()}
+        one = ts_one_rank(ts_part_a_config(), TS_A_BATCH, dev, work / "one_rank.pt")
         require(one["launches"] == {"tc": 0, "tf32": 2 * TS_A_LAYERS, "simt": 0},
                 f"train_sharded one rank: flash launches {one['launches']}")
-        torch.save({"loss": one["loss"], "grad_norm": one["grad_norm"],
-                    "grads": [g.cpu() for g in grads]}, work / "one_rank.pt")
-        n_params = sum(t.numel() for t in transformer.param_tensors(params))
-        del params, grads, batch
-        torch.cuda.empty_cache()
+        n_params = one["params"]
+
+        # -- Parts C and D on one rank -------------------------------------------
+        one_c = ts_one_rank(ts_config(TS_A_LAYERS, "float32"), TS_C_BATCH, dev,
+                            work / "one_rank_c.pt")
+        one_d = ts_one_rank(ts_d_config(TS_D_GATE_LAYERS, "float32"), TS_A_BATCH, dev,
+                            work / "one_rank_d.pt")
 
         # -- the grid -----------------------------------------------------------
         t0 = time.perf_counter()
         ranks = spawn_world(train_sharded_rank, RANKS, device="cuda",
                             timeout_s=RANK_TIMEOUT_S,
                             args=({"ref": str(work / "one_rank.pt"),
+                                   "ref_c": str(work / "one_rank_c.pt"),
+                                   "ref_d": str(work / "one_rank_d.pt"),
                                    "ckpt": str(work / "ckpt")},))
         world_s = time.perf_counter() - t0
 
         # -- Part A's gates ------------------------------------------------------
         names = ranks[0]["names"]
-        want_a = {run: ts_collectives(TS_A_LAYERS, run) for run in ("grid", "fault", "q8")}
+        want_a = {run: ts_collectives(TS_A_LAYERS, run)
+                  for run in ("grid", "fault", "tp_fault", "q8")}
         rep_a = sched.verify_schedules([r["part_a_log"] for r in ranks], label="part A")
         part_a = {"one_rank": one, "params": n_params, "layers": TS_A_LAYERS,
                   "batch": TS_A_BATCH, "seq": TS_SEQ, "schedules_agree": rep_a.ok,
                   "collectives_expected": want_a}
-        for run in ("grid", "fault", "q8"):
+        for run in ("grid", "fault", "tp_fault", "q8"):
             r0 = ranks[0][run]
             s = r0["sums"]
             per_leaf = {n: math.sqrt(float(s[i, 0]) / max(float(s[i, 1]), 1e-300))
@@ -3348,7 +3495,7 @@ def train_sharded_phase(dev, card) -> dict:
         require(g["grad_rel_l2"] <= TS_A_TOL["grad"],
                 f"train_sharded A: gradient rel L2 {g['grad_rel_l2']:.2e}")
         want_f = {"tc": 0, "tf32": 2 * TS_A_LAYERS, "simt": 0}
-        for run in ("grid", "fault", "q8"):
+        for run in ("grid", "fault", "tp_fault", "q8"):
             require(all(x == want_f for x in part_a[run]["launches"]),
                     f"train_sharded A {run}: flash launches {part_a[run]['launches']}")
             require(all(x == want_a[run] for x in part_a[run]["collectives"]),
@@ -3359,6 +3506,14 @@ def train_sharded_phase(dev, card) -> dict:
         caught = {n: x for n, x in f.items() if n.endswith("router") or n.endswith("attn/w_q")}
         require(caught and min(caught.values()) > TS_FAULT,
                 f"train_sharded A: the planted fault was not caught: {caught}")
+        # the attention input's sum dropped: every gradient that flows back
+        # through it, each layer's ln1 and every w_q but the last layer's
+        f = part_a["tp_fault"]["per_leaf"]
+        last = f"layers/{TS_A_LAYERS - 1}/"
+        caught = {n: x for n, x in f.items() if n.endswith("ln1") or (
+            n.endswith("attn/w_q") and not n.startswith(last))}
+        require(len(caught) == 2 * TS_A_LAYERS - 1 and min(caught.values()) > TS_FAULT,
+                f"train_sharded A: the planted attention fault was not caught: {caught}")
         q = part_a["q8"]
         require(q["loss_rel"] <= TS_Q8_LOSS and q["finite"],
                 f"train_sharded A q8: loss {q['loss']} ({q['loss_rel']:.2e}), finite {q['finite']}")
@@ -3431,11 +3586,83 @@ def train_sharded_phase(dev, card) -> dict:
                 "train_sharded B: the grid's checkpoint did not restore bit for bit "
                 f"onto one rank ({len([k for k in want_d if digests.get(k) != want_d[k]])} "
                 "leaves differ)")
+
+        # -- Parts C and D's gates -----------------------------------------------
+        gates = {}
+        for part, one_x, grid_shape, layers in (
+                ("c", one_c, TS_C_GRID, TS_A_LAYERS),
+                ("d_gate", one_d, SHARDED_GRID, TS_D_GATE_LAYERS)):
+            r0 = ranks[0][part]
+            s = r0["sums"]
+            rep = sched.verify_schedules([r[part]["log"] for r in ranks], label=part)
+            g = {"grid": grid_shape, "layers": layers, "one_rank": one_x,
+                 "loss": r0["loss"], "grad_norm": r0["grad_norm"],
+                 "loss_rel": abs(r0["loss"] - one_x["loss"]) / abs(one_x["loss"]),
+                 "grad_norm_rel": abs(r0["grad_norm"] - one_x["grad_norm"]) / one_x["grad_norm"],
+                 "grad_rel_l2": math.sqrt(float(s[:, 0].sum()) / float(s[:, 1].sum())),
+                 "leaf_rel_l2_max": max(math.sqrt(float(s[i, 0]) / max(float(s[i, 1]), 1e-300))
+                                        for i in range(s.shape[0])),
+                 "finite": float(s[:, 2].sum()) == 0,
+                 "dropped": [r[part]["dropped"] for r in ranks],
+                 "launches": [r[part]["launches"] for r in ranks],
+                 "collectives": [r[part]["collectives"] for r in ranks],
+                 "by_kind": r0["by_kind"], "schedules_agree": rep.ok, "card": card}
+            gates[part] = g
+            emit({"phase": f"train_sharded_part_{part}", **g})
+            print(f"train_sharded {part} on {grid_shape}: loss rel {g['loss_rel']:.2e}, grad "
+                  f"norm rel {g['grad_norm_rel']:.2e}, gradient rel L2 {g['grad_rel_l2']:.2e}, "
+                  f"dropped {sum(g['dropped'])} (one rank {one_x['dropped']})", flush=True)
+            require(g["loss_rel"] <= TS_A_TOL["loss"] and g["finite"]
+                    and g["grad_norm_rel"] <= TS_A_TOL["grad_norm"]
+                    and g["grad_rel_l2"] <= TS_A_TOL["grad"],
+                    f"train_sharded {part}: loss rel {g['loss_rel']:.2e}, grad norm rel "
+                    f"{g['grad_norm_rel']:.2e}, gradient rel L2 {g['grad_rel_l2']:.2e}")
+            want_l = {"tc": 0, "tf32": 2 * layers, "simt": 0}
+            require(one_x["launches"] == want_l and all(x == want_l for x in g["launches"]),
+                    f"train_sharded {part}: flash launches {one_x['launches']}, {g['launches']}")
+            require(rep.ok, f"train_sharded {part}: schedules disagree:\n"
+                    + "\n".join(rep.problems[:20]))
+        require(sum(gates["c"]["dropped"]) == one_c["dropped"] > 0,
+                f"train_sharded c: the grid dropped {gates['c']['dropped']} assignments, one "
+                f"rank {one_c['dropped']}: the (4, 1) grid must route the global batch, "
+                "where tokens drop")
+        cfg_d = ts_d_config(TS_D_LAYERS, "bfloat16")
+        d_rows = ranks[0]["d_rows"]
+        steady_d = sorted(r["step_ms"] for r in d_rows[1:])[len(d_rows[1:]) // 2]
+        part_d = {"arch": cfg_d.name, "layers": cfg_d.num_layers, "of_layers":
+                  get_config(TS_D_ARCH).num_layers, "dtype": cfg_d.dtype, "grid": SHARDED_GRID,
+                  "batch": TS_B_BATCH, "seq": TS_SEQ, "steps": TS_D_STEPS,
+                  "losses": [r["loss"] for r in d_rows],
+                  "step_ms": [[r["step_ms"] for r in rk["d_rows"]] for rk in ranks],
+                  "steady_step_ms": steady_d,
+                  "global_tok_per_s": TS_B_BATCH * TS_SEQ / (steady_d / 1e3),
+                  "peak_bytes": [r["d_peak"] for r in ranks],
+                  "collectives_per_step": d_rows[0]["collectives"],
+                  "staged_bytes_per_step": [[r["staged_bytes"] for r in rk["d_rows"]]
+                                            for rk in ranks],
+                  "flash_launches": [[r["flash_launches"] for r in rk["d_rows"]]
+                                     for rk in ranks],
+                  "card": card, "note": "gloo ranks share one card: not a scaling result"}
+        part_d["phase_seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "train_sharded_yi", **part_d})
+        for i, r in enumerate(d_rows):
+            print(f"train_sharded {cfg_d.name} x{cfg_d.num_layers} grid {SHARDED_GRID} step "
+                  f"{i}: loss {r['loss']:.4f} {r['step_ms']:.1f} ms", flush=True)
+        want_tc = {"tc": 2 * TS_D_LAYERS, "tf32": 0, "simt": 0}
+        require(all(x == want_tc for rk in part_d["flash_launches"] for x in rk),
+                f"train_sharded Yi-6B: flash launches {part_d['flash_launches']}, expected "
+                f"{want_tc} a rank a step (each rank's call covers its query heads)")
+        require(all(math.isfinite(x) for x in part_d["losses"]),
+                f"train_sharded Yi-6B: a loss is not finite: {part_d['losses']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"tc": sum(r["flash_launches"]["tc"] for rk in ranks for r in rk["part_b"]),
+    return {"tc": sum(r["flash_launches"]["tc"] for rk in ranks for r in rk["part_b"])
+            + sum(r["flash_launches"]["tc"] for rk in ranks for r in rk["d_rows"]),
             "tf32": one["launches"]["tf32"] + sum(
-                x["tf32"] for run in ("grid", "fault", "q8") for x in part_a[run]["launches"]),
+                x["tf32"] for run in ("grid", "fault", "tp_fault", "q8")
+                for x in part_a[run]["launches"])
+            + sum(x["launches"]["tf32"] for x in (one_c, one_d))
+            + sum(x["tf32"] for part in ("c", "d_gate") for x in gates[part]["launches"]),
             "step0_log": ranks[0]["part_b_step0_log"],
             "peak_bytes": ranks[0]["peak_bytes"]}
 
@@ -3492,7 +3719,8 @@ def start_dryrun(out: Path) -> DryrunJobs:
     (b) one decode step of phase 8's Yi-6B, both on a grid of one rank;
     (c) Part B's granite-moe step of phase train_sharded on the fake (2, 2)
     grid, its events kept; (d) Yi-6B train_4k and decode_32k on (16, 16)
-    and the FMM cell on 256 ranks."""
+    and the FMM cell on 256 ranks; (e) phase train's Yi-6B x8 step (one
+    microbatch) on a grid of one rank."""
     return DryrunJobs(out, {
         "a": ["--arch", "mamba2-1.3b", "--shape", "train_4k", "--grid", "1x1",
               "--batch", str(TRAIN_FAMILY_BATCH), "--seq-len", str(TRAIN_SEQ)],
@@ -3502,6 +3730,9 @@ def start_dryrun(out: Path) -> DryrunJobs:
         "c": ["--arch", TS_ARCH, "--shape", "train_4k",
               "--grid", "x".join(map(str, SHARDED_GRID)), "--batch", str(TS_B_BATCH),
               "--seq-len", str(TS_SEQ), "--events"],
+        "e": ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--grid", "1x1",
+              "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+              "--layers", str(TRAIN_LAYERS), "--microbatches", "1"],
         "d_train": ["--arch", SERVE_ARCH, "--shape", "train_4k"],
         "d_decode": ["--arch", SERVE_ARCH, "--shape", "decode_32k"],
         "d_fmm": ["--fmm"]})
@@ -3509,15 +3740,16 @@ def start_dryrun(out: Path) -> DryrunJobs:
 
 def dryrun_phase(jobs: DryrunJobs, measured: dict) -> dict:
     """Phase dryrun: the dry run's predictions held against this run's
-    measurements.  (a) and (b): arguments plus temporaries within
+    measurements.  (a), (b) and (e): arguments plus temporaries within
     ``DRYRUN_TOL`` of the measured bytes (phase train_families' mamba2-1.3b
-    step; one decode step of phase 8's Yi-6B); (c) rank 0's events of the
-    fake (2, 2) trace equal, event for event, those rank 0 logged in Part
-    B's first real step (kind, shape, dtype, axes, group), and the
-    predicted bytes a rank stand beside Part B's measured peak (recorded,
-    not gated: the card's attention takes the flash route there, the
-    trace the plain one); (d) every production cell OK, with its bytes a
-    rank against the card's memory and its wall time."""
+    step; one decode step of phase 8's Yi-6B; phase train's Yi-6B x8 step);
+    (c) rank 0's events of the fake (2, 2) trace equal, event for event,
+    those rank 0 logged in Part B's first real step (kind, shape, dtype,
+    axes, group), and the predicted bytes a rank within ``DRYRUN_TOL`` of
+    Part B's measured peak (the card's attention forward is the flash
+    kernel, the trace's the plain one, but both hold one query chunk's
+    blocks at a time in the backward); (d) every production cell OK, with
+    its bytes a rank against the card's memory and its wall time."""
     t0 = time.perf_counter()
     done = jobs.wait()
     waited = time.perf_counter() - t0
@@ -3533,7 +3765,8 @@ def dryrun_phase(jobs: DryrunJobs, measured: dict) -> dict:
         return mem["argument_bytes"] + mem["temp_bytes"], mem
 
     out = {"waited_s": waited, "card_bytes": cap, "parts": {}}
-    for part, what in (("a", measured["train_mamba2"]), ("b", measured["decode_yi"])):
+    for part, what in (("a", measured["train_mamba2"]), ("b", measured["decode_yi"]),
+                       ("e", measured["train_yi"])):
         want, mem = predicted(part)
         rel = abs(want - what) / what
         out["parts"][part] = {"predicted_bytes": want, "measured_bytes": what, "rel": rel,
@@ -3549,6 +3782,7 @@ def dryrun_phase(jobs: DryrunJobs, measured: dict) -> dict:
     out["parts"]["c"] = {"events": len(fake), "real_events": len(real),
                          "first_difference": first,
                          "predicted_bytes": want_c, "measured_peak_bytes": measured["ts_peak"],
+                         "rel": abs(want_c - measured["ts_peak"]) / measured["ts_peak"],
                          "argument_bytes": mem_c["argument_bytes"],
                          "temp_bytes": mem_c["temp_bytes"],
                          "trace_s": cell["wall"]["trace_s"]}
@@ -3568,11 +3802,11 @@ def dryrun_phase(jobs: DryrunJobs, measured: dict) -> dict:
               f"{'' if row['fits'] else ' (does not fit)'}, traced in "
               f"{row['wall']['trace_s']} s", flush=True)
     emit({"phase": "dryrun", **out})
-    for part in ("a", "b"):
+    for part in ("a", "b", "c", "e"):
         r = out["parts"][part]
         require(r["rel"] <= DRYRUN_TOL,
                 f"dryrun ({part}): predicted {r['predicted_bytes']} bytes, measured "
-                f"{r['measured_bytes']} ({r['rel']:.3f} off)")
+                f"{r.get('measured_bytes', r.get('measured_peak_bytes'))} ({r['rel']:.3f} off)")
     require(first is None and len(fake) == len(real) > 0,
             f"dryrun (c): the fake trace's events differ from the real rank 0's at event "
             f"{first} ({len(fake)} against {len(real)}): "
@@ -4179,7 +4413,8 @@ def main() -> None:
     attn_grad = [check_attn_grad(dt, gen) for dt in (torch.bfloat16, torch.float32)]
     launches["flash_attn"] += attn_grad[0]["launches"]["tc"]
     launches["flash_attn_tf32"] += attn_grad[1]["launches"]["tf32"]
-    launches["flash_attn"] += train_phase(dev, card)["tc"]
+    trained = train_phase(dev, card)
+    launches["flash_attn"] += trained["tc"]
     families_train = train_families_phase(dev)
     launches["flash_attn_d256"] += families_train["tc"]
     sharded_train = train_sharded_phase(dev, card)
@@ -4189,6 +4424,7 @@ def main() -> None:
     # -- 9d. the production dry run against this run's measurements ----------
     dryrun_phase(dry, {"train_mamba2": families_train["step_bytes"]["mamba2-1.3b"],
                        "decode_yi": serve["decode_step"]["peak_bytes"],
+                       "train_yi": trained["step_bytes"],
                        "ts_step0_log": sharded_train["step0_log"],
                        "ts_peak": sharded_train["peak_bytes"]})
 

@@ -206,11 +206,12 @@ def _check_shapes(q, k, v):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (B, H, T, d), k/v (B, Hkv, S, d) -> (B, H, T, d) in q's dtype.
 
-    f32 math, top-left causal mask (``kpos > qpos`` hidden), masked scores
-    contributing exactly 0 and the TPU kernel's ``l > 0`` guard.
+    f32 math, top-left causal mask (``kpos > qpos`` hidden, ``qpos`` from
+    ``q_offset``: the rows of a query chunk), masked scores contributing
+    exactly 0 and the TPU kernel's ``l > 0`` guard.
     """
     _check_shapes(q, k, v)
     B, H, T, d = q.shape
@@ -220,7 +221,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bkgtd,bksd->bkgts", qf, k.to(torch.float32)) * (1.0 / d ** 0.5)
     if causal:
         hidden = (torch.arange(S, device=q.device)[None, :]
-                  > torch.arange(T, device=q.device)[:, None])
+                  > q_offset + torch.arange(T, device=q.device)[:, None])
         s = s.masked_fill(hidden, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     if causal:

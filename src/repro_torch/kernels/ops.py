@@ -131,25 +131,48 @@ def flash_attention(q, k, v, causal: bool = True):
 class _FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` as an autograd node.  The forward launches
     the route's kernel and saves q, k and v; the backward recomputes the
-    plain version from them and differentiates it.  The TPU kernel has no
-    backward kernel either: the reference's training never calls it."""
+    plain version one query chunk of ``q_chunk`` rows at a time (those rows
+    against the keys they can see) and differentiates it: the chunk's
+    ``dq`` lands in its rows, ``dk``/``dv`` add up in f32 and are cast once
+    at the end, and each chunk's blocks are freed before the next.  The TPU
+    kernel has no backward kernel either: the reference's training never
+    calls it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, q_chunk):
+        ctx.causal, ctx.q_chunk = causal, q_chunk
         ctx.save_for_backward(q, k, v)
         return flash_attention(q, k, v, causal=causal)
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = _fa.flash_attention_plain(*qkv, causal=ctx.causal)
-        return (*torch.autograd.grad(out, qkv, grad), None)
+        q, k, v = ctx.saved_tensors
+        T, S = q.shape[2], k.shape[2]
+        qc = min(ctx.q_chunk, T)
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for lo in range(0, T, qc):
+            hi = min(lo + qc, T)
+            # a causal chunk sees the keys up to its last row (T == S here)
+            s = hi if ctx.causal and T == S else S
+            with torch.enable_grad():
+                parts = [q[:, :, lo:hi].detach().requires_grad_(),
+                         k[:, :, :s].detach().float().requires_grad_(),
+                         v[:, :, :s].detach().float().requires_grad_()]
+                out = _fa.flash_attention_plain(*parts, causal=ctx.causal,
+                                                q_offset=lo if ctx.causal and T == S else 0)
+            gq, gk, gv = torch.autograd.grad(out, parts, grad[:, :, lo:hi])
+            dq[:, :, lo:hi] = gq
+            dk[:, :, :s] += gk
+            dv[:, :, :s] += gv
+            del out, parts, gq, gk, gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
-def flash_attention_with_grad(q, k, v, causal: bool = True):
+def flash_attention_with_grad(q, k, v, causal: bool = True, q_chunk: int = 512):
     """:func:`flash_attention` (the same launch, counted as it is) with a
-    gradient: the plain version's, recomputed in the backward.  Under
-    ``no_grad`` or ``inference_mode`` it records nothing."""
-    return _FlashAttention.apply(q, k, v, causal)
+    gradient: the plain version's, recomputed in the backward one query
+    chunk of ``q_chunk`` rows at a time.  Under ``no_grad`` or
+    ``inference_mode`` it records nothing."""
+    return _FlashAttention.apply(q, k, v, causal, q_chunk)

@@ -449,21 +449,18 @@ def main(argv=None) -> int:
                          "the production grid")
     ap.add_argument("--batch", type=int, default=None, help="the cell's global batch")
     ap.add_argument("--seq-len", type=int, default=None, help="the cell's length")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the model's depth cut to this many layers")
     ap.add_argument("--pos", type=int, default=None, help="a decode cell's position")
     ap.add_argument("--events", action="store_true",
                     help="keep rank 0's mesh events in each cell's JSON")
     args = ap.parse_args(argv)
-    if args.remat_policy == "save_block_out":
-        ap.error("--remat-policy save_block_out is not ported: the port's forward "
-                 "checkpoints each layer whole under either policy "
-                 "(models/transformer.py), so this cell would report the 'full' "
-                 "policy's bytes and FLOPs")
 
     overrides = {}
     for flag, key in (("score_dtype", "score_dtype"), ("remat_policy", "remat_policy"),
                       ("mamba_chunk", "mamba_chunk"), ("microbatches", "num_microbatches"),
                       ("attn_impl", "attn_impl"), ("q_chunk", "q_chunk"),
-                      ("moe_gather_bits", "moe_gather_bits")):
+                      ("moe_gather_bits", "moe_gather_bits"), ("layers", "num_layers")):
         if getattr(args, flag) is not None:
             overrides[key] = getattr(args, flag)
 

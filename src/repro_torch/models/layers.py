@@ -9,7 +9,8 @@ offset, ``T == S``, f32 scores, no window or one that covers every key,
 (``kernels.flash_attn.route``; the README's route table); the tensor-core
 kernels read the transposed views as they are.  The kernel runs inside
 autograd (``ops.flash_attention_with_grad``): training's forward launches
-it too, and its backward differentiates the plain version.  Every other
+it too, and its backward differentiates the plain version one query chunk
+at a time.  Every other
 case, and every CPU tensor, takes ``attention_core_plain``: the
 reference's q-chunked exact softmax.  The choice follows the arguments
 alone; nothing falls back on a failure.
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attn, ops
 from .config import ModelConfig
@@ -80,7 +82,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (q.device.type == "cuda" and causal and q_offset == 0 and T == S
             and score_dtype == torch.float32 and (window is None or T <= window)
             and flash_attn.takes_head_dim(q.shape[-1])):
-        return ops.flash_attention_with_grad(q, k, v, causal=True)
+        return ops.flash_attention_with_grad(q, k, v, causal=True, q_chunk=q_chunk)
     return attention_core_plain(q, k, v, causal=causal, window=window,
                                 q_chunk=q_chunk, q_offset=q_offset,
                                 score_dtype=score_dtype)
@@ -98,40 +100,56 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's ``preferred_element_type``), reductions run in f32, and the
     output is accumulated in f32.  The causal mask is bottom-right aligned
     through ``q_offset``: key ``kpos`` is visible from ``q_offset + t`` when
-    ``kpos <= q_offset + t``.
+    ``kpos <= q_offset + t``.  Under autograd each chunk runs under its own
+    non-reentrant checkpoint, so a backward holds one chunk's blocks at a
+    time; the values are the same either way.
     """
     B, H, T, d = q.shape
     _, Hkv, S, _ = k.shape
     g = H // Hkv
-    scale = torch.tensor(1.0 / (d ** 0.5), dtype=score_dtype, device=q.device)
     qc = min(q_chunk, T)
     if T % qc:
         qc = T  # a single chunk for ragged tiny shapes
     nc = T // qc
     qr = q.reshape(B, Hkv, g, nc, qc, d)
-    kpos = torch.arange(S, device=q.device)
-    neg = torch.tensor(NEG_INF, dtype=score_dtype, device=q.device)
     kf = k.to(score_dtype).to(torch.float32)
     vf = v.to(score_dtype).to(torch.float32)
+    # the reference's jax.checkpoint of its mapped chunk_fn
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
     for idx in range(nc):
-        qf = qr[:, :, :, idx].to(score_dtype).to(torch.float32)
-        s = torch.einsum("bkgtd,bksd->bkgts", qf, kf).to(score_dtype) * scale
-        qpos = q_offset + idx * qc + torch.arange(qc, device=q.device)
-        mask = torch.ones((qc, S), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = torch.where(mask, s, neg)
-        # stable softmax: reductions in f32, materialized blocks in score_dtype
-        m = s.amax(dim=-1, keepdim=True).to(torch.float32)
-        p = torch.exp(s.to(torch.float32) - m).to(score_dtype)
-        z = p.to(torch.float32).sum(dim=-1, keepdim=True)
-        a = p / z.to(score_dtype)
-        outs.append(torch.einsum("bkgts,bksd->bkgtd", a.to(torch.float32), vf))
+        args = (qr[:, :, :, idx], kf, vf, q_offset + idx * qc, causal, window, score_dtype)
+        outs.append(checkpoint(_chunk_attention, *args, use_reentrant=False) if grad
+                    else _chunk_attention(*args))
     out = torch.cat(outs, dim=3)                    # (B, Hkv, g, T, d)
     return out.reshape(B, H, T, d).to(q.dtype)
+
+
+def _chunk_attention(qc_, kf, vf, q0: int, causal: bool, window: Optional[int],
+                     score_dtype: torch.dtype) -> torch.Tensor:
+    """One query chunk of :func:`attention_core_plain`: qc_ (B, Hkv, g, qc,
+    d) at positions ``q0 + t`` against every key; returns the chunk's f32
+    output (B, Hkv, g, qc, d)."""
+    qc, S = qc_.shape[3], kf.shape[2]
+    dev = qc_.device
+    scale = torch.tensor(1.0 / (qc_.shape[-1] ** 0.5), dtype=score_dtype, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=score_dtype, device=dev)
+    kpos = torch.arange(S, device=dev)
+    qf = qc_.to(score_dtype).to(torch.float32)
+    s = torch.einsum("bkgtd,bksd->bkgts", qf, kf).to(score_dtype) * scale
+    qpos = q0 + torch.arange(qc, device=dev)
+    mask = torch.ones((qc, S), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, neg)
+    # stable softmax: reductions in f32, materialized blocks in score_dtype
+    m = s.amax(dim=-1, keepdim=True).to(torch.float32)
+    p = torch.exp(s.to(torch.float32) - m).to(score_dtype)
+    z = p.to(torch.float32).sum(dim=-1, keepdim=True)
+    a = p / z.to(score_dtype)
+    return torch.einsum("bkgts,bksd->bkgtd", a.to(torch.float32), vf)
 
 
 def decode_attention(q1: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,

@@ -25,6 +25,10 @@ enter replicated over the model axis, so each model rank's gradient of them
 covers its own experts only and the backward sums them; the output leaves
 through the sum, whose backward is the identity.
 
+On a grid whose model axis holds one rank and whose batch axes hold more,
+``moe_layer`` routes as the reference's one-rank path does on the global
+batch (one capacity for all its tokens), each data rank its own rows.
+
 ``expert_placement`` is the paper's technique transplanted: experts as the
 vertices of a weighted graph (token loads) with co-activation edges,
 partitioned by ``core/partition.py``.
@@ -66,7 +70,8 @@ def capacity(num_tokens: int, cfg: ModelConfig) -> int:
 
 def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
           e_start: int = 0, e_local: Optional[int] = None,
-          choices: Optional[torch.Tensor] = None):
+          choices: Optional[torch.Tensor] = None, before=None,
+          slots: Optional[int] = None):
     """Routing of ``x`` (N, D) over the router's E experts, kept for the
     ``e_local`` experts from ``e_start`` on (all E by default).  ``choices``
     (N, top_k), when given, are the experts each token takes in place of
@@ -76,14 +81,18 @@ def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
 
     Returns, per flat ``(token, choice)`` assignment in token-major order,
     ``(flat_e, flat_w, slot, keep)``: the expert, its softmax weight over
-    the token's top-k logits, the row of the ``(e_local * capacity + 1)``
-    gather buffer it lands in (the last row is the overflow bin), and
-    whether it is one of the kept experts' and within capacity.  The rank of
-    an assignment within its expert counts the earlier assignments to that
-    expert, all of them this rank's.
+    the token's top-k logits, the row of the ``(e_local * slots + 1)``
+    gather buffer it lands in (the last row is the overflow bin; ``slots``
+    is ``capacity`` by default), and whether it is one of the kept
+    experts' and within capacity.  The rank of an assignment within its
+    expert counts the earlier assignments to that expert: this rank's, and
+    with ``before`` those of the ranks ahead of it in the global batch's
+    token order (``before(counts)`` maps this rank's (e_local,) counts to
+    theirs, summed).  Its slot is its rank among this rank's own.
     """
     E = router.shape[1]
     e_local = E if e_local is None else e_local
+    slots = capacity if slots is None else slots
     logits = x.to(torch.float32) @ router.to(torch.float32)          # (N, E)
     if choices is None:
         gate_w, gate_e = torch.topk(logits, top_k, dim=-1)           # sorted
@@ -105,23 +114,31 @@ def route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int,
     first = torch.cumsum(counts, dim=0) - counts          # each expert's first place
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=x.device) - first[local_e[order]]
-    keep = mine & (rank < capacity)
-    slot = torch.where(keep, local_e * capacity + rank, e_local * capacity)
+    ahead = rank
+    if before is not None:
+        prior = torch.cat([before(counts[:e_local]), counts.new_zeros(1)])
+        ahead = rank + prior[local_e]
+    keep = mine & (ahead < capacity)
+    slot = torch.where(keep, local_e * slots + rank, e_local * slots)
     return flat_e, flat_w, slot, keep
 
 
-def _moe_local(x, router, wg, wi, wo, *, top_k: int, capacity: int, e_start: int = 0):
+def _moe_local(x, router, wg, wi, wo, *, top_k: int, capacity: int, e_start: int = 0,
+               before=None, slots: Optional[int] = None):
     """MoE over the experts ``wg``/``wi``/``wo`` hold (from ``e_start`` on):
-    x (N, D) -> (N, D), the sum of those experts' contributions."""
+    x (N, D) -> (N, D), the sum of those experts' contributions
+    (``before`` and ``slots`` as :func:`route` takes them)."""
     N, D = x.shape
     E_local = wg.shape[0]
+    slots = capacity if slots is None else slots
     _, flat_w, slot, keep = route(x, router, top_k=top_k, capacity=capacity,
-                                  e_start=e_start, e_local=E_local)
+                                  e_start=e_start, e_local=E_local, before=before,
+                                  slots=slots)
     flat_tok = torch.arange(N, device=x.device).repeat_interleave(top_k)
-    # gather into (E_local * capacity + 1, D); the overflow bin is dropped
-    xe = torch.zeros((E_local * capacity + 1, D), dtype=x.dtype, device=x.device)
+    # gather into (E_local * slots + 1, D); the overflow bin is dropped
+    xe = torch.zeros((E_local * slots + 1, D), dtype=x.dtype, device=x.device)
     xe[slot] = torch.where(keep[:, None], x[flat_tok], 0)
-    xe = xe[:-1].reshape(E_local, capacity, D)
+    xe = xe[:-1].reshape(E_local, slots, D)
     dt = x.dtype
     h = F.silu(torch.bmm(xe, wg.to(dt))) * torch.bmm(xe, wi.to(dt))
     ye = torch.bmm(h, wo.to(dt))                                      # (E, C, D)
@@ -256,50 +273,49 @@ def _fsdp_axes(mesh, dim1: int):
     return None
 
 
-def check_grid(mesh) -> None:
-    """Raise for a grid whose model axis holds one rank and whose batch axes
-    hold more.  There the reference routes the global batch on every
-    device (one capacity for all of its tokens), while each of the port's
-    data ranks would route its own rows: whenever tokens drop, another
-    model.  Routing there needs the per-expert counts scanned across the
-    data ranks, which the port does not do."""
-    if mesh is None or mesh.shape.get("model", 1) > 1:
-        return
-    if axis_size(mesh, batch_axes(mesh)) > 1:
-        raise NotImplementedError(
-            f"moe_layer on a grid {mesh.shape} with one model rank: the "
-            f"reference routes the global batch there; give the model axis "
-            f"more than one rank")
+def _ranks_ahead(mesh, axes):
+    """``before`` for :func:`route` over the data ranks ``axes``: the
+    per-expert counts of the ranks whose rows come earlier in the global
+    batch (an all-gather of every rank's counts, summed over those
+    ahead)."""
+    def before(counts):
+        every = mesh.all_gather(counts[None], axes, dim=0)          # (ranks, E)
+        return every[:mesh.axis_index(axes)].sum(dim=0)
+    return before
 
 
 def moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
-              placement: Optional[np.ndarray] = None) -> torch.Tensor:
+              placement: Optional[np.ndarray] = None, *, rows_split: bool = True) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D).
 
     Without a grid, or on a grid of one rank, every expert is on this card
-    and capacity counts all of ``x``'s tokens.  On a grid whose model axis
-    holds more than one rank, ``x`` is this data rank's rows and ``p``'s
-    experts are this rank's blocks as ``parallel/sharding.py:param_spec``
-    stores them, ``(E / M, D / n_fsdp, F)``; the router is whole.  A grid
-    whose model axis holds one rank and whose batch axes hold more is
-    refused (:func:`check_grid`).  ``placement`` (a permutation of expert ids, the
-    cost-model placement) is taken as the reference takes it: the expert
-    weights are permuted where they are loaded, so it changes nothing here.
+    and capacity counts all of ``x``'s tokens.  On a grid of more ranks
+    ``p``'s experts are this rank's blocks as ``parallel/sharding.py:
+    param_spec`` stores them, ``(E / M, D / n_fsdp, F)``, gathered back
+    over their FSDP dim; the router is whole.  ``x`` is this data rank's
+    rows (``rows_split``; else every data rank holds the whole batch).
+    Where the model axis holds more than one rank, this is the reference's
+    expert parallelism (module docstring).  Where it holds one, the
+    reference routes the global batch on every device: one capacity from
+    the global token count, and each assignment's place within its expert
+    counts the earlier data ranks' assignments to it (``_ranks_ahead``)
+    before this rank's own; this rank computes its own rows' tokens.
+    ``placement`` (a permutation of expert ids, the cost-model placement)
+    is taken as the reference takes it: the expert weights are permuted
+    where they are loaded, so it changes nothing here.
     """
     B, T, D = x.shape
     m = cfg.moe
-    check_grid(mesh)
-    if mesh is None or "model" not in mesh.axis_names or mesh.shape["model"] == 1:
+    if mesh is None or mesh.size == 1:
         out = _moe_local(x.reshape(B * T, D), p["router"], p["experts_gate"],
                          p["experts_in"], p["experts_out"], top_k=m.top_k,
                          capacity=capacity(B * T, cfg))
         return out.reshape(B, T, D)
 
-    tp = mesh.shape["model"]
+    tp = mesh.shape.get("model", 1)
     if m.num_experts % tp:
         raise ValueError(f"{m.num_experts} experts do not split over {tp} model ranks")
     e_local = m.num_experts // tp
-    cap = capacity(B * T, cfg)              # this data rank's rows: per shard
     fsdp_ax = _fsdp_axes(mesh, D)
     want = ("model", fsdp_ax, None)
     shapes = {"experts_gate": (m.num_experts, D, m.expert_ff),
@@ -326,10 +342,20 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     if axis_size(mesh, rest) > 1:
         # experts replicated over a batch axis: their gradient sums over it
         wg, wi, wo = (copy_to(w, mesh, rest) for w in (wg, wi, wo))
+    N = B * T
+    if tp == 1:
+        dp_axes = batch_axes(mesh)
+        glob = rows_split and axis_size(mesh, dp_axes) > 1
+        cap = capacity(N * (axis_size(mesh, dp_axes) if glob else 1), cfg)
+        out = _moe_local(x.reshape(N, D), p["router"], wg, wi, wo, top_k=m.top_k,
+                         capacity=cap, before=_ranks_ahead(mesh, dp_axes) if glob else None,
+                         slots=min(cap, N))
+        return out.reshape(B, T, D)
     xs = copy_to_model(x, mesh)
     router = copy_to_model(p["router"], mesh)
-    out = _moe_local(xs.reshape(B * T, D), router, wg, wi, wo, top_k=m.top_k,
-                     capacity=cap, e_start=mesh.axis_index("model") * e_local)
+    out = _moe_local(xs.reshape(N, D), router, wg, wi, wo, top_k=m.top_k,
+                     capacity=capacity(N, cfg),              # this data rank's rows: per shard
+                     e_start=mesh.axis_index("model") * e_local)
     return reduce_from_model(out, mesh).reshape(B, T, D)
 
 

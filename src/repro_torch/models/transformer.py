@@ -12,9 +12,13 @@ Layers run as a Python loop over ``params["layers"]``, one dict per layer
 in order (``convert.params_from_jax`` reads the reference's grouped
 ``lax.scan`` layout).  ``forward(remat=True)`` runs each layer under
 non-reentrant ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-of its scan body; ``remat_policy="save_block_out"`` takes the same
-per-layer checkpoint, which gives the same values.  ``lm_loss`` is the
-reference's chunked cross-entropy, each chunk checkpointed.
+of its scan body; under ``remat_policy="save_block_out"`` an attention
+layer's attention and FFN blocks take a checkpoint each, so the sum after
+the attention block stays (the reference saves the named ``attn_out`` and
+``moe_out``), with the same values.  On a grid of ranks ``forward`` takes
+this rank's blocks and lays the work out as ``models/tensor_parallel.py``
+says.  ``lm_loss`` is the reference's chunked cross-entropy, each chunk
+checkpointed.
 
 Parameters are a plain dict of tensors: ``embed`` (V, D), ``final_norm``
 (D,), ``lm_head`` (V, D) unless embeddings are tied, ``patch_proj``
@@ -39,6 +43,8 @@ conv tails into f32).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -47,7 +53,9 @@ from . import layers as ll
 from .config import ModelConfig
 from .layers import init_attention, init_mlp, mlp_layer, normal_init, rms_norm
 from .mamba2 import init_mamba, init_mamba_state, mamba_layer
+from ..parallel import sharding as shd
 from ..parallel.sharding import axis_size, batch_axes
+from . import tensor_parallel as tp
 from .moe import init_moe, moe_layer, reduce_from
 from .rglru import init_rglru, init_rglru_state, rglru_layer
 
@@ -127,6 +135,26 @@ def param_tensors(params: dict) -> list[torch.Tensor]:
         return [params]
     items = params.values() if isinstance(params, dict) else params
     return [t for item in items for t in param_tensors(item)]
+
+
+def grid_specs(cfg: ModelConfig, mesh) -> dict[str, tuple]:
+    """Every parameter's spec on ``mesh`` by its name (``layers/0/attn/w_q``),
+    from the full shapes (drawn on the meta device); kept per config and
+    grid shape, since every step asks."""
+    return _grid_specs(cfg, tuple(mesh.dims), tuple(mesh.axis_names))
+
+
+@functools.lru_cache(maxsize=32)
+def _grid_specs(cfg: ModelConfig, dims: tuple, axis_names: tuple) -> dict[str, tuple]:
+    full = init_params(cfg, torch.Generator(), "meta")
+    grid = shd.AbstractGrid(dims, axis_names)
+    return dict(zip((n for n, _ in shd.flat_names(full)), shd.param_specs(grid, full)))
+
+
+def on_grid(mesh) -> bool:
+    """Whether ``mesh`` is a grid of more than one rank, whose parameters
+    are blocks (a grid of one rank holds them whole)."""
+    return mesh is not None and mesh.size > 1
 
 
 # ---------------------------------------------------------------------------
@@ -263,41 +291,116 @@ def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None, caches=None,
     ``pos_scalar`` (an int, uniform across the batch); ``caches`` alone
     prefills them.  Each layer's entry of ``caches`` is replaced by its new
     state.  ``remat`` (training, no caches) keeps only each layer's input
-    for the backward and recomputes the layer there.  ``mesh`` (a
-    ``GridMesh``) reaches ``moe_layer`` only, as in the reference: ``params``
-    then holds the dense weights whole and the experts as this rank's
-    blocks, and ``tokens`` this data rank's rows.
+    for the backward and recomputes the layer there; under
+    ``cfg.remat_policy == "save_block_out"`` an attention layer's two
+    blocks are checkpointed apart, so its attention block's output stays
+    (the reference's saved ``attn_out`` and ``moe_out``).
+
+    ``mesh`` (a ``GridMesh``): on a grid of one rank it reaches
+    ``moe_layer`` only.  On a grid of more (:func:`on_grid`; training, no
+    caches) ``params`` are this rank's blocks and ``tokens`` this data
+    rank's rows, laid out by ``models/tensor_parallel.py``: each layer
+    gathers its weights inside its checkpoint, so they are whole for one
+    layer at a time and its gradient is reduced in its own backward.
     """
     if remat and caches is not None:
         raise ValueError("remat=True is for training: it takes no caches")
+    grid = on_grid(mesh)
+    if grid and caches is not None:
+        raise ValueError("forward on a grid is training's; serving on a grid is "
+                         "serve/grid.py:grid_forward")
+    by_name = grid_specs(cfg, mesh) if grid else None
     dt = compute_dtype(cfg)
-    h = params["embed"][tokens].to(dt)
+    if grid:
+        h = tp.embed(params["embed"], tokens, by_name["embed"], mesh, dt)
+    else:
+        h = params["embed"][tokens].to(dt)
     if cfg.num_patches and patch_embeds is not None:
-        pe = patch_embeds.to(dt) @ params["patch_proj"].to(dt)
-        h = torch.cat([pe, h], dim=1)
+        proj = params["patch_proj"]
+        if grid:
+            proj = tp.weight(proj, by_name["patch_proj"], mesh)[0]
+        h = torch.cat([patch_embeds.to(dt) @ proj.to(dt), h], dim=1)
+        del proj
     B, T, _ = h.shape
     if pos_scalar is not None and T == 1:
         positions = torch.full((B, 1), pos_scalar, dtype=torch.int32, device=h.device)
     else:
         positions = torch.arange(T, dtype=torch.int32, device=h.device)
+    split = cfg.remat_policy == "save_block_out"
     for i, kind in enumerate(layer_kinds(cfg)):
-        if remat:
-            h = checkpoint(_layer_out, params["layers"][i], h, cfg, kind, positions,
-                           q_chunk, mesh, use_reentrant=False)
+        p = params["layers"][i]
+        where = (f"layers/{i}", by_name) if grid else None
+        if remat or grid:
+            parts = ("attn", "ffn") if remat and split and kind in ("attn", "moe") else (None,)
+            for part in parts:
+                args = (p, h, cfg, kind, positions, q_chunk, mesh, part, where)
+                h = checkpoint(_layer_out, *args, use_reentrant=False) if remat \
+                    else _layer_out(*args)
             continue
-        h, st = apply_layer(params["layers"][i], h, cfg, kind, positions=positions,
+        h, st = apply_layer(p, h, cfg, kind, positions=positions,
                             cache=None if caches is None else caches[i],
                             pos_scalar=pos_scalar, q_chunk=q_chunk, mesh=mesh)
         if caches is not None:
             caches[i] = st
-    h = rms_norm(h, params["final_norm"].to(dt), cfg.rms_eps)
+    norm = params["final_norm"]
+    if grid:
+        norm = tp.weight(norm, by_name["final_norm"], mesh)[0]
+    h = rms_norm(h, norm.to(dt), cfg.rms_eps)
     return h, caches
 
 
-def _layer_out(p, h, cfg, kind, positions, q_chunk, mesh=None):
-    """One cache-free block's output (its recurrent state dropped)."""
+def _layer_out(p, h, cfg, kind, positions, q_chunk, mesh=None, part=None, where=None):
+    """One cache-free block's output (its recurrent state dropped):
+    the whole layer, or with ``part`` ("attn", "ffn") one of an attention
+    layer's two blocks.  ``where`` is (the layer's name, the specs by
+    name) on a grid, where ``p`` holds this rank's blocks."""
+    if where is not None:
+        return _grid_layer(p, h, cfg, kind, *where, mesh, positions, q_chunk, part)
+    if part == "attn":
+        window = cfg.rglru.window if cfg.rglru is not None else None
+        return _attn_block(p, h, cfg, positions=positions, window=window, cache=None,
+                           pos_scalar=None, q_chunk=q_chunk)[0]
+    if part == "ffn":
+        return _ffn_block(p, h, cfg, kind, mesh)
     return apply_layer(p, h, cfg, kind, positions=positions, cache=None,
                        pos_scalar=None, q_chunk=q_chunk, mesh=mesh)[0]
+
+
+def _grid_norm(p, name, h, prefix, by_name, mesh, eps):
+    scale = tp.weight(p[name], by_name[f"{prefix}/{name}"], mesh)[0]
+    return rms_norm(h, scale.to(h.dtype), eps)
+
+
+def _grid_layer(p, h, cfg, kind, prefix, by_name, mesh, positions, q_chunk, part=None):
+    """One cache-free layer (or ``part`` of it) on a grid: each weight of
+    this rank's blocks ``p`` gathered where the layer uses it
+    (``models/tensor_parallel.py``); the experts as ``moe_layer`` takes
+    them."""
+    eps = cfg.rms_eps
+    if kind == "mamba":
+        x = _grid_norm(p, "ln", h, prefix, by_name, mesh, eps)
+        out, _ = mamba_layer(tp.whole(p["mamba"], f"{prefix}/mamba", by_name, mesh), x, cfg)
+        return h + out
+    if kind == "rglru":
+        x = _grid_norm(p, "ln1", h, prefix, by_name, mesh, eps)
+        out, _ = rglru_layer(tp.whole(p["rec"], f"{prefix}/rec", by_name, mesh), x, cfg)
+        h = h + out
+        x = _grid_norm(p, "ln2", h, prefix, by_name, mesh, eps)
+        return h + tp.mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh)
+    if part != "ffn":
+        x = _grid_norm(p, "ln1", h, prefix, by_name, mesh, eps)
+        window = cfg.rglru.window if cfg.rglru is not None else None
+        h = h + tp.attention(p["attn"], x, cfg, f"{prefix}/attn", by_name, mesh,
+                             positions=positions, window=window, q_chunk=q_chunk)
+    if part != "attn":
+        x = _grid_norm(p, "ln2", h, prefix, by_name, mesh, eps)
+        if kind == "moe":
+            pm = dict(p["moe"], router=tp.weight(p["moe"]["router"],
+                                                 by_name[f"{prefix}/moe/router"], mesh)[0])
+            h = h + moe_layer(pm, x, cfg, mesh)
+        else:
+            h = h + tp.mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh)
+    return h
 
 
 def unembed(params, h, cfg: ModelConfig):
@@ -320,6 +423,24 @@ def _chunk_nll(h, labels, W):
     return ((lse - tgt) * m).sum(), m.sum()
 
 
+def _chunk_nll_vocab(h, labels, W, mesh):
+    """:func:`_chunk_nll` with the vocab split over the model axis: ``W``
+    is this rank's rows of the table.  The logsumexp combines the ranks'
+    (the largest logit first, then the sums) and the target's logit comes
+    from the rank that holds its row."""
+    logits = h.to(torch.float32) @ W.to(torch.float32).T           # (B, c, V / M)
+    rows = W.shape[0]
+    mx = mesh.all_reduce_max(logits.detach().amax(dim=-1), ("model",))
+    local = labels.long() - mesh.axis_index("model") * rows
+    mine = (local >= 0) & (local < rows)
+    tgt = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    both = torch.stack([torch.exp(logits - mx[..., None]).sum(dim=-1),
+                        torch.where(mine, tgt, 0)])
+    both = tp.reduce_from_model(both, mesh)
+    m = (labels >= 0).to(torch.float32)
+    return ((mx + torch.log(both[0]) - both[1]) * m).sum(), m.sum()
+
+
 def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256, mesh=None):
     """Mean NLL over labels >= 0.  hidden (B, T, D); labels (B, T).
 
@@ -332,16 +453,25 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig, chunk: int = 256, mesh=Non
     count of labels >= 0, summed over the batch axes.  The value is the
     reference's on every rank; the sum's backward is the identity, so each
     rank's gradient is its rows' share, and the shares add up exactly over
-    the data ranks.
+    the data ranks.  On a grid of more than one rank the table is this
+    rank's block, gathered once for every chunk; where its vocab splits
+    over the model axis, each rank's chunks run on its rows of the vocab
+    (:func:`_chunk_nll_vocab`).
     """
     T = hidden.shape[1]
-    W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    W, split = params[name], False
+    if on_grid(mesh):
+        W, split = tp.weight(W, grid_specs(cfg, mesh)[name], mesh, keep=0)
+        if split:
+            hidden = tp.copy_to_model(hidden, mesh)
     c = min(chunk, T)
     if T % c:
         c = T
     nll = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, T, c):
-        n, k = checkpoint(_chunk_nll, hidden[:, i:i + c], labels[:, i:i + c], W,
+        args = (hidden[:, i:i + c], labels[:, i:i + c], W) + ((mesh,) if split else ())
+        n, k = checkpoint(_chunk_nll_vocab if split else _chunk_nll, *args,
                           use_reentrant=False)
         nll, cnt = nll + n, cnt + k
     axes = () if mesh is None else batch_axes(mesh)

@@ -8,9 +8,10 @@ compiler, so this module writes out one rank's program on a
 ``launch/mesh.py:GridMesh`` (``(data, model)`` or ``(pod, data, model)``):
 
 * The parameters are this rank's blocks under ``parallel/sharding.py:
-  param_specs``.  Serving keeps no autograd, so each layer gathers what it
-  needs just before use and drops it after: only one layer's weights are
-  ever whole.  Where a weight's spec splits its columns over the model
+  param_specs``, laid out as training lays them out
+  (``models/tensor_parallel.py``, whose blocks this module calls).  Each
+  layer gathers what it needs just before use and drops it after: only
+  one layer's weights are ever whole.  Where a weight's spec splits its columns over the model
   axis (``w_q``/``w_k``/``w_v``, ``w_gate``/``w_in``, the vocab of
   ``lm_head``) the rank keeps its columns and gathers only the other dims,
   and the matching row split of ``w_o``/``w_out`` ends the block with one
@@ -43,14 +44,15 @@ The logits come back whole on every rank (the reference's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..models import layers as ll
+from ..models import tensor_parallel as tp
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
 from ..models.mamba2 import mamba_layer
 from ..models.moe import moe_layer
 from ..models.rglru import rglru_layer
+from ..models.tensor_parallel import kv_layout
 from ..parallel import sharding as shd
 from ..train.loop import grid_specs, unflatten
 
@@ -112,130 +114,28 @@ def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     return shd.local_block(x, shd.batch_spec(mesh, x.dim()), mesh)
 
 
-# ---------------------------------------------------------------------------
-# Gathers
-# ---------------------------------------------------------------------------
-
-
-def _model_split(spec, mesh, dim: int) -> bool:
-    """Whether ``spec`` splits ``dim`` over the model axis alone."""
-    if mesh.shape.get("model", 1) == 1 or dim >= len(spec):
-        return False
-    return shd.normalize_spec(spec, mesh)[dim] == ("model",)
-
-
-def _gather(t: torch.Tensor, spec, mesh, keep=None) -> tuple[torch.Tensor, bool]:
-    """``t`` (a block under ``spec``) gathered on every dim but ``keep``
-    when ``keep`` is split over the model axis alone, which stays this
-    rank's block; returns (tensor, whether ``keep`` stayed split)."""
-    split = keep is not None and _model_split(spec, mesh, keep)
-    out = t
-    for d, entry in enumerate(spec):
-        axes = shd.spec_axes(entry)
-        if (split and d == keep) or shd.axis_size(mesh, axes or None) == 1:
-            continue
-        out = mesh.all_gather(out, axes, dim=d)
-    return out, split
-
-
-def _whole(tree, prefix: str, by_name: dict, mesh):
-    """Every leaf of ``tree`` (named from ``prefix``) gathered whole."""
-    if isinstance(tree, torch.Tensor):
-        return shd.gather_full(tree, by_name[prefix], mesh)
-    return {k: _whole(v, f"{prefix}/{k}", by_name, mesh) for k, v in tree.items()}
-
-
-def _model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    return mesh.all_reduce_sum(x, ("model",))
-
-
-# ---------------------------------------------------------------------------
-# Blocks of the model
-# ---------------------------------------------------------------------------
-
-
-def _mlp(p, x, prefix: str, by_name: dict, mesh):
-    """SwiGLU with its hidden dim split over the model axis where
-    ``w_gate``, ``w_in`` and ``w_out`` all split it, else whole."""
-    dt = x.dtype
-    dims = {"w_gate": 1, "w_in": 1, "w_out": 0}
-    split = all(_model_split(by_name[f"{prefix}/{n}"], mesh, d) for n, d in dims.items())
-    w = {n: _gather(p[n], by_name[f"{prefix}/{n}"], mesh, keep=d if split else None)[0]
-         for n, d in dims.items()}
-    h = F.silu(x @ w["w_gate"].to(dt)) * (x @ w["w_in"].to(dt))
-    y = h @ w["w_out"].to(dt)
-    return _model_sum(y, mesh) if split else y
-
-
-def kv_layout(cfg: ModelConfig, mesh) -> str:
-    """``"one"`` (the model axis holds one rank), ``"heads"`` (the KV heads
-    divide the model axis) or ``"sequence"``: the attention caches' split,
-    ``kv_cache_spec``'s rule."""
-    M = mesh.shape.get("model", 1)
-    if M == 1:
-        return "one"
-    return "heads" if cfg.num_kv_heads % M == 0 else "sequence"
-
-
-def _q_split(cfg: ModelConfig, mesh) -> bool:
-    """Whether the query heads split over the model axis with each rank's
-    heads reading whole KV heads (as many as they need, the same on every
-    rank)."""
-    M = mesh.shape.get("model", 1)
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    return M > 1 and H % M == 0 and (Hkv % M == 0 or M % Hkv == 0)
-
-
-def _proj_heads(x, w, b, spec, mesh, lo: int, n: int, hd: int, keep: bool):
-    """``x @ w (+ b)`` for heads ``[lo, lo + n)`` of ``w``'s columns: the
-    rank's column block when ``keep`` and the spec splits them over the
-    model axis (the block must be those heads), else sliced from the whole
-    weight.  Returns (B, T, n, hd)."""
-    dt = x.dtype
-    B, T, _ = x.shape
-    wt, split = _gather(w, spec, mesh, keep=1 if keep else None)
-    if split:
-        if wt.shape[1] != n * hd:
-            raise ValueError(f"a column block of {wt.shape[1]} is not {n} heads of {hd}")
-    else:
-        wt = wt[:, lo * hd:(lo + n) * hd]
-    y = x @ wt.to(dt)
-    if b is not None:
-        y = y + b[lo * hd:(lo + n) * hd].to(dt)
-    return y.reshape(B, T, n, hd)
-
-
 def _attn(p, h, cfg, prefix, by_name, mesh, *, positions, window, cache,
           pos_scalar, q_chunk):
     """The attention block on the grid with this rank's cache block."""
     x = ll.rms_norm(h, p["ln1"].to(h.dtype), cfg.rms_eps)
     B, T, D = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    g = H // Hkv
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim_
     M = mesh.shape.get("model", 1)
     m = mesh.axis_index("model") if M > 1 else 0
     layout = kv_layout(cfg, mesh)
     decode = T == 1
     pa, pre = p["attn"], f"{prefix}/attn"
-    bias = {n: pa.get(f"b_{n}") for n in "qkv"} if cfg.qkv_bias else {n: None for n in "qkv"}
     # the query heads this rank attends, and the KV heads they read
-    own_q = layout == "heads" or (_q_split(cfg, mesh) and not decode)
-    if own_q:
-        q_lo, q_n = m * (H // M), H // M
-        kv_lo, kv_n = q_lo // g, max(q_n // g, 1)
-    else:
-        q_lo, q_n, kv_lo, kv_n = 0, H, 0, Hkv
+    own_q = layout == "heads" or (tp.q_split(cfg, mesh) and not decode)
+    q_lo, q_n, kv_lo, kv_n = tp.head_range(cfg, mesh, own_q)
     # the KV heads this rank computes: its cache heads, else all of them
     if layout == "heads":
         c_lo, c_n = m * (Hkv // M), Hkv // M
     else:
         c_lo, c_n = 0, Hkv
-    q = _proj_heads(x, pa["w_q"], bias["q"], by_name[f"{pre}/w_q"], mesh, q_lo, q_n,
-                    hd, own_q)
-    k = _proj_heads(x, pa["w_k"], bias["k"], by_name[f"{pre}/w_k"], mesh, c_lo, c_n,
-                    hd, layout == "heads")
-    v = _proj_heads(x, pa["w_v"], bias["v"], by_name[f"{pre}/w_v"], mesh, c_lo, c_n,
-                    hd, layout == "heads")
+    q = tp.proj_heads(x, pa, "q", pre, by_name, mesh, q_lo, q_n, hd, own_q)
+    k = tp.proj_heads(x, pa, "k", pre, by_name, mesh, c_lo, c_n, hd, layout == "heads")
+    v = tp.proj_heads(x, pa, "v", pre, by_name, mesh, c_lo, c_n, hd, layout == "heads")
     q = ll.rope(q, positions, cfg.rope_theta).transpose(1, 2)
     k = ll.rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)                                   # (B, c_n, T, d)
@@ -273,13 +173,10 @@ def _attn(p, h, cfg, prefix, by_name, mesh, *, positions, window, cache,
                                 score_dtype=getattr(torch, cfg.score_dtype),
                                 impl=cfg.attn_impl)
     out = out.transpose(1, 2).reshape(B, T, q_n * hd)
-    dt = x.dtype
-    wo, split = _gather(pa["w_o"], by_name[f"{pre}/w_o"], mesh, keep=0 if own_q else None)
-    if own_q and not split:
-        wo = wo[q_lo * hd:(q_lo + q_n) * hd]
-    y = out @ wo.to(dt)
+    wo = tp.row_block(pa["w_o"], by_name[f"{pre}/w_o"], mesh, q_lo * hd, q_n * hd, own_q)
+    y = out @ wo.to(x.dtype)
     if own_q:
-        y = _model_sum(y, mesh)
+        y = tp.reduce_from_model(y, mesh)
     return h + y, cache
 
 
@@ -302,7 +199,7 @@ def _split_decode_attn(q1, ck, cv, kpos, t, window, mesh):
     e = torch.exp(s - mx)
     both = torch.cat([torch.einsum("bkgts,bksd->bkgtd", e, cv.to(torch.float32)),
                       e.sum(dim=-1, keepdim=True)], dim=-1)
-    both = _model_sum(both, mesh)
+    both = mesh.all_reduce_sum(both, ("model",))
     out = both[..., :d] / both[..., d:]
     return out.reshape(B, H, 1, d).to(q1.dtype)
 
@@ -326,46 +223,30 @@ def _state_block(st, specs: dict, mesh):
 
 
 def _layer(p, h, cfg, kind, i, by_name, mesh, *, positions, cache, state_specs,
-           pos_scalar, q_chunk):
+           pos_scalar, q_chunk, rows):
     prefix = f"layers/{i}"
     if kind in ("mamba", "rglru"):
         state = None if cache is None else _state_whole(cache, state_specs, mesh)
         if kind == "mamba":
             x = ll.rms_norm(h, p["ln"].to(h.dtype), cfg.rms_eps)
-            out, st = mamba_layer(_whole(p["mamba"], f"{prefix}/mamba", by_name, mesh),
+            out, st = mamba_layer(tp.whole(p["mamba"], f"{prefix}/mamba", by_name, mesh),
                                   x, cfg, state)
             h = h + out
         else:
             x = ll.rms_norm(h, p["ln1"].to(h.dtype), cfg.rms_eps)
-            out, st = rglru_layer(_whole(p["rec"], f"{prefix}/rec", by_name, mesh),
+            out, st = rglru_layer(tp.whole(p["rec"], f"{prefix}/rec", by_name, mesh),
                                   x, cfg, state)
             h = h + out
             x = ll.rms_norm(h, p["ln2"].to(h.dtype), cfg.rms_eps)
-            h = h + _mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh)
+            h = h + tp.mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh)
         return h, (None if cache is None else _state_block(st, state_specs, mesh))
     window = cfg.rglru.window if cfg.rglru is not None else None
     h, cache = _attn(p, h, cfg, prefix, by_name, mesh, positions=positions,
                      window=window, cache=cache, pos_scalar=pos_scalar, q_chunk=q_chunk)
     x = ll.rms_norm(h, p["ln2"].to(h.dtype), cfg.rms_eps)
     if kind == "moe":
-        return h + moe_layer(p["moe"], x, cfg, mesh), cache
-    return h + _mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh), cache
-
-
-def _embed(w, tokens, spec, mesh, dt) -> torch.Tensor:
-    """The embedding rows of ``tokens`` from this rank's block of the table:
-    gathered over its other axes; where the vocab splits over the model
-    axis, each rank looks up the tokens of its own rows (zero elsewhere)
-    and one all-reduce over ``model`` adds them, exactly (one term a
-    token is not zero)."""
-    w, split = _gather(w, spec, mesh, keep=0)
-    if not split:
-        return w[tokens].to(dt)
-    rows = w.shape[0]
-    local = tokens - mesh.axis_index("model") * rows
-    mine = (local >= 0) & (local < rows)
-    h = torch.where(mine[..., None], w[local.clamp(0, rows - 1)].to(dt), 0)
-    return _model_sum(h, mesh)
+        return h + moe_layer(p["moe"], x, cfg, mesh, rows_split=rows), cache
+    return h + tp.mlp(p["mlp"], x, f"{prefix}/mlp", by_name, mesh), cache
 
 
 def grid_forward(params, tokens, cfg: ModelConfig, mesh, by_name: dict, *,
@@ -381,7 +262,7 @@ def grid_forward(params, tokens, cfg: ModelConfig, mesh, by_name: dict, *,
     state_specs = [{k: shd.cache_spec(mesh, f"{i}/{k}", tuple(v.shape))
                     for k, v in c.items()} for i, c in enumerate(whole)]
     dt = tfm.compute_dtype(cfg)
-    h = _embed(params["embed"], tokens, by_name["embed"], mesh, dt)
+    h = tp.embed(params["embed"], tokens, by_name["embed"], mesh, dt)
     if cfg.num_patches and patch_embeds is not None:
         proj = shd.gather_full(params["patch_proj"], by_name["patch_proj"], mesh)
         h = torch.cat([patch_embeds.to(dt) @ proj.to(dt), h], dim=1)
@@ -395,7 +276,7 @@ def grid_forward(params, tokens, cfg: ModelConfig, mesh, by_name: dict, *,
         h, caches[i] = _layer(params["layers"][i], h, cfg, kind, i, by_name, mesh,
                               positions=positions, cache=caches[i],
                               state_specs=state_specs[i], pos_scalar=pos_scalar,
-                              q_chunk=q_chunk)
+                              q_chunk=q_chunk, rows=rows_split(mesh, batch))
     h = ll.rms_norm(h, params["final_norm"].to(dt), cfg.rms_eps)
     return h, caches
 
@@ -407,7 +288,7 @@ def grid_unembed(params, h, cfg: ModelConfig, mesh, by_name: dict,
     every rank: over the model axis, then (``rows``: the batch is split)
     over the batch axes."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    w, split = _gather(params[name], by_name[name], mesh, keep=0)
+    w, split = tp.weight(params[name], by_name[name], mesh, keep=0)
     f32 = torch.promote_types(h.dtype, torch.float32)
     logits = h.to(f32) @ w.to(f32).T
     del w

@@ -20,14 +20,14 @@ The reference's ``train/loop.py``:
 On a grid (``mesh``, a ``launch/mesh.py:GridMesh``) each rank holds its
 blocks of the parameters and of the AdamW state (``parallel/sharding.py``)
 and takes its data rank's rows of every global batch.  There is no
-compiler to propagate shardings, so the step writes out what GSPMD does
-for the reference: the dense weights (every leaf but the experts) are
-gathered whole at the start of the step, and their gather's backward sums
-the gradient over the batch axes and keeps this rank's slice over the
-others (the dense compute is replicated over the model axis, so its
-gradient is the same on every model rank); the experts stay blocks, which
-``moe_layer`` gathers layer by layer.  The loss is the global batch's mean
-(``lm_loss(mesh=)``).  Checkpoints hold full arrays, written by rank 0 in
+compiler to propagate shardings, so the forward writes out what GSPMD does
+for the reference (``models/tensor_parallel.py``): each layer gathers its
+dense weights inside its checkpoint, computes its attention heads, FFN
+hidden dim and the loss's vocab on this rank's share of the model axis,
+and reduces each weight's gradient in its own backward to this rank's
+block; the experts stay blocks, which ``moe_layer`` gathers layer by
+layer.  The loss is the global batch's mean (``lm_loss(mesh=)``).
+Checkpoints hold full arrays, written by rank 0 in
 the one-rank format, and a restore keeps each rank's blocks of them, so a
 checkpoint of any grid restores onto any other (the elastic restore).
 One card is a grid of one rank (:func:`one_rank_grid`), where a block is
@@ -36,7 +36,6 @@ the whole array and no collective is issued: one code path for both.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import os
 import tempfile
@@ -53,7 +52,7 @@ from ..launch.mesh import GridMesh, make_grid_mesh
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.convert import params_from_jax
 from ..models.layers import rms_norm
-from ..models.transformer import forward, init_params, lm_loss, param_tensors
+from ..models.transformer import forward, grid_specs, init_params, lm_loss, param_tensors
 from ..optim.adamw import AdamWConfig, apply_updates, init_state
 from ..models import moe as moe_mod
 from ..parallel import sharding as shd
@@ -61,9 +60,6 @@ from ..parallel import sharding as shd
 
 def make_loss_fn(cfg: ModelConfig, mesh=None, *, q_chunk: int = 512,
                  loss_chunk: int = 256, remat: bool = True):
-    if cfg.moe is not None:
-        moe_mod.check_grid(mesh)
-
     def loss_fn(params, batch):
         h, _ = forward(params, batch["tokens"], cfg,
                        patch_embeds=batch.get("patch_embeds"),
@@ -88,7 +84,7 @@ def unflatten(template, leaves):
 
 
 # ---------------------------------------------------------------------------
-# The grid: specs, blocks, the dense weights' gather
+# The grid: specs, blocks
 # ---------------------------------------------------------------------------
 
 
@@ -99,70 +95,11 @@ def one_rank_grid(device="meta") -> GridMesh:
     return make_grid_mesh((1, 1), device=device)
 
 
-def grid_specs(cfg: ModelConfig, mesh) -> dict[str, tuple]:
-    """Every parameter's spec on ``mesh`` by its name (``layers/0/attn/w_q``),
-    from the full shapes (drawn on the meta device); kept per config and
-    grid shape, since serving asks at every step."""
-    return _grid_specs(cfg, tuple(mesh.dims), tuple(mesh.axis_names))
-
-
-@functools.lru_cache(maxsize=32)
-def _grid_specs(cfg: ModelConfig, dims: tuple, axis_names: tuple) -> dict[str, tuple]:
-    full = init_params(cfg, torch.Generator(), "meta")
-    grid = shd.AbstractGrid(dims, axis_names)
-    return dict(zip((n for n, _ in shd.flat_names(full)), shd.param_specs(grid, full)))
-
-
 def tree_specs(tree, by_name: dict) -> list[tuple]:
     """The specs of ``tree``'s leaves in :func:`param_tensors`' order (a
     tree's order is its dicts' order, which differs between trees built
     in different ways)."""
     return [by_name[n] for n, _ in shd.flat_names(tree)]
-
-
-def expert_leaves(params, mesh) -> list[bool]:
-    """Which leaves (in :func:`param_tensors`' order) ``moe_layer`` gathers
-    itself: the expert weights, when the grid's model axis holds more than
-    one rank (else ``moe_layer`` runs its one-rank path on them whole)."""
-    ep = mesh.shape.get("model", 1) > 1
-    return [ep and "experts" in name for name, _ in shd.flat_names(params)]
-
-
-def dense_grad_block(g: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of a dense weight's gradient from ``g``, its
-    gradient of the whole weight over this data rank's rows: summed over
-    the batch axes (a ``reduce_scatter`` on a dim split over them, else an
-    all-reduce) and sliced on the dims split over the other axes, on which
-    ``g`` is the same on every rank."""
-    batch = shd.batch_axes(mesh)
-    if any(set(shd.spec_axes(e)) & set(batch) and not set(shd.spec_axes(e)) <= set(batch)
-           for e in spec):
-        raise ValueError(f"spec {spec} mixes batch and other axes on one dim")
-    summed: set = set()
-    for d, entry in enumerate(spec):
-        axes = shd.spec_axes(entry)
-        if axes and set(axes) <= set(batch) and shd.axis_size(mesh, axes) > 1:
-            g = mesh.reduce_scatter(g, axes, dim=d)
-            summed |= set(axes)
-    rest = tuple(a for a in batch if a not in summed)
-    if shd.axis_size(mesh, rest) > 1:
-        g = mesh.all_reduce_sum(g, rest)
-    other = tuple(e if not set(shd.spec_axes(e)) & set(batch) else None for e in spec)
-    return shd.local_block(g, other, mesh)
-
-
-class _GatherDense(torch.autograd.Function):
-    """A dense weight's block -> the whole weight on every rank; backward
-    :func:`dense_grad_block`."""
-
-    @staticmethod
-    def forward(ctx, block, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
-        return shd.gather_full(block, spec, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return dense_grad_block(g, ctx.spec, ctx.mesh), None, None
 
 
 def _own(block: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
@@ -183,21 +120,17 @@ def local_rows(batch: dict, mesh) -> dict:
     return out
 
 
-def value_and_grad(loss_fn, params, batch, mesh=None, specs=None):
+def value_and_grad(loss_fn, params, batch):
     """(loss, gradients in :func:`param_tensors`' order): each gradient in its
     parameter's dtype, zero for a parameter the loss does not reach.
 
-    With a grid ``mesh``, ``params`` are this rank's blocks under ``specs``
-    and ``batch`` its data rank's rows: the dense weights are gathered
-    whole (:class:`_GatherDense`), and the gradients are this rank's blocks
-    of the global batch's gradient."""
+    With a grid ``loss_fn`` (``make_loss_fn(cfg, mesh)``), ``params`` are
+    this rank's blocks and ``batch`` its data rank's rows, and the
+    gradients are this rank's blocks of the global batch's gradient: the
+    forward gathers and reduces them itself."""
     live = [t.detach().requires_grad_() for t in param_tensors(params)]
     with torch.enable_grad():
-        used = live
-        if mesh is not None:
-            used = [t if expert else _GatherDense.apply(t, mesh, spec)
-                    for t, spec, expert in zip(live, specs, expert_leaves(params, mesh))]
-        loss = loss_fn(unflatten(params, used), batch)
+        loss = loss_fn(unflatten(params, live), batch)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), [torch.zeros_like(t) if g is None else g
                            for t, g in zip(live, grads)]
@@ -219,7 +152,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
     def train_step(params, opt_state, batch):
         specs = tree_specs(params, by_name)
         if n == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch, mesh, specs)
+            loss, grads = value_and_grad(loss_fn, params, batch)
         else:
             B = batch["tokens"].shape[0]
             if B % n:
@@ -229,7 +162,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(n):
                 mb = {k: v.reshape((n, B // n) + v.shape[1:])[i] for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mb, mesh, specs)
+                l, g = value_and_grad(loss_fn, params, mb)
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)
                 loss = loss + l

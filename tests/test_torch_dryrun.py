@@ -298,12 +298,13 @@ def test_peak_tracker_on_a_worked_sequence_real_and_fake():
         assert tr.at_peak == {"add": 4096, "empty": 8192}
 
 
-def test_perf_flags_reach_the_model_or_are_refused(capsys):
+def test_perf_flags_reach_the_model(monkeypatch):
     """``--score-dtype bfloat16`` keeps the attention's score blocks in bf16
     (fewer temporary bytes), ``--attn-impl skip_core`` drops them (the
     reference's stand-in for a flash kernel), and ``--remat-policy
-    save_block_out``, whose memory the port's forward does not have, is
-    refused."""
+    save_block_out`` keeps each attention layer's residual after its
+    attention block through the backward (more temporary bytes); ``main``
+    hands the flag to the cell."""
     cfg = dataclasses.replace(registry.get_smoke_config("yi-6b"), dtype="float32")
     temp = {}
     for name, over in (("f32", None), ("bf16", {"score_dtype": "bfloat16"}),
@@ -313,7 +314,18 @@ def test_perf_flags_reach_the_model_or_are_refused(capsys):
         temp[name] = (res["memory_analysis"]["temp_bytes"], res["hlo_analysis"]["flops"])
     assert temp["bf16"][0] < temp["f32"][0] and temp["bf16"][1] == temp["f32"][1]
     assert temp["skip"][0] < temp["bf16"][0] and temp["skip"][1] < temp["f32"][1]
-    with pytest.raises(SystemExit):
-        dr.main(["--arch", "yi-6b", "--shape", "train_4k", "--remat-policy",
-                 "save_block_out"])
-    assert "save_block_out is not ported" in capsys.readouterr().err
+    deep = dataclasses.replace(cfg, num_layers=8, vocab=256)     # activations dominate
+    train = {policy: dr.run_lm_cell("yi-6b", "train_4k", False, grid=(1, 1), batch=4,
+                                    seq_len=256, cfg=deep,
+                                    overrides={"remat_policy": policy, "q_chunk": 64})
+             ["memory_analysis"] for policy in ("full", "save_block_out")}
+    assert train["save_block_out"]["temp_bytes"] > train["full"]["temp_bytes"]
+    # the saved sums h + attn_out, one an attention layer
+    saved = train["save_block_out"]["temp_at_peak_by_op"].get("add", 0)
+    assert saved - train["full"]["temp_at_peak_by_op"].get("add", 0) >= 7 * 4 * 256 * 128 * 4
+    seen = []
+    monkeypatch.setattr(dr, "run_lm_cell", lambda *a, **kw: seen.append(kw["overrides"]) or {
+        "arch": a[0], "shape": a[1], "skipped": "stub"})
+    assert dr.main(["--arch", "yi-6b", "--shape", "train_4k", "--remat-policy",
+                    "save_block_out"]) == 0
+    assert seen == [{"remat_policy": "save_block_out"}]

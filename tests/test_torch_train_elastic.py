@@ -16,16 +16,24 @@ restore, on the CPU (no jax).
   data axis) holds the same bytes after the grid's steps, parameters and
   AdamW moments alike.  The step takes it so (``dense_grad_block``) and
   nothing averages the copies.
-* A grid whose model axis holds one rank and whose data axis holds more
-  is refused for an MoE config (there the reference routes the global
-  batch; the port would route each data rank's rows).
+* MoE on a grid whose model axis holds one rank and whose data axis holds
+  more routes the global batch, as the reference does there: granite-moe
+  at its own capacity factor (1.25, where tokens drop) takes two steps on
+  ``(4, 1)``, ``(2, 1)``, ``(1, 4)``, ``(2, 2)`` and one rank, each held to
+  the reference's ``Trainer`` on a mesh of that shape (a subprocess on 4
+  forced host devices, as in ``test_torch_train_parallel.py``).
 
-One ``spawn_world`` of 4 CPU ranks runs every grid case.  Tolerances: 1e-5
-relative (loss, grad norm, rel L2 a parameter; f32 sums in other orders);
-restored blocks exactly.
+One ``spawn_world`` of 4 CPU ranks runs every grid case of four ranks (a
+world of 2 the ``(2, 1)`` grid).  Tolerances: 1e-5 relative (loss, grad
+norm, rel L2 a parameter; f32 sums in other orders); restored blocks
+exactly.
 """
 import dataclasses
+import os
+import subprocess
+import sys
 import tempfile
+import textwrap
 
 import numpy as np
 import pytest
@@ -33,7 +41,9 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.launch.mesh import make_grid_mesh, spawn_world
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ShapeConfig
+from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import init_params, param_tensors
 from repro_torch.optim.adamw import AdamWConfig, init_state
 from repro_torch.parallel import sharding as shd
@@ -219,14 +229,147 @@ def test_copies_of_a_leaf_agree_bit_for_bit(case, world):
     _assert_copies_agree(ranks, case)
 
 
-@pytest.mark.parametrize("grid", [(4, 1), (2, 1), (1, 4), (2, 2), (1, 1)],
-                         ids=lambda g: f"{g[0]}x{g[1]}")
-def test_moe_on_a_grid_of_one_model_rank_is_refused(grid):
-    cfg = _cfg("granite-moe-1b-a400m")
-    mesh = shd.AbstractGrid(grid, AXES)
-    if grid[1] == 1 and grid[0] > 1:
-        with pytest.raises(NotImplementedError, match="global batch"):
-            tloop.make_train_step(cfg, OPT, mesh)
-    else:
-        tloop.make_train_step(cfg, OPT, mesh)
-    tloop.make_train_step(_cfg("yi-6b"), OPT, mesh)     # no experts: any grid
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+GRIDS = [(4, 1), (2, 1), (1, 4), (2, 2), (1, 1)]
+_REF = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import dataclasses, tempfile
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.configs import registry
+    from repro.models.config import ShapeConfig
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.loop import Trainer, TrainerConfig
+    cfg = dataclasses.replace(registry.get_smoke_config("granite-moe-1b-a400m"),
+                              dtype="float32")
+    name = lambda path: "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                                 for k in path)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    batch = {"tokens": tok,
+             "labels": np.concatenate([tok[:, 1:], np.full((4, 1), -1, np.int32)], 1)}
+    out = {f"batch/{k}": v for k, v in batch.items()}
+    for grid in %r:
+        mesh = Mesh(np.array(jax.devices()[:grid[0] * grid[1]]).reshape(grid),
+                    ("data", "model"))
+        tr = Trainer(cfg, ShapeConfig("tiny", "train", seq_len=32, global_batch=4),
+                     AdamWConfig(lr=1e-3, eps=1e-6, warmup_steps=1, total_steps=8),
+                     TrainerConfig(steps=2, ckpt_every=0, ckpt_dir=tempfile.mkdtemp()),
+                     mesh=mesh)
+        key = f"{grid[0]}x{grid[1]}"
+        if grid == (1, 1):
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tr.params)[0]:
+                out["p0/" + name(path)] = np.asarray(leaf)
+        for i in range(2):
+            tr.params, tr.opt_state, m = tr._step_fn(
+                tr.params, tr.opt_state, {k: jnp.asarray(v) for k, v in batch.items()})
+            out[f"{key}/loss{i}"] = float(m["loss"])
+            out[f"{key}/gnorm{i}"] = float(m["grad_norm"])
+            if i == 0:
+                for path, leaf in jax.tree_util.tree_flatten_with_path(tr.params)[0]:
+                    out[f"{key}/p1/" + name(path)] = np.array(leaf)  # a copy: donated
+    np.savez(sys.argv[1], **out)
+""" % (GRIDS,))
+
+
+# the MoE grids' optimizer: AdamW's eps at 1e-6, above the f32 rounding of
+# lm_head's gradient elements near 0 (about 1e-9 absolute: sums of terms of
+# about 1e-5 that cancel), which its division by sqrt(v) + eps otherwise
+# lifts to a few 1e-5 of the update between two orders of the same sums
+MOE_OPT = AdamWConfig(lr=1e-3, eps=1e-6, warmup_steps=1, total_steps=8)
+
+
+def _moe_cfg():
+    """granite-moe's smoke config at its own capacity factor: tokens drop."""
+    return dataclasses.replace(registry.get_smoke_config("granite-moe-1b-a400m"),
+                               dtype="float32")
+
+
+def _moe_steps(grid, ref_path):
+    """Two steps of granite-moe on ``grid`` from the reference's initial
+    parameters: (losses, grad norms, every parameter whole after the first
+    step, assignments dropped in the first step's forward, every layer's
+    routing)."""
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    cfg = _moe_cfg()
+    mesh = (make_grid_mesh(grid, AXES, device="cpu") if grid != (1, 1)
+            else tloop.one_rank_grid("cpu"))
+    full = params_from_jax(tloop._nest({k[3:]: v for k, v in ref.items()
+                                        if k.startswith("p0/")}), cfg, "cpu")
+    specs = tloop.tree_specs(full, tloop.grid_specs(cfg, mesh))
+    params = tloop.unflatten(full, [shd.local_block(t, s, mesh).clone()
+                                    for t, s in zip(param_tensors(full), specs)])
+    batch = tloop.local_rows({k: torch.from_numpy(ref[f"batch/{k}"]).long()
+                              for k in ("tokens", "labels")}, mesh)
+    dropped = []
+    route = moe_mod.route
+
+    def counting(*args, **kw):
+        out = route(*args, **kw)
+        dropped.append(int((~out[3]).sum()))
+        return out
+    step = tloop.make_train_step(cfg, MOE_OPT, mesh)
+    state = init_state(params, MOE_OPT)
+    losses, norms = [], []
+    for i in range(2):
+        moe_mod.route = counting if i == 0 else route
+        try:
+            params, state, m = step(params, state, batch)
+        finally:
+            moe_mod.route = route
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            after = [shd.gather_full(t, s, mesh).clone()     # the step writes in place
+                     for t, s in zip(param_tensors(params), specs)]
+    return losses, norms, after, sum(dropped[:cfg.num_layers])
+
+
+def _moe_world(world_mesh, grids, ref_path):
+    return {g: _moe_steps(g, ref_path) for g in grids}
+
+
+@pytest.fixture(scope="module")
+def moe_grids(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("moe_grids") / "ref.npz")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", _REF, path], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    four = [g for g in GRIDS if g[0] * g[1] == 4]
+    got = {g: [r[g] for r in spawn_world(_moe_world, 4, device="cpu", timeout_s=300,
+                                         args=(four, path))] for g in four}
+    got[(2, 1)] = [r[(2, 1)] for r in spawn_world(_moe_world, 2, device="cpu",
+                                                  timeout_s=300, args=([(2, 1)], path))]
+    got[(1, 1)] = [_moe_steps((1, 1), path)]
+    return ref, got
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_moe_on_a_grid_of_one_model_rank_matches_the_reference(grid, moe_grids):
+    """Every grid runs, and each rank's two steps equal the reference's on
+    a mesh of the same shape: the losses and grad norms of both, the
+    parameters after the first (``MOE_OPT``).  Where the model axis holds one rank, the
+    data ranks route the global batch: assignments drop (the ranks' counts
+    add up to the one rank's), and the steps still match."""
+    ref, got = moe_grids
+    cfg = _moe_cfg()
+    key = f"{grid[0]}x{grid[1]}"
+    want = param_tensors(params_from_jax(tloop._nest(
+        {k[len(key) + 4:]: v for k, v in ref.items() if k.startswith(f"{key}/p1/")}),
+        cfg, "cpu"))
+    for losses, norms, params, _ in got[grid]:
+        for i in range(2):
+            assert abs(losses[i] - ref[f"{key}/loss{i}"]) <= 1e-5 * abs(ref[f"{key}/loss{i}"])
+            assert abs(norms[i] - ref[f"{key}/gnorm{i}"]) <= 1e-5 * abs(ref[f"{key}/gnorm{i}"])
+        for a, b in zip(params, want):
+            assert _rel(a, torch.from_numpy(np.asarray(b))) < 1e-5
+    if grid[1] == 1:
+        drops = [r[3] for r in got[grid]]
+        assert sum(drops) == got[(1, 1)][0][3] > 0, drops
