@@ -2166,8 +2166,12 @@ def device_profile(fn, share_of: tuple[str, ...] = ()) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a profiler range (the port's spans, a caller's record_function) may show
+    # on the device's timeline as an annotation spanning the kernels it
+    # launched: it is no operation, so it counts as no busy time
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         return {"device_profile": "not measured: the profiler recorded no device events"}
     by_name: dict[str, float] = {}

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from .quadtree import M2L_OFFSETS, M2L_VALIDITY, PARENT_NEIGH8
 
 # Child offsets within a parent, (cy, cx) in {0,1}^2; delta_hat = (c_child -
@@ -342,14 +343,18 @@ def m2l_folded(me_halo: torch.Tensor, level: int, p: int, row0: int = 0,
     """
     rows = me_halo.shape[-3] - 2 * halo
     cols = me_halo.shape[-2] - 2 * col_halo
-    stack, (PR, rshift), (PC, cshift) = m2l_slab_stack(me_halo, p, row0, halo,
-                                                       col0, col_halo)
-    W = _as_op(op, m2l_folded_operator, p, me_halo.device)
+    dev = me_halo.device
+    with spans.span("m2l.stage", dev, level=level):
+        stack, (PR, rshift), (PC, cshift) = m2l_slab_stack(me_halo, p, row0, halo,
+                                                           col0, col_halo)
+        W = _as_op(op, m2l_folded_operator, p, dev)
     if scale is None:
         scale = float(2.0 ** level)          # 1 / box_size(level), exact
-    le = from_parent_planes(contract(stack, W), p)        # (..., 2PR, 2PC, p)
-    le = le[..., rshift:rshift + rows, cshift:cshift + cols, :]
-    return le * scale
+    acc = contract(stack, W)
+    with spans.span("m2l.unstage", dev, level=level):
+        le = from_parent_planes(acc, p)                   # (..., 2PR, 2PC, p)
+        le = le[..., rshift:rshift + rows, cshift:cshift + cols, :]
+        return le * scale
 
 
 def l2l(le_parent: torch.Tensor, p: int, op=None) -> torch.Tensor:

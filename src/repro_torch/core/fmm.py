@@ -24,6 +24,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..configs.backend import check_finite, check_on, resolve_device
 from ..kernels import ops as kops
 from . import equations as eqs
@@ -219,11 +220,13 @@ def upward_sweep(tree: Tree, p: int, eq=None) -> list[torch.Tensor]:
     eq = eqs.get_equation(eq)
     L = tree.level
     me = [None] * (L + 1)
-    me[L] = ex.p2m(tree.z, tree.q, tree.mask, _centers_on(L, tree.device),
-                   box_size(L), p, coeff=eq.p2m_coeff(p))
-    mop = ex.device_operator(eq.m2m_operator, p, tree.device)
-    for l in range(L, 0, -1):
-        me[l - 1] = ex.m2m(me[l], p, op=mop)
+    with spans.span("fmm.p2m", tree.device):
+        me[L] = ex.p2m(tree.z, tree.q, tree.mask, _centers_on(L, tree.device),
+                       box_size(L), p, coeff=eq.p2m_coeff(p))
+    with spans.span("fmm.m2m"):
+        mop = ex.device_operator(eq.m2m_operator, p, tree.device)
+        for l in range(L, 0, -1):
+            me[l - 1] = ex.m2m(me[l], p, op=mop)
     return me
 
 
@@ -238,9 +241,11 @@ def downward_sweep(me: list[torch.Tensor], p: int,
     m2l = m2l_fn or m2l_grid_fn(p)
     le = [None] * (L + 1)
     for l in range(2, L + 1):
-        le[l] = m2l(me[l], l)
+        with spans.span("fmm.m2l", level=l):
+            le[l] = m2l(me[l], l)
         if l > 2:
-            le[l] = le[l] + ex.l2l(le[l - 1], p)
+            with spans.span("fmm.l2l", level=l):
+                le[l] = le[l] + ex.l2l(le[l - 1], p)
     return le
 
 
@@ -253,8 +258,9 @@ def near_field(tree: Tree, p2p_fn=None, z_tgt=None,
     """
     slab = p2p_fn or p2p_slab_fn()
     pad = (0, 0, 1, 1, 1, 1)
-    return slab(F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(tree.mask, pad),
-                tree.sigma, z_tgt, mask_tgt)
+    with spans.span("p2p.stage", tree.device):
+        halo = F.pad(tree.z, pad), F.pad(tree.q, pad), F.pad(tree.mask, pad)
+    return slab(*halo, tree.sigma, z_tgt, mask_tgt)
 
 
 def _mask_channels(mask, out):
@@ -263,6 +269,7 @@ def _mask_channels(mask, out):
     return torch.where(m, out, 0)
 
 
+@spans.traced("fmm.evaluate")
 def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
                  with_health: bool = False, device=None, plain: bool = False):
     """Complete FMM evaluation of a registered equation.
@@ -316,19 +323,22 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
     check_finite("upward_sweep", *me)
     le = downward_sweep(me, p, m2l_fn=m2l_grid_fn(p, eq, plain=plain))
     check_finite("downward_sweep", *le[2:])
-    far = ex.l2p_eval(le[L], tree.z if zt is None else zt,
-                      _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes)
+    with spans.span("fmm.l2p", dev):
+        far = ex.l2p_eval(le[L], tree.z if zt is None else zt,
+                          _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes)
     check_finite("l2p", far)
-    near = near_field(tree, p2p, zt, mt)
+    with spans.span("fmm.p2p"):
+        near = near_field(tree, p2p, zt, mt)
     check_finite("p2p", near)
     out = _mask_channels(out_mask, far + near)
     if not with_health:
         return out
-    health = hw.empty(tree.device)
-    health = hw.with_flag(health, hw.F_COEFF,
-                          torch.maximum(hw.nonfinite(me[L]),
-                                        hw.nonfinite(le[L])))
-    health = hw.with_flag(health, hw.F_VEL, hw.nonfinite(out, out_mask))
+    with spans.span("fmm.health"):
+        health = hw.empty(tree.device)
+        health = hw.with_flag(health, hw.F_COEFF,
+                              torch.maximum(hw.nonfinite(me[L]),
+                                            hw.nonfinite(le[L])))
+        health = hw.with_flag(health, hw.F_VEL, hw.nonfinite(out, out_mask))
     return out, health
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..configs.backend import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -254,6 +255,7 @@ def tree_from_numpy(z: np.ndarray, q: np.ndarray, mask: np.ndarray, level: int,
     )
 
 
+@spans.traced("quadtree.build_tree")
 def build_tree(
     positions: np.ndarray,
     gamma: np.ndarray,

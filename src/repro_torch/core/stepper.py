@@ -48,6 +48,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..checkpoint.manager import CheckpointManager, numpy_dtype, to_host
 from ..configs.backend import check_finite, check_on, resolve_device
 from . import faults as flt
@@ -105,12 +106,14 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int, mesh=None,
                                      pipeline=pipeline, p2p_halo=p2p_halo)
     v1 = velocity(tree)
     w1, h1 = v1 if guard else (v1, None)
-    z_mid = torch.where(tree.mask, tree.z + 0.5 * dt * torch.conj(w1), tree.z)
-    z_mid = flt.corrupt_positions(z_mid, tree.mask, faults)
-    check_finite("half_kick", z_mid)
+    with spans.span("rk2.kick"):
+        z_mid = torch.where(tree.mask, tree.z + 0.5 * dt * torch.conj(w1), tree.z)
+        z_mid = flt.corrupt_positions(z_mid, tree.mask, faults)
+        check_finite("half_kick", z_mid)
     live0 = tree.mask.sum()
     aux = (tree.z, payload) if payload is not None else (tree.z,)
-    t_mid, aux, ok1 = rebuild_tree(tree, z_mid, aux=aux)
+    with spans.span("rk2.rebin"):
+        t_mid, aux, ok1 = rebuild_tree(tree, z_mid, aux=aux)
     z0 = aux[0]
     # the next evaluation's P2P exchange goes out as soon as its tree exists
     p2p_pre = None
@@ -120,20 +123,23 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int, mesh=None,
 
     v2 = velocity(t_mid, p2p_pre)
     w2, h2 = v2 if guard else (v2, None)
-    z_new = torch.where(t_mid.mask, z0 + dt * torch.conj(w2), t_mid.z)
-    check_finite("full_kick", z_new)
+    with spans.span("rk2.kick"):
+        z_new = torch.where(t_mid.mask, z0 + dt * torch.conj(w2), t_mid.z)
+        check_finite("full_kick", z_new)
     ood2 = hw.out_of_domain_count(z_new, t_mid.mask) if guard else None
-    t_new, aux, ok2 = rebuild_tree(t_mid, z_new,
-                                   aux=aux[1] if payload is not None else None)
-    occ = t_new.mask.sum(dim=-1).max()
-    health = None
-    if guard:
-        health = hw.merge(h1, h2)
-        health = hw.with_count(health, hw.F_OOD, ood1 + ood2)
-        # a rebin drop is live particles lost to capacity overflow
-        health = hw.with_count(health, hw.F_DROPPED, live0 - t_new.mask.sum())
-        health = hw.with_flag(health, hw.F_OVERFLOW, ~(ok1 & ok2))
-        health = hw.with_flag(health, hw.F_OCC, occ)
+    with spans.span("rk2.rebin"):
+        t_new, aux, ok2 = rebuild_tree(t_mid, z_new,
+                                       aux=aux[1] if payload is not None else None)
+    with spans.span("rk2.health"):
+        occ = t_new.mask.sum(dim=-1).max()
+        health = None
+        if guard:
+            health = hw.merge(h1, h2)
+            health = hw.with_count(health, hw.F_OOD, ood1 + ood2)
+            # a rebin drop is live particles lost to capacity overflow
+            health = hw.with_count(health, hw.F_DROPPED, live0 - t_new.mask.sum())
+            health = hw.with_flag(health, hw.F_OVERFLOW, ~(ok1 & ok2))
+            health = hw.with_flag(health, hw.F_OCC, occ)
     return t_new, aux, ok1 & ok2, occ, health
 
 
@@ -243,6 +249,14 @@ class StepperFaultError(RuntimeError):
 
 @dataclasses.dataclass
 class StepRecord:
+    """What one :meth:`VortexStepper.step` did.  ``seconds`` is the host
+    time of the step's compute (its RK2 attempts, a recovery or re-level
+    among them): it stops before the replan check and the checkpoint, so
+    it misses :meth:`VortexStepper.maybe_replan`.  Dynamic re-planning
+    reads it (:func:`host_wallclock_times`) as the time of the work it
+    balances; the ``stepper.step`` span (``repro_torch.spans``) covers the
+    whole call."""
+
     step: int
     seconds: float
     load_balance: float      # Eq (20) min/max on modeled band loads
@@ -413,6 +427,7 @@ class VortexStepper:
             out[self._artifact_keys["plan"]] = self.plan
         return out
 
+    @spans.traced("stepper.plan")
     def _adopt_plan(self, counts) -> None:
         plan_key = self._plan_key(counts)
         self.plan = self._cached(plan_key, lambda: self._build_plan(counts))
@@ -421,6 +436,7 @@ class VortexStepper:
         self._cached_lb = plan_stats(self.plan, counts,
                                      self.params)["load_balance"]
 
+    @spans.traced("stepper.build")
     def _build_host(self, positions, gamma, payload_values=None):
         """(Re)bin PHYSICAL particles through the domain map (unit coords,
         scaled sigma/gamma — see :class:`quadtree.Domain`)."""
@@ -481,6 +497,7 @@ class VortexStepper:
         return map_leaves(lambda a: to_host(a).reshape(-1)[m],
                            self.payload)
 
+    @spans.traced("stepper.relevel")
     def _relevel(self):
         """Host rebuild at a freshly chosen level/capacity (overflow guard)."""
         pos, gamma = self.particles()
@@ -505,6 +522,7 @@ class VortexStepper:
 
     # -- checkpointing -------------------------------------------------------
 
+    @spans.traced("stepper.checkpoint")
     def save_checkpoint(self):
         """Snapshot (tree, payload, meta) through the checkpoint manager."""
         if self._ckpt is None:
@@ -637,6 +655,7 @@ class VortexStepper:
 
     # -- the dynamic loop ----------------------------------------------------
 
+    @spans.traced("stepper.replan")
     def maybe_replan(self, measured_times: Optional[np.ndarray] = None,
                      occ: Optional[int] = None) -> str:
         """Re-level if occupancy approaches capacity; re-plan if it pays.
@@ -651,12 +670,20 @@ class VortexStepper:
         if occ >= self.occupancy_guard * self.params.slots:
             self._relevel()
             return "relevel"
-        counts = self.counts()
-        self._counts_cache = counts     # reused by host_wallclock_times
-        self._cached_lb = plan_stats(self.plan, counts,
-                                     self.params)["load_balance"]
+        with spans.span("replan.counts"):
+            counts = self.counts()
+            self._counts_cache = counts     # reused by host_wallclock_times
+        with spans.span("replan.balance"):
+            self._cached_lb = plan_stats(self.plan, counts,
+                                         self.params)["load_balance"]
         if not self.dynamic:
             return ""
+        return self._replan(counts, measured_times)
+
+    @spans.traced("replan.plan")
+    def _replan(self, counts, measured_times) -> str:
+        """The dynamic re-plan from fresh ``counts``: ``"replan"`` when a
+        new plan was adopted, else ``""``."""
         if measured_times is None and self.measured_times_fn is not None:
             measured_times = self.measured_times_fn(self)
         new_plan = replan(counts, self.params, self.nparts,
@@ -731,20 +758,23 @@ class VortexStepper:
         ``ok``, ``occ`` and the health word to the host in one copy;
         returns ``(tree, payload, ok, occ, health)``."""
         mesh = None if reference else self.mesh
-        tree, payload, ok, occ, health = rk2_step(
-            self.tree, dt, self.payload, p=self.p, mesh=mesh,
-            plan=None if mesh is None else (plan or self.plan),
-            overlap=self.overlap, pipeline=self.pipeline, guard=self.guard,
-            faults=faults, plain=reference, device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        words = [ok.reshape(1).to(torch.int32), occ.reshape(1).to(torch.int32)]
-        if health is not None:
-            words.append(health)
-        host = torch.cat(words).cpu().numpy()
+        with spans.span("stepper.rk2"):
+            tree, payload, ok, occ, health = rk2_step(
+                self.tree, dt, self.payload, p=self.p, mesh=mesh,
+                plan=None if mesh is None else (plan or self.plan),
+                overlap=self.overlap, pipeline=self.pipeline, guard=self.guard,
+                faults=faults, plain=reference, device=self.device)
+        with spans.span("stepper.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            words = [ok.reshape(1).to(torch.int32), occ.reshape(1).to(torch.int32)]
+            if health is not None:
+                words.append(health)
+            host = torch.cat(words).cpu().numpy()
         return (tree, payload, bool(host[0]), int(host[1]),
                 None if health is None else host[2:])
 
+    @spans.traced("stepper.recover")
     def _recover(self, first_health: np.ndarray):
         """Walk the recovery ladder for the step that just faulted.
 
@@ -854,6 +884,7 @@ class VortexStepper:
 
     # -- stepping ------------------------------------------------------------
 
+    @spans.traced("stepper.step")
     def step(self) -> StepRecord:
         """Advance one RK2 step; time it; periodically re-plan.
 

@@ -25,6 +25,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..core import equations as eqs
 from ..core import expansions as ex
 from . import flash_attn as _fa
@@ -109,7 +110,8 @@ def m2l_apply_slab(me_halo, level: int, p: int, row0: int = 0,
 
 def m2l_apply(me, level: int, p: int, eq=None, plain: bool = False):
     """Parity-folded M2L for one level's full ([B,] ny, nx, p) ME grid."""
-    me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
+    with spans.span("m2l.stage", me.device, level=level):
+        me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     return m2l_apply_slab(me_halo, level, p, eq=eq, plain=plain)
 
 
