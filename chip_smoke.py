@@ -360,6 +360,7 @@ from repro_torch.analysis import schedule as sched  # noqa: E402
 from repro_torch.core.vortex import lamb_oseen_particles  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, flash_attn, m2l, ops, p2p, tf32  # noqa: E402
+from repro_torch.kernels import leaf_expansions as leaf  # noqa: E402
 from repro_torch.models import moe, tensor_parallel, transformer  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache, init_params,  # noqa: E402
                                              lm_loss, param_tensors, unembed)
@@ -831,6 +832,61 @@ def check_m2l(me, level, p):
                 bytes=nbytes, ops=ops_)
 
 
+def check_p2m(tree, p, coeff=None, name="p2m"):
+    """The P2M kernel against its plain version on ``tree``'s leaves, timed
+    beside the plain version and the bound: z, q and the mask read once, the
+    coefficients written once; a running product and a multiply-add (14
+    FP32 operations) a slot and order."""
+    L = tree.level
+    cen, r = fmm._centers_on(L, tree.device), box_size(L)
+    args = (tree.z, tree.q, tree.mask, cen, r, p, coeff)
+    got = leaf.p2m_cuda(*args)
+    want = leaf.p2m_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{name}: non-finite ME")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: leaf.p2m_cuda(*args), iters=20)
+    plain_ms = cuda_ms(lambda: leaf.p2m_plain(*args), iters=5, warmup=1)
+    nbytes = tree.z.numel() * 17 + got.numel() * 8
+    ops_ = tree.z.numel() * p * 14
+    b_ms, b_by = bound_ms(nbytes, ops_)
+    return dict(name=name, p=p, shape=list(tree.z.shape), rel_l2=err,
+                max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops_,
+                launch=list(leaf.p2m_launch_config(tree.z.shape[-1], p)), library_ms=None)
+
+
+def check_l2p(z, mask, level, p, modes=("value",), name="l2p"):
+    """The L2P kernel against its plain version at the slots ``z`` (compared
+    where ``mask`` holds: the driver masks the rest), on seeded LEs, timed
+    beside the plain version and the bound: the LEs and z read once, the
+    channels written once; a complex multiply-add (8 FP32 operations) a slot,
+    order and channel."""
+    gen = torch.Generator(device=z.device)
+    gen.manual_seed(3)
+    le = torch.randn(tuple(z.shape[:-1]) + (p,), dtype=torch.complex64,
+                     generator=gen, device=z.device)
+    cen, r = fmm._centers_on(level, z.device), box_size(level)
+    args = (le, z, cen, r, p, modes)
+    got = leaf.l2p_cuda(*args)
+    want = leaf.l2p_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_l2(got[mask], want[mask])
+    require(bool(torch.isfinite(torch.view_as_real(got[mask])).all()),
+            f"{name}: non-finite value at a live slot")
+    require(err <= KERNEL_TOL, f"{name}: rel L2 {err} > {KERNEL_TOL}")
+    ms = cuda_ms(lambda: leaf.l2p_cuda(*args), iters=20)
+    plain_ms = cuda_ms(lambda: leaf.l2p_plain(*args), iters=5, warmup=1)
+    nbytes = (le.numel() + z.numel() + got.numel()) * 8
+    ops_ = z.numel() * p * 8 * len(modes)
+    b_ms, b_by = bound_ms(nbytes, ops_)
+    return dict(name=name, p=p, modes=list(modes), shape=list(z.shape), rel_l2=err,
+                max_abs_err=float((got[mask] - want[mask]).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops_,
+                launch=list(leaf.l2p_launch_config(z.shape[-1], p)), library_ms=None)
+
+
 def wide_p2p_inputs(s, side, passive, seed, dev):
     """A ``side x side`` grid of boxes (halo'd) with up to ``s`` sources a
     box, inside the box, prefix-filled to a random count with a quarter of
@@ -971,6 +1027,7 @@ def direct_sum_f64(pos, gamma, targets, sigma):
 
 def zero_fmm_counts() -> None:
     p2p.LAUNCHES = m2l.LAUNCHES = p2p.STREAM_LAUNCHES = m2l.WIDE_LAUNCHES = 0
+    leaf.P2M_LAUNCHES = leaf.L2P_LAUNCHES = 0
     for mode in p2p.LAUNCHES_BY_MODE:
         p2p.LAUNCHES_BY_MODE[mode] = 0
 
@@ -1291,7 +1348,7 @@ def strip_checks(tree, plan, mesh, p) -> dict:
                                                            block.rows_max))
     r0, _, c0, _ = pf._tile_extents(block, mesh.rank)
     me = ex.p2m(*tiles, cen[r0:r0 + block.rows_max, c0:c0 + block.cols_max],
-                box_size(tree.level), p)
+                box_size(tree.level), p, compute=ops.p2m_apply)
     w = ex.M2L_HALO
     meb = pf._tile_halo(me, w, rows, cols, mesh, block.grid).wait()
     out = {}
@@ -2150,7 +2207,8 @@ def stage_ms(tree, p) -> dict:
         if lv > 2:
             le[lv] = le[lv] + timed("l2l", lambda: ex.l2l(le[lv - 1], p))
     centers = torch.as_tensor(box_centers(L), dtype=torch.complex64, device=tree.device)
-    timed("l2p", lambda: ex.l2p_eval(le[L], tree.z, centers, box_size(L), p))
+    timed("l2p", lambda: ex.l2p_eval(le[L], tree.z, centers, box_size(L), p,
+                                     compute=ops.l2p_apply))
     timed("p2p", lambda: fmm.near_field(tree))
     timed("rebuild_tree", lambda: rebuild_tree(tree, tree.z))
     torch.cuda.synchronize()
@@ -4189,10 +4247,18 @@ def main() -> None:
     me0 = fmm.upward_sweep(tree0, p)
     m2l_rows = [check_m2l(me0[level], level, p), check_m2l(me0[2], 2, p)]
     del me0
+    # the leaf expansions: P2M at the lattice's leaves, L2P at the sources
+    # and at the probe grid, and Laplace's weights and two channels
+    leaf_rows = [check_p2m(tree0, p), check_l2p(tree0.z, tree0.mask, level, p),
+                 check_l2p(probes.z, probes.mask, level, p, name="l2p_probes"),
+                 check_p2m(tree_lap, 16, LAPLACE.p2m_coeff(16), name="p2m_laplace"),
+                 check_l2p(tree_lap.z, tree_lap.mask, level, 16, LAPLACE.l2p_modes,
+                           name="l2p_laplace")]
     # past the first limits: P2P's streaming form, M2L's wide form
     wide_p2p_rows = [check_p2p_wide(*case, dev) for case in WIDE_P2P_CASES]
     wide_m2l_rows = [check_m2l_wide(*case, dev) for case in WIDE_M2L_CASES]
-    for row in p2p_rows + lap_rows + passive_rows + m2l_rows + wide_p2p_rows + wide_m2l_rows:
+    for row in (p2p_rows + lap_rows + passive_rows + m2l_rows + leaf_rows + wide_p2p_rows
+                + wide_m2l_rows):
         emit({"phase": "kernel_vs_plain", **row})
     # the plain versions at the range forms' card-filling grids leave
     # gigabytes of (rows, cols, st, s) temporaries in the allocator's cache:
@@ -4244,9 +4310,13 @@ def main() -> None:
         require(hw.ok(health), f"step {i}: health {hw.describe(health)}")
         require(live == n_particles, f"step {i}: {live} live of {n_particles}")
     peak = torch.cuda.max_memory_allocated()
-    launches = {"p2p": p2p.LAUNCHES, "m2l": m2l.LAUNCHES}
+    launches = {"p2p": p2p.LAUNCHES, "m2l": m2l.LAUNCHES, "p2m": leaf.P2M_LAUNCHES,
+                "l2p": leaf.L2P_LAUNCHES}
     require(launches["p2p"] >= 2 * STEPS and launches["m2l"] >= 18 * STEPS,
             f"main path launches {launches}")
+    # every evaluation of phases 3 and 4 ran its leaf stages on the kernel
+    require(launches["p2m"] == launches["l2p"] == launches["p2p"],
+            f"main path leaf launches {launches}")
     require(fmm_counts()["p2p"] == {"base": launches["p2p"]},
             f"vortex path P2P launches by mode {fmm_counts()['p2p']}")
     stage_ms(tree, p)                      # warm

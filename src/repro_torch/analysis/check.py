@@ -141,6 +141,7 @@ def run_contracts_section(args):
     results += C.evaluate(p2p, [C.no_host_callback(), C.no_f64_upcast()] + (
         [C.launch_count("p2p", 1)] if card else []))
     per_eval = [C.launch_count("p2p", 1), C.launch_count("m2l", L - 1),
+                C.launch_count("p2m", 1), C.launch_count("l2p", 1),
                 C.no_plain_calls()] if card else []
     drv = C.Traced(fmm_velocity, tree, 6, device=dev, label="fmm_velocity")
     results += C.evaluate(drv, [C.sentinel_free(), C.no_host_callback(),
@@ -150,6 +151,7 @@ def run_contracts_section(args):
     results += C.evaluate(rk2, [C.sentinel_free(), C.not_donated("rk2"),
                                 C.no_host_callback(), C.no_f64_upcast()] + (
         [C.launch_count("p2p", 2), C.launch_count("m2l", 2 * (L - 1)),
+         C.launch_count("p2m", 2), C.launch_count("l2p", 2),
          C.no_plain_calls()] if card else []))
 
     # -- the batched serving entries at batch 2 -------------------------------
@@ -162,6 +164,7 @@ def run_contracts_section(args):
         results += C.evaluate(traced, [C.sentinel_free(), C.no_host_callback(),
                                        C.no_f64_upcast()] + (
             [C.launch_count("p2p", 1), C.launch_count("m2l", 2),
+             C.launch_count("p2m", 1), C.launch_count("l2p", 1),
              C.no_plain_calls()] if card else []))
 
     # -- the fused packed exchange: 4 directions on 2x2, 2 on degenerate axes -

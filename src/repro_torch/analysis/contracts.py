@@ -320,7 +320,8 @@ def collective_count(kind: str, count: Optional[int] = None, *,
 
 class _LaunchCount(_CountPin):
     """Launches of one hand-written kernel, by its counter's name (``p2p``
-    for every mode, ``p2p[base]``, ``m2l``, ``flash_tc`` ...)."""
+    for every mode, ``p2p[base]``, ``m2l``, ``p2m``, ``l2p``, ``flash_tc``
+    ...)."""
 
     def measure(self, traced: Traced) -> int:
         return int(traced.stats["launches"].get(self.what, 0))
@@ -333,8 +334,8 @@ def launch_count(kernel: str, count: Optional[int] = None, *,
 
 
 class _NoPlainCalls(TraceContract):
-    """No P2P or M2L call went to a kernel's plain version by request
-    (``ops.PLAIN_CALLS`` did not rise)."""
+    """No P2P, M2L, P2M or L2P call went to a kernel's plain version by
+    request (``ops.PLAIN_CALLS`` did not rise)."""
 
     name = "no_plain_calls"
 

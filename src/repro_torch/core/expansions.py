@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import spans
+from ..kernels import leaf_expansions as _leaf
 from .quadtree import M2L_OFFSETS, M2L_VALIDITY, PARENT_NEIGH8
 
 # Child offsets within a parent, (cy, cx) in {0,1}^2; delta_hat = (c_child -
@@ -155,17 +156,10 @@ def _as_op(op, default, p: int, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _powers(zhat: torch.Tensor, p: int) -> torch.Tensor:
-    """Stack [zhat^0, ..., zhat^(p-1)] along a new last axis."""
-    steps = [torch.ones_like(zhat)]
-    for _ in range(p - 1):
-        steps.append(steps[-1] * zhat)
-    return torch.stack(steps, dim=-1)
-
-
 def p2m(z: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
         centers: torch.Tensor, r: float, p: int,
-        coeff: np.ndarray | None = None) -> torch.Tensor:
+        coeff: np.ndarray | None = None,
+        compute=_leaf.p2m_plain) -> torch.Tensor:
     """Particles -> normalized MEs at the leaf level.  (..., n, n, s) ->
     (..., n, n, p); ``centers`` (n, n) broadcasts over the batch.
 
@@ -176,13 +170,12 @@ def p2m(z: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
     to ``2**level`` in size, and from level 9 at p=17 its power
     ``zhat**(p-1)`` overflows float32 — the zero charge times inf would
     make the box's ME NaN.
+
+    ``compute`` computes the boxes' sums: the plain version
+    (``kernels/leaf_expansions.py:p2m_plain``) here, the CUDA kernel's
+    dispatcher in ``kernels/ops.py``.
     """
-    zhat = torch.where(mask, (z - centers[..., None]) / r, 0)   # (n, n, s)
-    pw = _powers(zhat, p)                          # (n, n, s, p)
-    me = torch.einsum("...s,...sk->...k", torch.where(mask, q, 0), pw)
-    if coeff is not None:
-        me = me * torch.as_tensor(coeff, dtype=me.dtype, device=me.device)
-    return me
+    return compute(z, q, mask, centers, r, p, coeff)
 
 
 def m2m(me_child: torch.Tensor, p: int, op=None) -> torch.Tensor:
@@ -368,8 +361,8 @@ def l2l(le_parent: torch.Tensor, p: int, op=None) -> torch.Tensor:
 
 
 def l2p_eval(le: torch.Tensor, z: torch.Tensor, centers: torch.Tensor,
-             r: float, p: int, modes: tuple[str, ...] = ("value",)
-             ) -> torch.Tensor:
+             r: float, p: int, modes: tuple[str, ...] = ("value",),
+             compute=_leaf.l2p_plain) -> torch.Tensor:
     """Evaluate leaf LEs at particle positions, per channel.
 
     ``modes`` entries each emit one complex channel: ``"value"`` is the LE
@@ -378,17 +371,10 @@ def l2p_eval(le: torch.Tensor, z: torch.Tensor, centers: torch.Tensor,
     ``le`` (..., n, n, p) and ``z`` (..., n, n, s) share their leading
     batch axes; ``centers`` (n, n) broadcasts over them.  Returns
     (..., n, n, s) for one mode, (..., n, n, s, len(modes)) otherwise.
+    Every slot is evaluated, empty or not: the caller masks.
+
+    ``compute`` evaluates the boxes: the plain version
+    (``kernels/leaf_expansions.py:l2p_plain``) here, the CUDA kernel's
+    dispatcher in ``kernels/ops.py``.
     """
-    zhat = (z - centers[..., None]) / r
-    pw = _powers(zhat, p)                          # (n, n, s, p)
-    outs = []
-    for mode in modes:
-        if mode == "value":
-            outs.append(torch.einsum("...l,...sl->...s", le, pw))
-        elif mode == "ngrad":
-            lw = torch.arange(1, p, dtype=le.real.dtype, device=le.device)
-            outs.append(-torch.einsum("...l,...sl->...s", le[..., 1:] * lw,
-                                      pw[..., :p - 1]) / r)
-        else:
-            raise ValueError(f"unknown l2p mode {mode!r}")
-    return outs[0] if len(outs) == 1 else torch.stack(outs, dim=-1)
+    return compute(le, z, centers, r, p, modes)

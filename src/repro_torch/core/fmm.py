@@ -3,8 +3,9 @@
 Mirrors the paper's bird's-eye view (Fig 2): upward sweep (P2M, M2M),
 downward sweep (M2L, L2L), evaluation (L2P + near-field P2P), all on dense
 level grids.  M2L and P2P go through one slab-oriented path each
-(``m2l_slab_fn`` / ``p2p_slab_fn``), which dispatch by device: the CUDA
-kernels on the card, their plain PyTorch versions on the CPU.
+(``m2l_slab_fn`` / ``p2p_slab_fn``), P2M and L2P through
+``ops.p2m_apply`` / ``ops.l2p_apply``, all of which dispatch by device:
+the CUDA kernels on the card, their plain PyTorch versions on the CPU.
 
 Every kernel-specific piece comes from an
 :class:`~repro_torch.core.equations.EquationSpec`; the drivers never branch
@@ -214,15 +215,18 @@ def _centers_on(level: int, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
-def upward_sweep(tree: Tree, p: int, eq=None) -> list[torch.Tensor]:
+def upward_sweep(tree: Tree, p: int, eq=None,
+                 plain: bool = False) -> list[torch.Tensor]:
     """Build normalized MEs for every level; returns me[l] for l=0..L,
-    each ([B,] 2**l, 2**l, p)."""
+    each ([B,] 2**l, 2**l, p).  P2M runs through the CUDA kernel for CUDA
+    tensors (its plain version with ``plain``, CPU tensors only)."""
     eq = eqs.get_equation(eq)
     L = tree.level
     me = [None] * (L + 1)
     with spans.span("fmm.p2m", tree.device):
         me[L] = ex.p2m(tree.z, tree.q, tree.mask, _centers_on(L, tree.device),
-                       box_size(L), p, coeff=eq.p2m_coeff(p))
+                       box_size(L), p, coeff=eq.p2m_coeff(p),
+                       compute=functools.partial(kops.p2m_apply, plain=plain))
     with spans.span("fmm.m2m"):
         mop = ex.device_operator(eq.m2m_operator, p, tree.device)
         for l in range(L, 0, -1):
@@ -286,8 +290,8 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
     ``with_health=True`` additionally returns a ``health.N_FIELDS`` int32
     health word (non-finite sentinels on the leaf expansion coefficients
     and the masked output), as ``(out, health)``.  ``plain=True`` runs
-    P2P and M2L through the kernels' plain versions (the stepper's
-    ``reference`` rung) and raises on the card.
+    P2P, M2L, P2M and L2P through the kernels' plain versions (the
+    stepper's ``reference`` rung) and raises on the card.
     """
     eq = eqs.get_equation(eq)
     if targets is None and eq.needs_targets:
@@ -319,13 +323,14 @@ def fmm_evaluate(tree: Tree, p: int, eq=None, targets: Tree | None = None,
             return out
         return out, hw.with_flag(hw.empty(tree.device), hw.F_VEL,
                                  hw.nonfinite(out, out_mask))
-    me = upward_sweep(tree, p, eq)
+    me = upward_sweep(tree, p, eq, plain=plain)
     check_finite("upward_sweep", *me)
     le = downward_sweep(me, p, m2l_fn=m2l_grid_fn(p, eq, plain=plain))
     check_finite("downward_sweep", *le[2:])
     with spans.span("fmm.l2p", dev):
         far = ex.l2p_eval(le[L], tree.z if zt is None else zt,
-                          _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes)
+                          _centers_on(L, tree.device), box_size(L), p, eq.l2p_modes,
+                          compute=functools.partial(kops.l2p_apply, plain=plain))
     check_finite("l2p", far)
     with spans.span("fmm.p2p"):
         near = near_field(tree, p2p, zt, mt)

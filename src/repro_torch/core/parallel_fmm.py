@@ -37,8 +37,10 @@ same operations on the same inputs and agree bit for bit.
 
 On a ``gloo`` group every message is staged through host memory
 (``launch/mesh.py``); the kernels stay on the card.  M2L and P2P are the
-serial driver's slab functions (``fmm.m2l_slab_fn`` / ``fmm.p2p_slab_fn``):
-the CUDA kernels for CUDA tensors, their plain versions on the CPU.
+serial driver's slab functions (``fmm.m2l_slab_fn`` / ``fmm.p2p_slab_fn``),
+P2M and L2P ``ops.p2m_apply`` / ``ops.l2p_apply`` on the tile's own slice
+of the centres: the CUDA kernels for CUDA tensors, their plain versions on
+the CPU.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.backend import check_on
+from ..kernels import ops as kops
 from ..launch.mesh import Pending, RankMesh, make_local_mesh
 from . import equations as eqs
 from . import expansions as ex
@@ -217,7 +220,7 @@ def _parallel_fmm_body(z, q, mask, zt, mt, p2p_pre, *, plan: BlockPlan,
     # ---- upward sweep (padding has mask=False: its MEs stay zero) ---------
     mop = ex.device_operator(eq.m2m_operator, p, z.device)
     me = {L: ex.p2m(z, q, mask, my_centers, box_size(L), p,
-                    coeff=eq.p2m_coeff(p))}
+                    coeff=eq.p2m_coeff(p), compute=kops.p2m_apply)}
     for lv in range(L, l_cut, -1):
         me[lv - 1] = ex.m2m(me[lv], p, op=mop)
 
@@ -278,7 +281,7 @@ def _parallel_fmm_body(z, q, mask, zt, mt, p2p_pre, *, plan: BlockPlan,
 
     # ---- evaluation --------------------------------------------------------
     far = ex.l2p_eval(le_leaf, z if zt is None else zt, my_centers,
-                      box_size(L), p, eq.l2p_modes)
+                      box_size(L), p, eq.l2p_modes, compute=kops.l2p_apply)
     if overlap:
         near = fmm.p2p_tile_overlapped(p2p_slab, z, q, mask, p2p_ready, rows,
                                        cols, sigma, z_tgt=zt, mask_tgt=mt)

@@ -90,8 +90,8 @@ def rk2_step(tree: Tree, dt: float, payload=None, *, p: int, mesh=None,
     occupancy); ``guard=False`` returns ``health=None``.  ``faults`` is the
     tuple of active :class:`~repro_torch.core.faults.FaultSpec`s, injected
     after the first half kick (the empty tuple runs the injection-free
-    step).  ``plain=True`` runs P2P and M2L through the kernels' plain
-    versions, on the serial route and the CPU only.
+    step).  ``plain=True`` runs P2P, M2L, P2M and L2P through the kernels'
+    plain versions, on the serial route and the CPU only.
     """
     if mesh is not None and plain:
         raise ValueError("plain=True runs the serial route: pass mesh=None")

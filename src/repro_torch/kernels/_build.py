@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("p2p", "m2l", "flash_attn", "flash_attn_tc", "flash_attn_tf32")
+SOURCES = ("p2p", "m2l", "leaf_expansions", "flash_attn", "flash_attn_tc",
+           "flash_attn_tf32")
 SMS = 132   # the H100's streaming multiprocessors: the range forms' cluster splits
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DCARD_SMS={SMS}")

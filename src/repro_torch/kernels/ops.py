@@ -5,13 +5,16 @@ CPU tensor takes the kernel's plain PyTorch version.  There is no
 fallback from one to the other.  The M2L wrappers come in the grid form
 (zero ghost rows attached here) and the slab form (ghosts attached by the
 caller); both run ``expansions.m2l_folded`` with the kernel's contraction.
+``p2m_apply`` and ``l2p_apply`` are the leaf expansions' per-box
+computation, which ``expansions.p2m`` and ``expansions.l2p_eval`` take as
+``compute``.
 ``flash_attention`` serves the LM's prefill attention; it picks one of its
 three kernels by ``flash_attn.route`` (device, dtype, head dim).
 ``flash_attention_with_grad`` is the same call inside autograd, for
 training.
 
-Every P2P and M2L wrapper passes a leading batch axis through to its
-kernel: a batch of grids is one launch, and one count.
+Every P2P, M2L, P2M and L2P wrapper passes a leading batch axis through
+to its kernel: a batch of grids is one launch, and one count.
 
 ``plain=True`` runs the kernels' plain versions and is taken on CPU
 tensors only (a CUDA tensor raises): the stepper's recovery ladder asks
@@ -29,10 +32,11 @@ from .. import spans
 from ..core import equations as eqs
 from ..core import expansions as ex
 from . import flash_attn as _fa
+from . import leaf_expansions as _leaf
 from . import m2l as _m2l
 from . import p2p as _p2p
 
-PLAIN_CALLS = 0     # P2P and M2L calls made with plain=True since the last reset
+PLAIN_CALLS = 0     # P2P, M2L, P2M and L2P calls made with plain=True since the last reset
 
 
 def _count_plain(t: torch.Tensor) -> None:
@@ -113,6 +117,30 @@ def m2l_apply(me, level: int, p: int, eq=None, plain: bool = False):
     with spans.span("m2l.stage", me.device, level=level):
         me_halo = F.pad(me, (0, 0, 0, 0, ex.M2L_HALO, ex.M2L_HALO))
     return m2l_apply_slab(me_halo, level, p, eq=eq, plain=plain)
+
+
+def p2m_apply(z, q, mask, centers, r: float, p: int, coeff=None,
+              plain: bool = False):
+    """The leaf MEs, ``expansions.p2m``'s ``compute``: the P2M kernel for
+    CUDA tensors, its plain version for CPU tensors (and with ``plain``,
+    CPU tensors only)."""
+    if plain:
+        _count_plain(z)
+    if z.device.type == "cpu":
+        return _leaf.p2m_plain(z, q, mask, centers, r, p, coeff)
+    return _leaf.p2m_cuda(z, q, mask, centers, r, p, coeff)
+
+
+def l2p_apply(le, z, centers, r: float, p: int, modes=("value",),
+              plain: bool = False):
+    """The leaf LEs at the slots, ``expansions.l2p_eval``'s ``compute``: the
+    L2P kernel for CUDA tensors, its plain version for CPU tensors (and with
+    ``plain``, CPU tensors only)."""
+    if plain:
+        _count_plain(z)
+    if z.device.type == "cpu":
+        return _leaf.l2p_plain(le, z, centers, r, p, modes)
+    return _leaf.l2p_cuda(le, z, centers, r, p, modes)
 
 
 def flash_attention(q, k, v, causal: bool = True):

@@ -132,15 +132,17 @@ def input_tensors(obj) -> list:
 
 def kernel_counts() -> dict[str, int]:
     """The kernel wrappers' launch counters, by name: P2P by mode
-    (``p2p[base]`` ...), ``m2l`` and the three flash routes; the range
-    forms' subsets as ``p2p_stream`` and ``m2l_wide``."""
+    (``p2p[base]`` ...), ``m2l``, the leaf expansions' ``p2m`` and ``l2p``
+    and the three flash routes; the range forms' subsets as ``p2p_stream``
+    and ``m2l_wide``."""
     global _KERNELS
     if _KERNELS is None:
-        from ..kernels import flash_attn, m2l, p2p
-        _KERNELS = (flash_attn, m2l, p2p)
-    fa, m2l, p2p = _KERNELS
+        from ..kernels import flash_attn, leaf_expansions, m2l, p2p
+        _KERNELS = (flash_attn, m2l, p2p, leaf_expansions)
+    fa, m2l, p2p, leaf = _KERNELS
     out = {f"p2p[{m}]": n for m, n in p2p.LAUNCHES_BY_MODE.items()}
-    out.update({"m2l": m2l.LAUNCHES, "flash_simt": fa.LAUNCHES,
+    out.update({"m2l": m2l.LAUNCHES, "p2m": leaf.P2M_LAUNCHES,
+                "l2p": leaf.L2P_LAUNCHES, "flash_simt": fa.LAUNCHES,
                 "flash_tc": fa.TC_LAUNCHES, "flash_tf32": fa.TF32_LAUNCHES,
                 "p2p_stream": p2p.STREAM_LAUNCHES,
                 "m2l_wide": m2l.WIDE_LAUNCHES})

@@ -215,10 +215,12 @@ def test_launch_and_plain_call_contracts(tree):
     plain=True shows as plain calls."""
     plain = C.Traced(fmm_velocity, tree, 6, device=CPU, plain=True)
     default = C.Traced(fmm_velocity, tree, 6, device=CPU)
-    assert plain.plain_calls == 3 and default.plain_calls == 0
+    # level 3: one P2P, one P2M, one L2P and an M2L at levels 2 and 3
+    assert plain.plain_calls == 5 and default.plain_calls == 0
     assert not C.evaluate(plain, [C.no_plain_calls()])[0].ok
     assert C.evaluate(default, [C.no_plain_calls(), C.launch_count("m2l", 0),
-                                C.launch_count("p2p", 0)])[0].ok
+                                C.launch_count("p2p", 0), C.launch_count("p2m", 0),
+                                C.launch_count("l2p", 0)])[0].ok
     assert not C.evaluate(default, [C.launch_count("m2l", 2)])[0].ok
 
 

@@ -233,8 +233,9 @@ def test_transient_fault_recovers_on_the_reference_rung():
     ops.PLAIN_CALLS = 0
     port, precs = _port(_specs(flt, *specs), policy=st.RecoveryPolicy(**pol))
     level = port.params.level
-    # one rk2 attempt: two evaluations, each one P2P and level - 1 M2L
-    assert ops.PLAIN_CALLS == 2 * (1 + level - 1)
+    # one rk2 attempt: two evaluations, each one P2P, one P2M, one L2P and
+    # level - 1 M2L
+    assert ops.PLAIN_CALLS == 2 * (3 + level - 1)
     ref, rrecs = _ref(_specs(jflt, *specs), policy=jst.RecoveryPolicy(**pol))
     assert precs[1].recovered == "reference"
     _same_records(precs, rrecs)

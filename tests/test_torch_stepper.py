@@ -6,6 +6,7 @@ the rebinned trees must then agree in every mask bit, and positions to
 1e-6 absolute.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -132,11 +133,12 @@ def test_rk2_step_plain_route_equals_the_default_on_cpu():
     assert ops.PLAIN_CALLS == 0
     plain = rk2_step(tt, 0.01, p=8, guard=True, plain=True, device="cpu")
     _assert_same(_tree_state(plain), _tree_state(base))
-    # two evaluations, each one P2P and one M2L per level 2..3
-    assert ops.PLAIN_CALLS == 2 * (1 + 2)
+    # two evaluations, each one P2P, one P2M, one L2P and one M2L per
+    # level 2..3
+    assert ops.PLAIN_CALLS == 2 * (3 + 2)
 
 
-@pytest.mark.parametrize("kernel", ["p2p", "m2l"])
+@pytest.mark.parametrize("kernel", ["p2p", "m2l", "p2m", "l2p"])
 def test_plain_route_refuses_tensors_off_the_cpu(kernel):
     """``plain=True`` is the CPU's route: a tensor on any other device
     (here the meta device, which has no data) raises before a plain call
@@ -148,10 +150,20 @@ def test_plain_route_refuses_tensors_off_the_cpu(kernel):
         z = torch.zeros(6, 6, 8, dtype=torch.complex64, device="meta")
         mask = torch.zeros(6, 6, 8, dtype=torch.bool, device="meta")
         call = lambda: ops.p2p_apply_slab(z, z, mask, 0.01, plain=True)  # noqa: E731
-    else:
+    elif kernel == "m2l":
         me = torch.zeros(4 + 2 * ex.M2L_HALO, 4, 8, dtype=torch.complex64,
                          device="meta")
         call = lambda: ops.m2l_apply_slab(me, 2, 8, plain=True)  # noqa: E731
+    else:
+        z = torch.zeros(4, 4, 8, dtype=torch.complex64, device="meta")
+        mask = torch.zeros(4, 4, 8, dtype=torch.bool, device="meta")
+        cen = torch.zeros(4, 4, dtype=torch.complex64, device="meta")
+        le = torch.zeros(4, 4, 6, dtype=torch.complex64, device="meta")
+        p2m = functools.partial(ops.p2m_apply, plain=True)
+        l2p = functools.partial(ops.l2p_apply, plain=True)
+        call = ((lambda: ex.p2m(z, z, mask, cen, 0.25, 6, compute=p2m))  # noqa: E731
+                if kernel == "p2m" else
+                (lambda: ex.l2p_eval(le, z, cen, 0.25, 6, compute=l2p)))  # noqa: E731
     with pytest.raises(ValueError, match="CPU tensors only"):
         call()
     assert ops.PLAIN_CALLS == 0
